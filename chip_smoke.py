@@ -1,0 +1,290 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py            # about one to two minutes
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the native host library and the CUDA kernel from the checkout,
+     in parallel, with their build times;
+  3. the AC trellis kernel against its plain PyTorch version on the card,
+     exactly: on the inputs that one 768x512 group and the 1021x683 group
+     give it, on a seeded tie-stress input and on bands (1, 8) and
+     (9, 63); the card's lambda of both groups against the CPU's and
+     numpy's, exactly;
+  4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
+     photo-like images on the card, warm-up first; every output starts
+     with SOI and ends with EOI, and the first and last image of each
+     shape are byte-equal to the port's device="cpu" path;
+  5. timings: median MP/s over 3 reps, per-stage times of one group
+     (synchronised instrumented pass), the kernel's time per group beside
+     its plain version's and its bound;
+  6. the kernels line, then {"ok": true, "device": ...} as the last line.
+The launch counts are set to 0 just before the first timed main-path run
+and read just after it. It needs no network and imports no JAX.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+H100_F32_OPS = 67e12       # FP32 peak outside the tensor cores (data sheet)
+H100_BYTES = 3.35e12       # HBM3 bytes/s (data sheet)
+KERNEL_REPLACES = "mozjpeg_tpu/ops/pallas_trellis.py:242"
+KERNEL_SOURCE = "mozjpeg_tpu_torch/csrc/trellis_ac.cu"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def photo(h, w, seed):
+    """Seeded photo-like RGB: smooth gradients, hard edges, a saturated
+    white patch (drives the deringing) and sensor-like noise."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    fx, fy = r.uniform(0.5, 3.0, 2)
+    img = np.stack([
+        127 + 100 * np.sin(fx * np.pi * xx / w + r.uniform(0, 6)),
+        127 + 100 * np.cos(fy * np.pi * yy / h + r.uniform(0, 6)),
+        255 * (xx + yy) / (w + h)], -1)
+    for _ in range(6):                       # flat-coloured rectangles
+        y0, x0 = r.integers(0, h - 8), r.integers(0, w - 8)
+        img[y0:y0 + r.integers(8, h // 3), x0:x0 + r.integers(8, w // 3)] = \
+            r.uniform(0, 255, 3)
+    y0, x0 = r.integers(0, h // 2), r.integers(0, w // 2)
+    img[y0:y0 + h // 5, x0:x0 + w // 6] = 255   # clipped highlight
+    img += r.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def cuda_ms(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def trellis_bound(args):
+    """(bytes, f32 operations) the AC trellis needs on these inputs: each
+    input read once and output written once; per block, for every in-band
+    i with qval_i != 0, each valid predecessor j < i and each of the nc_i
+    bit lengths costs 3 ops (two adds, one compare), each (i, j) pair 2
+    (the tail) and each (i, k) pair 2 (the distortion products)."""
+    import torch
+    from mozjpeg_tpu_torch.ops.symbols import nbits
+    raw, qtbl, ltbl, luts, lam, ss, se, _ = args
+    n = raw.shape[1]
+    nbytes = (raw.numel() * 4 + lam.numel() * 4 + luts.numel() * 4
+              + 64 * 8 + n * 64 * 4 + n * 8 * 4)
+    q8 = (qtbl << 3)[:, None]
+    qval = torch.clamp_max((raw.abs() + (q8 >> 1)) // q8, 1023)
+    pos = torch.arange(64, device=raw.device)[:, None]
+    in_band = (pos >= ss) & (pos <= se)
+    jvalid = ((qval != 0) & in_band) | (pos == ss - 1)
+    nj = torch.cumsum(jvalid.to(torch.int64), 0) - jvalid.to(torch.int64)
+    live = (qval != 0) & in_band
+    nc = nbits(qval).to(torch.int64)
+    ops = torch.where(live, 3 * nj * nc + 2 * nj + 2 * nc, 0).sum()
+    return nbytes, float(ops)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import encoder, trellis
+    from mozjpeg_tpu_torch.native import build as nbuild
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 1. the card ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log("torch %s cuda %s on %s" % (torch.__version__, torch.version.cuda,
+                                    torch.cuda.get_device_name(0)))
+
+    # ---- 2. builds, in parallel ----
+    with ThreadPoolExecutor(2) as ex:
+        f_nat = ex.submit(nbuild.build_native)
+        f_ker = ex.submit(tac.build)
+        log("build: native %.1f s, trellis_ac kernel %.1f s"
+            % (f_nat.result(), f_ker.result()))
+
+    # ---- 3. kernel vs plain on the card ----
+    cfg = mjt.EncoderConfig(quality=75)
+    kodak = [photo(512, 768, 100 + i) for i in range(16)]
+    odd = [photo(683, 1021, 200 + i) for i in range(3)]
+    ctx = encoder.resolve_group(kodak[0], cfg)
+    rec_k, rec_o = {}, {}
+    with ThreadPoolExecutor(8) as pool:
+        for group, rec in ((kodak[:8], rec_k), (odd, rec_o)):
+            for f in encoder.encode_group(group, ctx, dev, pool,
+                                          record=rec):
+                f.result()
+    recorded = rec_k["trellis_ac"]          # one 768x512 group: Y, Cb, Cr
+    for rec in (rec_k, rec_o):
+        if len(rec["trellis_ac"]) != 3:
+            raise SystemExit("expected 3 trellis_ac calls per group, saw %d"
+                             % len(rec["trellis_ac"]))
+
+    def compare(args, label):
+        nb_k, ei_k = tac.trellis_ac(*args)
+        nb_p, ei_p = tac.trellis_ac_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((nb_k - nb_p).abs().max()),
+                  float((ei_k - ei_p).abs().max()))
+        exact = torch.equal(nb_k, nb_p) and torch.equal(ei_k, ei_p)
+        log("kernel vs plain [%s] N=%d band=(%d,%d): exact=%s max_abs_err=%g"
+            % (label, args[0].shape[1], args[5], args[6], exact, err))
+        if not exact:
+            raise SystemExit("trellis_ac kernel disagrees with its plain "
+                             "version (%s)" % label)
+        return err
+
+    max_err = 0.0
+    for shape, rec in (("768x512", rec_k), ("1021x683", rec_o)):
+        for name, args in zip(("Y", "Cb", "Cr"), rec["trellis_ac"]):
+            max_err = max(max_err, compare(
+                args, "main path %s %s" % (shape, name)))
+    rng = np.random.default_rng(99)
+    b_t, n_img = 2, 4096
+    vals = np.array([0, 8, 16, 64, 256, 1024], np.int32)
+    raw = (vals[rng.integers(0, len(vals), (64, b_t * n_img))]
+           * rng.choice([-1, 1], (64, b_t * n_img))).astype(np.int32)
+    qz = np.clip(rng.integers(1, 32, 64), 1, 255).astype(np.int32)
+    si = rng.integers(2, 17, (b_t, 256)).astype(np.int32)
+    si[:, 0] = rng.integers(2, 10, b_t)
+    si[1, 0xF0] = 0
+    tie = (torch.as_tensor(raw, device=dev), torch.as_tensor(qz, device=dev),
+           torch.as_tensor(trellis.recip2_table()[qz], device=dev),
+           trellis.rate_lut(torch.as_tensor(si, device=dev)),
+           torch.full((b_t * n_img,), 2.0, device=dev))
+    for band in ((1, 63), (1, 8), (9, 63)):
+        max_err = max(max_err, compare(tie + band + (n_img,), "tie-stress"))
+    for band in ((1, 8), (9, 63)):
+        a = recorded[0]
+        max_err = max(max_err, compare(a[:5] + band + a[7:], "main Y band"))
+
+    # the main path's lambda on the card vs the CPU and numpy, exactly
+    s1, s2 = ctx.cfg.lambda_log_scale1, ctx.cfg.lambda_log_scale2
+    for shape, rec in (("768x512", rec_k), ("1021x683", rec_o)):
+        for ci, (nrm, lam_card) in enumerate(rec["lambda"]):
+            lam_card = lam_card.cpu()
+            lam_cpu = trellis.lambda_from_norm_t(nrm.cpu(), s1, s2)
+            n_h = nrm.cpu().numpy()
+            lam_np = ((np.float64(2.0) ** s1)
+                      / (np.float64(2.0) ** s2
+                         + (n_h / np.float32(63.0)).astype(np.float64))
+                      ).astype(np.float32)
+            ok = (torch.equal(lam_card, lam_cpu)
+                  and np.array_equal(lam_card.numpy(), lam_np))
+            log("lambda card vs cpu vs numpy [%s comp %d] N=%d: exact=%s"
+                % (shape, ci, nrm.numel(), ok))
+            if not ok:
+                raise SystemExit("lambda on the card differs from the CPU's")
+
+    # ---- 4. the slice ----
+    images = kodak + odd
+    mp = sum(im.shape[0] * im.shape[1] for im in images) / 1e6
+    mjt.encode_many(images, cfg)                       # warm-up
+    torch.cuda.synchronize()
+    tac.trellis_ac.launches = 0
+    t0 = time.perf_counter()
+    outs = mjt.encode_many(images, cfg)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches = tac.trellis_ac.launches
+    log("main path: %d images, %.3f MP, trellis_ac launches=%d"
+        % (len(images), mp, launches))
+    if launches <= 0:
+        raise SystemExit("the main path never launched the trellis kernel")
+    for o in outs:
+        if not (o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"):
+            raise SystemExit("output without SOI/EOI")
+    checked = (0, 7, len(kodak), len(images) - 1)
+    cpus = mjt.encode_many([images[i] for i in checked], cfg, device="cpu")
+    for i, cpu in zip(checked, cpus):
+        same = cpu == outs[i]
+        log("card vs cpu bytes [image %d, %dx%d]: equal=%s (%d bytes)"
+            % (i, images[i].shape[1], images[i].shape[0], same, len(cpu)))
+        if not same:
+            raise SystemExit("card output differs from the CPU path")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = mjt.encode_many(images, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if again != outs:
+            raise SystemExit("outputs differ between runs")
+    mps = [mp / w for w in walls]
+    log("encode_many MP/s: median %.3f (reps %s)"
+        % (statistics.median(mps), ", ".join("%.3f" % v for v in mps)))
+
+    # ---- 5. stage times of one group, kernel and plain times ----
+    times = {}
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        encoder.encode_group(kodak[:8], ctx, dev, pool, times=times)
+        group_s = time.perf_counter() - t0
+    log("stages of one 8x768x512 group (ms): %s; total %.1f"
+        % (json.dumps({k: round(v * 1e3, 3) for k, v in times.items()}),
+           group_s * 1e3))
+
+    def group_kernel():
+        for a in recorded:
+            tac.trellis_ac(*a)
+
+    def group_plain():
+        for a in recorded:
+            tac.trellis_ac_plain(*a)
+
+    k_ms = cuda_ms(group_kernel, 10)
+    p_ms = cuda_ms(group_plain, 2)
+    y_ms = cuda_ms(lambda: tac.trellis_ac(*recorded[0]), 10)
+    nbytes, ops = 0, 0.0
+    for a in recorded:
+        b_, o_ = trellis_bound(a)
+        nbytes += b_
+        ops += o_
+    bound_ms = max(nbytes / H100_BYTES, ops / H100_F32_OPS) * 1e3
+    log("trellis_ac per group (3 launches): kernel %.3f ms, plain %.3f ms, "
+        "bound %.4f ms (%.3g ops, %d bytes); Y launch (N=%d) %.3f ms"
+        % (k_ms, p_ms, bound_ms, ops, nbytes, recorded[0][0].shape[1], y_ms))
+
+    # ---- 6. result lines ----
+    log(json.dumps({"kernels": [{
+        "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": max_err, "exact": max_err == 0.0,
+        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound_ms,
+        "bound_by": ("operations" if ops / H100_F32_OPS
+                     >= nbytes / H100_BYTES else "bytes"),
+        "library_ms": None}]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of the mozjpeg_tpu encoder.
+
+Byte-identical to mozjpeg_tpu for the configurations it carries (see
+codec/encoder.py); it imports neither jax nor mozjpeg_tpu. The AC trellis
+runs as a hand-written CUDA kernel (csrc/trellis_ac.cu); the rest of the
+device work is PyTorch, and the host work is the shared C++ engine built
+into the port's own library.
+
+    import mozjpeg_tpu_torch as mjt
+    jpegs = mjt.encode_many(images, mjt.EncoderConfig(quality=75))
+"""
+from .codec.config import DCTMethod, EncoderConfig, Profile
+from .codec.encoder import encode_many
+
+__all__ = ["DCTMethod", "EncoderConfig", "Profile", "encode_many"]

@@ -1,0 +1,195 @@
+"""Encoder configuration: the JAX package's parameter surface, field for field.
+
+Port of mozjpeg_tpu/codec/config.py. Defaults follow jpeg_set_defaults
+with JCP_MAX_COMPRESSION (mozjpeg jcparam.c:387-518): progressive +
+trellis + optimize_scans + optimized Huffman + overshoot deringing +
+quant table 3. The JAX package's backend and attachment probes decide
+TPU-tunnel engines (device entropy, device scan search, sparse and
+transport downloads, plane packing); the port has none of those engines
+yet, so their "auto" resolves to off here, and an explicit request for
+one is refused by the encoder (codec/encoder.py _check_slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Sequence, Tuple
+
+
+class Profile(enum.Enum):
+    MAX_COMPRESSION = "max"    # mozjpeg default
+    FASTEST = "fastest"        # libjpeg-turbo-compatible ("-revert")
+
+
+class DCTMethod(enum.Enum):
+    ISLOW = "islow"
+    IFAST = "ifast"
+    FLOAT = "float"
+
+
+@dataclasses.dataclass
+class EncoderConfig:
+    quality: object = 75.0
+    profile: Profile = Profile.MAX_COMPRESSION
+    precision: int = 8
+
+    subsampling: Tuple[int, int] = (2, 2)   # (h, v) for luma; chroma 1x1
+    gray_sample: Optional[Tuple[int, int]] = None
+    grayscale: bool = False
+    colorspace: Optional[str] = None
+
+    progressive: Optional[bool] = None      # None = profile default
+    optimize_coding: Optional[bool] = None
+    optimize_scans: Optional[bool] = None
+    arithmetic: bool = False
+    restart_interval: int = 0
+    restart_in_rows: int = 0
+    icc: Optional[bytes] = None
+    dc_scan_opt_mode: int = 0
+    density: tuple = (0, 1, 1)
+    write_jfif: bool = True
+
+    quant_tbl_idx: Optional[int] = None     # None = profile default (3 or 0)
+    force_baseline: bool = False
+    smoothing_factor: int = 0
+    base_quant_tables: Optional[Sequence] = None
+    qslots: Optional[Sequence[int]] = None
+
+    trellis_quant: Optional[bool] = None
+    trellis_quant_dc: bool = True
+    trellis_eob_opt: bool = False
+    trellis_q_opt: bool = False
+    use_lambda_weight_tbl: bool = True
+    use_scans_in_trellis: bool = False
+    trellis_freq_split: int = 8
+    trellis_num_loops: int = 1
+    trellis_delta_dc_weight: float = 0.0
+    lambda_log_scale1: float = 14.75
+    lambda_log_scale2: float = 16.5
+
+    overshoot_deringing: Optional[bool] = None
+
+    dct_method: DCTMethod = DCTMethod.ISLOW
+    scan_script: Optional[Sequence] = None
+
+    # engine selections of the JAX package (None = auto = off in the port)
+    device_entropy: Optional[bool] = None
+    device_scanopt: Optional[bool] = None
+    deployment: str = "auto"
+    sparse_download: Optional[bool] = None
+    host_prep: Optional[bool] = None
+    plane_pack: Optional[bool] = None
+    coef_transport: Optional[bool] = None
+
+    @classmethod
+    def from_fields(cls, d: dict) -> "EncoderConfig":
+        """Build from dataclasses.asdict() of a JAX EncoderConfig; enum
+        fields may come as enum members of either package or as values."""
+        kw = dict(d)
+        for name, enum_cls in (("profile", Profile),
+                               ("dct_method", DCTMethod)):
+            if name in kw:
+                v = kw[name]
+                kw[name] = enum_cls(getattr(v, "value", v))
+        return cls(**kw)
+
+    def resolved(self) -> "ResolvedConfig":
+        if self.precision not in (8, 12):
+            raise ValueError(
+                "lossy data precision must be 8 or 12 (16 is lossless-only), "
+                "got %r" % (self.precision,))
+        maxc = self.profile == Profile.MAX_COMPRESSION
+        deep = self.precision > 8
+
+        def pick(v, default):
+            return v if v is not None else default
+
+        return ResolvedConfig(
+            quality=self.quality,
+            precision=self.precision,
+            subsampling=tuple(self.subsampling),
+            gray_sample=self.gray_sample,
+            grayscale=self.grayscale,
+            colorspace=self.colorspace,
+            progressive=pick(self.progressive, maxc),
+            optimize_coding=True if deep else pick(self.optimize_coding,
+                                                   maxc),
+            optimize_scans=pick(self.optimize_scans, maxc),
+            arithmetic=self.arithmetic and not deep,
+            restart_interval=self.restart_interval,
+            restart_in_rows=self.restart_in_rows,
+            icc=self.icc,
+            dc_scan_opt_mode=self.dc_scan_opt_mode,
+            density=self.density,
+            write_jfif=self.write_jfif,
+            quant_tbl_idx=pick(self.quant_tbl_idx, 3 if maxc else 0),
+            force_baseline=self.force_baseline,
+            smoothing_factor=self.smoothing_factor,
+            base_quant_tables=self.base_quant_tables,
+            qslots=tuple(self.qslots) if self.qslots else None,
+            trellis_quant=pick(self.trellis_quant, maxc),
+            trellis_quant_dc=self.trellis_quant_dc,
+            trellis_eob_opt=self.trellis_eob_opt,
+            trellis_q_opt=self.trellis_q_opt,
+            use_lambda_weight_tbl=self.use_lambda_weight_tbl,
+            use_scans_in_trellis=self.use_scans_in_trellis,
+            trellis_freq_split=self.trellis_freq_split,
+            trellis_num_loops=self.trellis_num_loops,
+            trellis_delta_dc_weight=self.trellis_delta_dc_weight,
+            lambda_log_scale1=self.lambda_log_scale1,
+            lambda_log_scale2=self.lambda_log_scale2,
+            overshoot_deringing=pick(self.overshoot_deringing, maxc),
+            dct_method=self.dct_method,
+            scan_script=self.scan_script,
+            device_entropy=bool(self.device_entropy),
+            device_scanopt=bool(self.device_scanopt),
+            sparse_download=bool(self.sparse_download),
+            host_prep=pick(self.host_prep, True),
+            plane_pack=bool(self.plane_pack),
+            coef_transport=bool(self.coef_transport),
+        )
+
+
+@dataclasses.dataclass
+class ResolvedConfig:
+    quality: float
+    precision: int
+    subsampling: Tuple[int, int]
+    gray_sample: Optional[Tuple[int, int]]
+    grayscale: bool
+    colorspace: Optional[str]
+    progressive: bool
+    optimize_coding: bool
+    optimize_scans: bool
+    arithmetic: bool
+    restart_interval: int
+    restart_in_rows: int
+    icc: Optional[bytes]
+    density: tuple
+    write_jfif: bool
+    dc_scan_opt_mode: int
+    quant_tbl_idx: int
+    force_baseline: bool
+    smoothing_factor: int
+    base_quant_tables: Optional[Sequence]
+    qslots: Optional[Tuple[int, ...]]
+    trellis_quant: bool
+    trellis_quant_dc: bool
+    trellis_eob_opt: bool
+    trellis_q_opt: bool
+    use_lambda_weight_tbl: bool
+    use_scans_in_trellis: bool
+    trellis_freq_split: int
+    trellis_num_loops: int
+    trellis_delta_dc_weight: float
+    lambda_log_scale1: float
+    lambda_log_scale2: float
+    overshoot_deringing: bool
+    dct_method: DCTMethod
+    scan_script: Optional[Sequence]
+    device_entropy: bool
+    device_scanopt: bool
+    sparse_download: bool
+    host_prep: bool
+    plane_pack: bool
+    coef_transport: bool

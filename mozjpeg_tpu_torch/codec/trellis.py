@@ -1,0 +1,203 @@
+"""Trellis quantization program: lambdas, rate tables, AC and DC trellis.
+
+Port of the mozjpeg_tpu/codec/trellis.py pieces that the main path runs
+(the make_trellis_all_t program with the AC kernel and host-built rate
+tables, i.e. use_pallas=True and dev_first=None): mozjpeg's
+rate-distortion Viterbi (jcdctmgr.c:936-1330 quantize_trellis).
+
+  - lambda_from_norm_t: per-block lambda from the p1 norm sums, the host
+    chain of trellis.lambda_from_norm in float64 torch on the device;
+  - trellis_tables_from_hist: per-image AC code lengths from the AC-first
+    histogram (native Annex-K tablegen) and the standard DC lengths;
+  - rate_lut: the run-indexed (B, 128, 16) rate table of the AC kernel;
+  - trellis_dc_rows: the DC DP over independent block rows, lastDC chained
+    through each row and reset per iMCU row (jccoefct.c:417-419);
+  - trellis_all: every component's AC band trellis (ops/trellis_ac.py) and
+    DC trellis with the per-image phase split.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..entropy import encode as entenc
+from ..entropy.huffman import derive_codes
+from ..ops import trellis_ac as _ac
+from ..ops.symbols import nbits
+from .stages import stage
+
+DC_CAND_MAX = 9    # DC_TRELLIS_MAX_CANDIDATES
+MAXQ = 1023        # largest 8-bit coefficient magnitude
+
+
+@functools.lru_cache(maxsize=1)
+def recip2_table() -> np.ndarray:
+    """IEEE f32 1/(q*q) for q in [0, 32767] (host numpy division), the
+    table the JAX package reads instead of dividing on a device."""
+    q = np.arange(32768, dtype=np.float32)
+    with np.errstate(divide="ignore"):
+        return np.float32(1.0) / (q * q)
+
+
+def lambda_from_norm_t(norm_sum: torch.Tensor, s1: float, s2: float
+                       ) -> torch.Tensor:
+    """Per-block lambda from the sequential f32 norm sums (N,) f32:
+    f32 norm/63, then 2^s1 / (2^s2 + norm) in float64, rounded to f32.
+    Both divisions are tensor-by-tensor (IEEE on every device; PyTorch
+    turns a division by a Python scalar into a reciprocal product)."""
+    norm = torch.div(norm_sum, torch.full_like(norm_sum, 63.0))
+    if s2 > 0:
+        num = torch.full_like(norm, 2.0 ** s1, dtype=torch.float64)
+        lam = torch.div(num, (2.0 ** s2) + norm.to(torch.float64))
+    else:
+        lam = torch.full_like(norm, 2.0 ** (s1 - 12.0), dtype=torch.float64)
+    return lam.to(torch.float32)
+
+
+def trellis_tables_from_hist(achist: np.ndarray, tbl_slot: int):
+    """Optimized-coding rate tables for the trellis pass: (ac_si, dc_si)
+    int32 code lengths; AC from the AC-first histogram, DC standard."""
+    from .encoder import STD_TABLES
+    f = np.zeros(257, np.int64)
+    f[:256] = np.asarray(achist).astype(np.int64)
+    for run in range(16):
+        for size in range(12):
+            f[16 * run + size] += 1
+    _, ac_si = derive_codes(entenc.gen_optimal_table(f))
+    _, dc_si = derive_codes(STD_TABLES[(0, tbl_slot)])
+    return ac_si.astype(np.int32), dc_si.astype(np.int32)
+
+
+def get_num_dc_candidates(q0: int) -> int:
+    return min(DC_CAND_MAX, (2 + 60 // q0) | 1)
+
+
+def rate_lut(ac_si: torch.Tensor, kmax: int = _ac.KMAX) -> torch.Tensor:
+    """ac_si (B, 256) int32 -> (B, 128, 16) f32 with [b, 63-run, k] =
+    ehufsi[16*(run&15) + k+1] + (k+1) + (run>>4)*zrl_len, BIG where
+    invalid (code length 0, run >= 16 without a ZRL code, row >= 64 i.e.
+    run < 0, k >= kmax), and the EOB code length at [b, 127, 0]."""
+    dev = ac_si.device
+    f = ac_si.to(torch.float32)
+    tt = torch.arange(128, device=dev)[:, None]
+    kk = torch.arange(_ac.RR_K, device=dev)[None, :]
+    r = 63 - tt
+    rpos = r.clamp_min(0)
+    sym = (16 * (rpos & 15) + kk + 1).clamp_max(255)   # k >= kmax: masked
+    cl = f[:, sym]                                     # (B, 128, 16)
+    zrl = f[:, 0xF0][:, None, None]
+    rb = (rpos >> 4).to(torch.float32)[None] * zrl
+    ok = (((r >= 0) & (kk < kmax))[None] & (cl > 0)
+          & ((r < 16)[None] | (zrl > 0)))
+    lut = torch.where(ok, (cl + (kk + 1).to(torch.float32)[None]) + rb,
+                      torch.tensor(_ac.BIGF, dtype=torch.float32,
+                                   device=dev))
+    lut[:, 127, 0] = f[:, 0]
+    return lut.contiguous()
+
+
+def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int):
+    """DC trellis over a batch of independent block rows.
+
+    raw_dc (R, L) int32 unquantized DC (x8); last_dc0 (R,) int32 initial
+    predictor per row; dc_si (256,) int32; lam_dc (R, L) f32 (lambda *
+    1/q0^2) -> ((R, L) int32 chosen quantized DC, (R,) int32 last DC).
+    The DP runs one step per block column; ties go to the first index."""
+    dev = raw_dc.device
+    R, L = raw_dc.shape
+    q8 = q0 * 8
+    sign = torch.where(raw_dc < 0, -1, 1).to(torch.int32)
+    x = raw_dc.abs()
+    qval = (x + q8 // 2) // q8
+    ks = torch.arange(nc, dtype=torch.int32, device=dev)
+    cand_mag = torch.clamp(qval[..., None] - nc // 2 + ks, -MAXQ, MAXQ)
+    delta = cand_mag * q8 - x[..., None]
+    dist = (delta * delta).to(torch.float32) * lam_dc[..., None]
+    cand = cand_mag * sign[..., None]                  # (R, L, nc) signed
+
+    def trans_cost(d):
+        # nbits(|d|) + dc code length of that category, exact in f32
+        b = nbits(d.abs())
+        return (b + dc_si[b.to(torch.int64)]).to(torch.float32)
+
+    acc = trans_cost(cand[:, 0, :] - last_dc0[:, None]) + dist[:, 0, :]
+    # every later step's transition + distortion terms at once:
+    # step[r, t, l, k] for previous candidate l -> candidate k
+    step = (trans_cost(cand[:, 1:, None, :] - cand[:, :-1, :, None])
+            + dist[:, 1:, None, :])
+    bts = torch.zeros((L, R, nc), dtype=torch.int64, device=dev)
+    for t in range(1, L):
+        cost = step[:, t - 1] + acc[:, :, None]        # (R, l_prev, k)
+        bt = cost.argmin(1)
+        bts[t] = bt
+        acc = torch.gather(cost, 1, bt[:, None])[:, 0]
+    cur = acc.argmin(1)
+    curs = torch.empty((R, L), dtype=torch.int64, device=dev)
+    for t in range(L - 1, -1, -1):
+        curs[:, t] = cur
+        if t:
+            cur = torch.gather(bts[t], 1, cur[:, None])[:, 0]
+    out = torch.gather(cand, 2, curs[..., None])[..., 0]
+    return out, out[:, -1]
+
+
+def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
+                batch: int, times=None, record=None):
+    """Trellis every component of a batch of same-shape images: the AC
+    band (1, 63), then the DC.
+
+    raws/qs: per component (64, B*n) int32 / int16 image-major planes;
+    lams: per component (B*n,) f32; ac_sis: per component (B, 256) int32;
+    dc_sis: per component (256,) int32; qtbl_zzs: per component (64,)
+    int32 numpy zigzag quant tables. Returns the final (64, B*n) int16
+    planes. `times` (dict) accumulates synchronised stage seconds;
+    record["trellis_ac"] (dict `record`) gets each kernel call's args."""
+    dev = raws[0].device
+    recip = recip2_table()
+    outs = []
+    with stage(times, "trellis_ac", dev):
+        luts_all = rate_lut(torch.cat(list(ac_sis), 0))
+        pos = torch.arange(64, device=dev)[:, None]
+        for ci, g in enumerate(geoms):
+            qz = np.asarray(qtbl_zzs[ci], np.int32)
+            qz_t = torch.as_tensor(qz, device=dev)
+            ltbl_t = torch.as_tensor(recip[qz], device=dev)
+            lut = luts_all[ci * batch:(ci + 1) * batch]
+            args = (raws[ci], qz_t, ltbl_t, lut, lams[ci], 1, 63,
+                    g.bh * g.bw)
+            if record is not None:
+                record.setdefault("trellis_ac", []).append(args)
+            new_band, _ = _ac.trellis_ac(*args)
+            outs.append(torch.where(pos >= 1, new_band.to(torch.int16),
+                                    qs[ci]))
+    with stage(times, "trellis_dc", dev):
+        for ci, g in enumerate(geoms):
+            q0 = int(qtbl_zzs[ci][0])
+            ltbl0 = float(recip[q0])
+            dc_si = torch.as_tensor(np.asarray(dc_sis[ci], np.int32),
+                                    device=dev)
+            # phases are split PER IMAGE: with bh % v != 0 a flat stride-v
+            # slice would mix phases across image boundaries
+            lam_dc_full = (lams[ci] * ltbl0).reshape(batch, g.bh, g.bw)
+            raw_dc = raws[ci][0].reshape(batch, g.bh, g.bw)
+            v = g.v
+            dc_all = torch.empty((batch, g.bh, g.bw), dtype=torch.int32,
+                                 device=dev)
+            prev = None
+            for p in range(v):
+                rr = raw_dc[:, p::v]
+                nph = rr.shape[1]
+                init = (torch.zeros(batch * nph, dtype=torch.int32,
+                                    device=dev) if p == 0
+                        else prev[:, :nph].reshape(-1))
+                dc, fin = trellis_dc_rows(
+                    rr.reshape(-1, g.bw), init, q0, dc_si,
+                    lam_dc_full[:, p::v].reshape(-1, g.bw), ncands[ci])
+                dc_all[:, p::v] = dc.reshape(batch, nph, g.bw)
+                prev = fin.reshape(batch, nph)
+            new_q = outs[ci].clone()
+            new_q[0] = dc_all.reshape(-1).to(torch.int16)
+            outs[ci] = new_q
+    return tuple(outs)

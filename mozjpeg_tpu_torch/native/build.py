@@ -1,0 +1,66 @@
+"""Build recipe for the port's native host library.
+
+The port does not fork the C++ host engine: it compiles the JAX package's
+sources where they stay (mozjpeg_tpu/native/*.cpp, read as files, never
+imported) into a library of its own under mozjpeg_tpu_torch/_build/.
+Only the three sources the encode path calls are built:
+
+  entropy.cpp     mj_gen_optimal_table and the scan encoders
+  scansearch.cpp  mj_scan_search (the jpegrescan candidate sweep)
+  prep.cpp        mj_prep_ycc (RGB -> YCbCr + chroma downsampling)
+
+The flags are a copy of mozjpeg_tpu/native/build.py's: -ffp-contract=off
+keeps every f32 product rounded before it feeds an add, and
+MJ_NATIVE_PORTABLE=1 drops -march=native.
+"""
+from __future__ import annotations
+
+import fcntl
+import os
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(os.path.dirname(PKG_DIR), "mozjpeg_tpu", "native")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+SOURCES = ("entropy.cpp", "scansearch.cpp", "prep.cpp")
+LIB_NAME = "libmjport.so"
+
+BASE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
+              "-ffp-contract=off", "-DNDEBUG"]
+
+
+def compile_flags() -> list:
+    flags = list(BASE_FLAGS)
+    if os.environ.get("MJ_NATIVE_PORTABLE") != "1":
+        flags.insert(1, "-march=native")
+    return flags
+
+
+def ensure_built(out_name: str, sources, command) -> str:
+    """Build BUILD_DIR/out_name from `sources` with command(srcs, out)
+    unless it is newer than every source. Safe across processes: the
+    build runs under a file lock and the output is renamed into place.
+    Returns the library path."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, out_name)
+    with open(os.path.join(BUILD_DIR, out_name + ".lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if (os.path.exists(out)
+                and all(os.path.getmtime(out) >= os.path.getmtime(s)
+                        for s in sources)):
+            return out
+        tmp = "%s.%d.tmp" % (out, os.getpid())
+        subprocess.run(command(list(sources), tmp), check=True)
+        os.replace(tmp, out)
+    return out
+
+
+def build_native() -> float:
+    """Build (if stale) the host library; returns the seconds spent."""
+    t0 = time.perf_counter()
+    srcs = [os.path.join(SRC_DIR, s) for s in SOURCES]
+    ensure_built(LIB_NAME, srcs,
+                 lambda s, o: ["g++", *compile_flags(), *s, "-o", o])
+    return time.perf_counter() - t0

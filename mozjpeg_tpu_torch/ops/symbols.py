@@ -1,0 +1,96 @@
+"""Progressive AC-first symbol statistics in coefficient-major layout.
+
+Port of mozjpeg_tpu/ops/symbols.py (ac_first_histogram_t and
+_ac_first_hist_seg): the exact phuff AC-first gather counts of mozjpeg
+jcphuff.c encode_mcu_AC_first, including the cross-block EOB runs and the
+0x7FFF forced flush, as whole-tensor ops. Every count is an exact integer
+bincount; a batch axis computes one histogram per image at once.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def nbits(v: torch.Tensor) -> torch.Tensor:
+    """JPEG_NBITS of a non-negative integer tensor (0 -> 0), exact for
+    v < 2**24: the binary exponent of float(v)."""
+    return torch.frexp(v.to(torch.float32)).exponent.to(torch.int32)
+
+
+def _bincount_rows(sym, mask, nrows: int) -> torch.Tensor:
+    """Per-row 256-bin counts of sym (R, ...) where mask -> (R, 256)."""
+    row = torch.arange(nrows, device=sym.device).reshape(
+        (nrows,) + (1,) * (sym.dim() - 1))
+    flat = (row * 256 + sym.to(torch.int64))[mask]
+    return torch.bincount(flat, minlength=256 * nrows).reshape(nrows, 256)
+
+
+def _ac_first_hist_seg(zz: torch.Tensor, Ss: int, Se: int) -> torch.Tensor:
+    """zz (64, B, N): B independent segments of N blocks -> (B, 256)
+    int64 counts."""
+    band = zz[Ss:Se + 1].to(torch.int32)               # (L, B, N)
+    L, B, N = band.shape
+    dev = band.device
+    nz = band != 0
+    pos = torch.arange(L, device=dev)[:, None, None]
+
+    # per-block (run, size) symbols from the within-block zero runs
+    idx = torch.where(nz, pos + 1, 0)
+    prev_incl = idx.cummax(0).values
+    prev_excl = torch.cat([torch.zeros_like(prev_incl[:1]),
+                           prev_incl[:-1]], 0)
+    run = pos - prev_excl
+    sym = ((run & 15) << 4) | nbits(band.abs())
+    hist = _bincount_rows(sym.permute(1, 0, 2), nz.permute(1, 0, 2), B)
+    hist[:, 0xF0] += torch.where(nz, run >> 4, 0).sum((0, 2))
+
+    # EOB runs across blocks: a run starts at a block with trailing zeros,
+    # extends over the following all-zero blocks and is emitted before
+    # the next block holding a nonzero (or at the segment's end)
+    has_nz = nz.any(0)                                 # (B, N)
+    trailing = ~nz[-1]
+    bpos = torch.arange(N, device=dev)[None, :]
+    prev_nzb_incl = torch.where(has_nz, bpos, -1).cummax(1).values
+    prev_nzb = torch.cat([torch.full((B, 1), -1, device=dev,
+                                     dtype=prev_nzb_incl.dtype),
+                          prev_nzb_incl[:, :-1]], 1)
+    gap = bpos - prev_nzb - 1
+    prev_trail = (prev_nzb >= 0) & torch.gather(trailing, 1,
+                                                prev_nzb.clamp_min(0))
+    run_at = gap + prev_trail.to(gap.dtype)
+    emit_here = has_nz & (run_at > 0)
+
+    last_nzb = prev_nzb_incl[:, -1:]
+    last_trail = (last_nzb >= 0) & torch.gather(trailing, 1,
+                                                last_nzb.clamp_min(0))
+    final_run = torch.where(last_nzb >= 0,
+                            (N - 1) - last_nzb + last_trail.to(gap.dtype),
+                            N)          # no nonzero block: N all-zero blocks
+
+    def add_runs(hist, runs, valid):
+        # split runs at the 0x7FFF forced-flush boundary: k full EOB14
+        # symbols plus one EOBn for the remainder
+        k = torch.where(valid, runs // 0x7FFF, 0)
+        r = torch.where(valid, runs % 0x7FFF, 0)
+        hist[:, 14 << 4] += k.sum(1)
+        cat = (nbits(r) - 1).clamp_min(0)
+        return hist + _bincount_rows(cat << 4, valid & (r > 0), B)
+
+    hist = add_runs(hist, run_at, emit_here)
+    hist = add_runs(hist, final_run, torch.ones_like(final_run,
+                                                     dtype=torch.bool))
+    return hist
+
+
+def ac_first_histogram_t(zz: torch.Tensor, Ss: int = 1, Se: int = 63
+                         ) -> torch.Tensor:
+    """(64, N) zigzag coefficients of one component in scan order ->
+    (256,) int32 AC-first counts over band [Ss, Se], no restart interval."""
+    return _ac_first_hist_seg(zz[:, None, :], Ss, Se)[0].to(torch.int32)
+
+
+def ac_first_histograms_t(zz: torch.Tensor, batch: int) -> torch.Tensor:
+    """(64, B*n) image-major planes -> (B, 256) int32: one AC-first
+    histogram per image over band (1, 63), no restart interval."""
+    return _ac_first_hist_seg(zz.reshape(64, batch, -1), 1, 63) \
+        .to(torch.int32)

@@ -1,0 +1,66 @@
+"""Tests that need the card: the AC trellis kernel against its plain
+version, and the port's encode on the GPU against its CPU path. They
+skip without a GPU; run them on one with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(tests/conftest.py imports jax, which a GPU host need not have).
+"""
+import numpy as np
+import pytest
+import torch
+
+import mozjpeg_tpu_torch as mjt
+from mozjpeg_tpu_torch.codec import trellis as ttr
+from mozjpeg_tpu_torch.ops import trellis_ac as tac
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("band,tie", [((1, 63), False), ((1, 8), True),
+                                      ((9, 63), True), ((1, 63), True)])
+def test_kernel_equals_plain_on_the_card(cuda, band, tie):
+    rng = np.random.default_rng(21)
+    b, n_img = 3, 1000
+    n = b * n_img
+    if tie:
+        vals = np.array([0, 8, 16, 64, 256, 1024], np.int32)
+        raw = (vals[rng.integers(0, len(vals), (64, n))]
+               * rng.choice([-1, 1], (64, n))).astype(np.int32)
+        lam = np.full(n, 2.0, np.float32)
+    else:
+        raw = rng.integers(-12000, 12000, (64, n)).astype(np.int32)
+        raw[rng.random(raw.shape) < 0.6] = 0
+        lam = (rng.random(n) * 4 + 0.01).astype(np.float32)
+    qz = np.clip(rng.integers(1, 60, 64), 1, 255).astype(np.int32)
+    si = rng.integers(2, 17, (b, 256)).astype(np.int32)
+    si[:, 0] = rng.integers(2, 10, b)
+    si[1, 0xF0] = 0
+    args = (torch.as_tensor(raw, device=cuda),
+            torch.as_tensor(qz, device=cuda),
+            torch.as_tensor(ttr.recip2_table()[qz], device=cuda),
+            ttr.rate_lut(torch.as_tensor(si, device=cuda)),
+            torch.as_tensor(lam, device=cuda)) + band + (n_img,)
+    before = tac.trellis_ac.launches
+    nb, ei = tac.trellis_ac(*args)
+    assert tac.trellis_ac.launches == before + 1
+    nb_p, ei_p = tac.trellis_ac_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nb, nb_p)
+    assert torch.equal(ei, ei_p)
+
+
+def test_encode_on_the_card_equals_cpu(cuda):
+    rng = np.random.default_rng(5)
+    imgs = [np.clip(rng.normal(128, 60, (h, w, 3)), 0, 255).astype(np.uint8)
+            for h, w in ((64, 96), (64, 96), (45, 77))]
+    cfg = mjt.EncoderConfig(quality=75)
+    assert (mjt.encode_many(imgs, cfg)
+            == mjt.encode_many(imgs, cfg, device="cpu"))

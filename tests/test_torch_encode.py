@@ -1,0 +1,88 @@
+"""The port's batched encode_many on the CPU is byte-identical to
+mozjpeg_tpu.encode_many, and the configuration both packages share
+(quant tables, trellis rate tables) is equal."""
+import dataclasses
+import enum
+
+import numpy as np
+import pytest
+
+import mozjpeg_tpu as mj
+import mozjpeg_tpu_torch as mjt
+from mozjpeg_tpu.codec import encoder as jenc
+from mozjpeg_tpu.codec import trellis as jtr
+from mozjpeg_tpu_torch.codec import encoder as tenc
+from mozjpeg_tpu_torch.codec import trellis as ttr
+
+
+def _photo(h, w, seed):
+    """Seeded photo-like RGB: gradients, edges, a saturated-white patch
+    (drives the deringing) and noise."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack([255 * xx / w, 255 * yy / h,
+                    128 + 90 * np.sin((xx + 2 * yy) / 5.0)], -1)
+    img[: h // 2, w // 2:] = r.uniform(0, 255, 3)          # hard edge
+    img[h // 4:h // 2, w // 5:w // 2] = 255                # clipped white
+    img += r.normal(0, 9, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+IMAGES = [_photo(48, 64, 1), _photo(48, 64, 2), _photo(29, 37, 3),
+          _photo(40, 48, 4)]
+
+
+def _fields(cfg):
+    return {k: (v.value if isinstance(v, enum.Enum) else v)
+            for k, v in dataclasses.asdict(cfg).items()}
+
+
+def assert_byte_identical(imgs, **kw):
+    want = mj.encode_many(imgs, mj.EncoderConfig(**kw))
+    got = mjt.encode_many(imgs, mjt.EncoderConfig(**kw), device="cpu")
+    assert [len(g) for g in got] == [len(w) for w in want]
+    assert got == want
+
+
+def test_encode_many_byte_identical_q75():
+    """Mixed shapes (two aligned 64x48, unaligned 37x29 and 48x40) at the
+    bench's configuration, 4:2:0."""
+    assert_byte_identical(IMAGES, quality=75)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(quality=75), dict(quality=30, quant_tbl_idx=0),
+    dict(quality=97, force_baseline=True, subsampling=(1, 1))])
+def test_shared_config_and_tables_match(kw):
+    jcfg = mj.EncoderConfig(**kw)
+    tcfg = mjt.EncoderConfig.from_fields(_fields(jcfg))
+    assert _fields(tcfg) == _fields(jcfg)
+    jq = jenc.make_qtables(jcfg.resolved())
+    tq = tenc.make_qtables(tcfg.resolved())
+    assert len(jq) == len(tq)
+    for a, b in zip(jq, tq):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(6)
+    for slot in (0, 1):
+        hist = rng.integers(0, 500, 256).astype(np.int32)
+        hist[rng.random(256) < 0.5] = 0
+        ja, jd = jtr.trellis_tables_from_hist(hist, slot, True)
+        ta, td = ttr.trellis_tables_from_hist(hist, slot)
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(td, jd)
+        assert ta.dtype == ja.dtype and td.dtype == jd.dtype
+
+
+@pytest.mark.parametrize("kw,image", [
+    (dict(arithmetic=True), None),
+    (dict(precision=12), None),
+    (dict(restart_interval=4), None),
+    (dict(trellis_eob_opt=True), None),
+    (dict(dct_method=mjt.DCTMethod.IFAST), None),
+    (dict(quality=75), np.zeros((16, 16), np.uint8)),
+])
+def test_out_of_slice_configs_raise(kw, image):
+    img = IMAGES[2] if image is None else image
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mjt.encode_many([img], mjt.EncoderConfig(**kw), device="cpu")

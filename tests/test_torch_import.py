@@ -1,0 +1,67 @@
+"""The port stands alone: importing it loads neither jax nor the JAX
+package, no module of it imports them, and it never falls back to the CPU
+when the GPU it was asked for is missing."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mozjpeg_tpu_torch as mjt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "mozjpeg_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    return (name in ("jax", "mozjpeg_tpu")
+            or name.startswith(("jax.", "jaxlib", "mozjpeg_tpu.")))
+
+
+def test_import_leaves_jax_and_jax_package_unloaded():
+    code = ("import sys, mozjpeg_tpu_torch\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', "
+            "'mozjpeg_tpu') or m.startswith(('jax.', 'jaxlib', "
+            "'mozjpeg_tpu.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _py_files():
+        rel = os.path.relpath(path, REPO)
+        depth = rel.count(os.sep)          # package levels above the file
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(rel, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level == 0 and _forbidden(node.module or ""):
+                    bad.append((rel, node.module))
+                if node.level > depth:     # a relative import out of it
+                    bad.append((rel, "." * node.level + (node.module or "")))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_gpu_entry_raises_without_cuda(monkeypatch, device):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((16, 16, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mjt.encode_many([img], mjt.EncoderConfig(quality=75), device=device)
