@@ -6,19 +6,23 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
   2. build the native host library and the CUDA kernel from the checkout,
-     in parallel, with their build times;
+     in parallel, with their build times, and the report of ptxas from
+     the build that made the kernel (registers, spills, shared memory);
   3. the AC trellis kernel against its plain PyTorch version on the card,
      exactly: on the inputs that one 768x512 group and the 1021x683 group
      give it, on a seeded tie-stress input and on bands (1, 8) and
-     (9, 63); the card's lambda of both groups against the CPU's and
-     numpy's, exactly;
+     (9, 63), on an all-zero input, a fully dense one, ragged tiles with an
+     odd N (B = 3, n_img = 1,001) and N = 1; the card's lambda of both
+     groups against the CPU's and numpy's, exactly;
   4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
      photo-like images on the card, warm-up first; every output starts
      with SOI and ends with EOI, and the first and last image of each
      shape are byte-equal to the port's device="cpu" path;
   5. timings: median MP/s over 3 reps, per-stage times of one group
      (synchronised instrumented pass), the kernel's time per group beside
-     its plain version's and its bound;
+     its plain version's and its bound, and the same on the dense input;
+     each kernel time both with the card's queue held (device time alone)
+     and without (the host's launch gaps counted too);
   6. the kernels line, then {"ok": true, "device": ...} as the last line.
 The launch counts are set to 0 just before the first timed main-path run
 and read just after it. It needs no network and imports no JAX.
@@ -62,18 +66,41 @@ def photo(h, w, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, hold=True):
+    """Device ms per call of fn, between CUDA events. With `hold`, a sleep
+    kernel first holds the card while the host queues the calls, so that
+    short kernels run back to back and the host's launch time is not
+    counted; without it, the gaps between the host's launches count."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(50_000_000)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def example_trellis(kind, b, n_img, dev, seed):
+    """trellis_ac arguments on `dev` from the shared seeded generator,
+    band (1, 63)."""
+    import torch
+    from mozjpeg_tpu_torch.codec import trellis
+    return tuple(torch.as_tensor(a, device=dev) for a in
+                 trellis.ac_example_inputs(kind, b, n_img, seed)) \
+        + (1, 63, n_img)
+
+
+def bound(nbytes, ops):
+    """(least ms on the card, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the f32 operations over the peak."""
+    t_b, t_o = nbytes / H100_BYTES, ops / H100_F32_OPS
+    return max(t_b, t_o) * 1e3, ("operations" if t_o >= t_b else "bytes")
 
 
 def trellis_bound(args):
@@ -126,8 +153,11 @@ def main():
     with ThreadPoolExecutor(2) as ex:
         f_nat = ex.submit(nbuild.build_native)
         f_ker = ex.submit(tac.build)
+        ker_s, ptxas = f_ker.result()
         log("build: native %.1f s, trellis_ac kernel %.1f s"
-            % (f_nat.result(), f_ker.result()))
+            % (f_nat.result(), ker_s))
+    for line in ptxas:
+        log("trellis_ac build: " + line)
 
     # ---- 3. kernel vs plain on the card ----
     cfg = mjt.EncoderConfig(quality=75)
@@ -183,6 +213,13 @@ def main():
     for band in ((1, 8), (9, 63)):
         a = recorded[0]
         max_err = max(max_err, compare(a[:5] + band + a[7:], "main Y band"))
+    dense = example_trellis("dense", 8, 6144, dev, 7)
+    for args, label in (
+            (example_trellis("zero", 2, 4096, dev, 5), "all-zero"),
+            (dense, "dense"),
+            (example_trellis("sparse", 3, 1001, dev, 6), "ragged B=3"),
+            (example_trellis("sparse", 1, 1, dev, 8), "N=1")):
+        max_err = max(max_err, compare(args, label))
 
     # the main path's lambda on the card vs the CPU and numpy, exactly
     s1, s2 = ctx.cfg.lambda_log_scale1, ctx.cfg.lambda_log_scale2
@@ -257,29 +294,46 @@ def main():
         for a in recorded:
             tac.trellis_ac_plain(*a)
 
-    k_ms = cuda_ms(group_kernel, 10)
+    def y_launch():
+        tac.trellis_ac(*recorded[0])
+
+    def dense_launch():
+        tac.trellis_ac(*dense)
+
+    k_ms, y_ms, d_ms = (cuda_ms(f, r) for f, r in (
+        (group_kernel, 10), (y_launch, 10), (dense_launch, 5)))
+    k_un, y_un, d_un = (cuda_ms(f, r, hold=False) for f, r in (
+        (group_kernel, 10), (y_launch, 10), (dense_launch, 5)))
     p_ms = cuda_ms(group_plain, 2)
-    y_ms = cuda_ms(lambda: tac.trellis_ac(*recorded[0]), 10)
     nbytes, ops = 0, 0.0
     for a in recorded:
         b_, o_ = trellis_bound(a)
         nbytes += b_
         ops += o_
-    bound_ms = max(nbytes / H100_BYTES, ops / H100_F32_OPS) * 1e3
-    log("trellis_ac per group (3 launches): kernel %.3f ms, plain %.3f ms, "
-        "bound %.4f ms (%.3g ops, %d bytes); Y launch (N=%d) %.3f ms"
-        % (k_ms, p_ms, bound_ms, ops, nbytes, recorded[0][0].shape[1], y_ms))
+    bound_ms, bound_by = bound(nbytes, ops)
+    log("trellis_ac per group (3 launches): kernel %.4f ms (%.4f ms with "
+        "the host's launch gaps), plain %.3f ms, bound %.4f ms (%.3g ops, "
+        "%d bytes), %.1f%% of the bound; Y launch (N=%d) %.4f ms (%.4f ms)"
+        % (k_ms, k_un, p_ms, bound_ms, ops, nbytes, 100 * bound_ms / k_ms,
+           recorded[0][0].shape[1], y_ms, y_un))
+    dp_ms = cuda_ms(lambda: tac.trellis_ac_plain(*dense), 1)
+    d_bytes, d_ops = trellis_bound(dense)
+    d_bound, d_by = bound(d_bytes, d_ops)
+    log("trellis_ac dense input (N=%d, one launch): kernel %.4f ms (%.4f ms "
+        "with the host's launch gaps), plain %.3f ms, bound %.4f ms (%.3g "
+        "ops, %d bytes, by %s), %.1f%% of the bound"
+        % (dense[0].shape[1], d_ms, d_un, dp_ms, d_bound, d_ops, d_bytes,
+           d_by, 100 * d_bound / d_ms))
 
     # ---- 6. result lines ----
     log(json.dumps({"kernels": [{
         "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max_err, "exact": max_err == 0.0,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": ("operations" if ops / H100_F32_OPS
-                     >= nbytes / H100_BYTES else "bytes"),
-        "library_ms": None}]}))
+        "ms": k_ms, "kernel_ms": k_ms, "ms_with_launch_gaps": k_un,
+        "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
+        "dense_bound_ms": d_bound}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

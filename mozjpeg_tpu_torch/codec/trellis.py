@@ -98,6 +98,47 @@ def rate_lut(ac_si: torch.Tensor, kmax: int = _ac.KMAX) -> torch.Tensor:
     return lut.contiguous()
 
 
+def ac_example_inputs(kind: str, b: int, n_img: int, seed: int = 0):
+    """Seeded arguments of the AC trellis for B=b images of n_img blocks,
+    as numpy arrays (raw (64, N) int32, qtbl (64,) int32, ltbl (64,) f32,
+    rate_luts (b, 128, 16) f32, lam (N,) f32), for tests and the smoke run.
+    tie: q = 1, raw on multiples of 8 and lambda 1/64, so that every
+    distortion and cost is an integer and ties between predecessors and
+    bit lengths are common; sparse: nine in ten AC coefficients quantize
+    to zero; dense: every AC coefficient nonzero, qval spread up to 1023
+    (and past it, clamped); zero: all raw zero; no_codes: sparse blocks
+    with every rate and the EOB length BIG, so that no step beats BIG and
+    every end cost is BIG or more."""
+    rng = np.random.default_rng(seed)
+    n = b * n_img
+    lam = (rng.random(n) * 4 + 0.01).astype(np.float32)
+    qtbl = rng.integers(1, 60, 64).astype(np.int32)
+    if kind == "tie":
+        qtbl = np.ones(64, np.int32)
+        raw = rng.integers(-20, 21, (64, n)) * 8
+        raw[rng.random(raw.shape) < 0.7] = 0
+        lam = np.full(n, 1 / 64, np.float32)
+    elif kind == "dense":
+        qtbl = rng.integers(1, 5, 64).astype(np.int32)
+        q8 = (qtbl << 3)[:, None]
+        qval = rng.integers(1, 1100, (64, n))
+        raw = qval * q8 + rng.integers(-(q8 >> 1), q8 >> 1, (64, n))
+        raw[0] = rng.integers(-2000, 2000, n)
+    elif kind == "zero":
+        raw = np.zeros((64, n), np.int64)
+    else:
+        raw = rng.integers(-3000, 3000, (64, n))
+        raw[rng.random(raw.shape) < 0.9] = 0
+    raw = (raw * rng.choice([-1, 1], (64, n))).astype(np.int32)
+    si = rng.integers(2, 17, (b, 256)).astype(np.int32)
+    si[:, 0] = rng.integers(2, 10, b)
+    si[b - 1, 0xF0] = 0                   # one image without a ZRL code
+    luts = rate_lut(torch.as_tensor(si)).numpy()
+    if kind == "no_codes":
+        luts = np.full_like(luts, _ac.BIGF)
+    return raw, qtbl, recip2_table()[qtbl], luts, lam
+
+
 def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int):
     """DC trellis over a batch of independent block rows.
 

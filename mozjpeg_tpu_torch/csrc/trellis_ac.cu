@@ -9,31 +9,50 @@
 // Outputs: new_band (64, N) int32 signed kept values (0 elsewhere) and
 // ei (8, N) f32 rows [czero, skip, has_eob, 0...] for the EOB-run DP.
 //
-// Bound: operations on dense blocks. A block with every coefficient
-// nonzero evaluates sum_i i*10 ~ 20k (j, k) candidate costs of a few f32
-// operations each, against 64 raw values read and 72 words written. Only
-// nonzero positions are candidates, though, so on typical quantized
-// photos the candidates shrink by orders of magnitude and the bytes set
-// the floor; what the kernel then waits on is each block's serial chain
-// (prefix, 63 DP steps, path walk), which is why blocks map to warps.
+// Bound: bytes. Each block reads its 64 raw words and lambda and writes
+// 64 + 8 words, 548 bytes a block (40.6 MB for one group of eight
+// 768x512 images, 12 us at 3.35 TB/s). The operations are data
+// dependent: only nonzero quantized positions are DP states, and on
+// quantized photos most AC positions are zero (about 65 candidate
+// operations a block on the smoke corpus), so the arithmetic is far
+// below the bytes unless blocks are dense.
 //
-// Design: one warp per block. Lane l owns j in {l, l+32}: acc[j] lives in
-// the owning lane's registers, and for each i the lane folds k = 0..9 with
-// strict '<' (the smallest k wins ties) over its two j's (the smaller j
-// wins ties), then a shuffle reduction takes the lexicographic minimum of
-// (cost, j). Together that is the first-minimum flat-index (j*KMAX + k)
-// tie-break of the Pallas kernel. One warp per block keeps the card full
-// (the main path's ~74k blocks per group give ~74k warps, where one thread
-// per block would leave ~17 warps per SM). The azd prefix is a serial
-// 64-step sum on one lane, as are the end selection's path walk.
+// Design: a CTA takes a tile of TB consecutive blocks of one image (the
+// grid is image x tile, so one rate LUT serves the CTA; the ragged last
+// tile of an image masks its idle blocks) and gives each block a group of
+// L lanes of one warp. The tile moves through shared memory row by row:
+// row p of the (64, N) arrays holds TB contiguous words, so the raw load
+// and the new_band and ei stores are whole coalesced rows. Per-block
+// state (raw, azd, acc, rs | bv << 6) is laid out [position][block] with
+// a row stride of TB + 1 words, so the lanes of a block, which read
+// different positions, hit different banks.
+//
+// The DP visits nonzero positions only. A 64-bit mask holds the in-band
+// positions with qval != 0, and step i walks the predecessors Ss-1 and
+// the set bits below i. Lane l takes the predecessors j with j % L == l
+// in ascending order, folding k ascending with strict '<' from BIG; a
+// shuffle over the L lanes then takes the lexicographic minimum of
+// (cost, j). Together that is the first minimum in flat (j, k) order, as
+// the Pallas kernel's argmin, and (j 0, cand 0) with acc BIG when nothing
+// beats BIG. Skipping zero positions is exact: in the full DP a zero i
+// gets acc BIG, rs 0 and bv 0, it is never a valid predecessor (validity
+// needs qval != 0), and its end cost is BIG, which the end selection
+// accounts for with the first such position. The path walk takes at most
+// popcount steps, since rs[i] < i. Why L lanes and not one thread per
+// block: a launch's time follows its heaviest blocks (20-35 nonzero
+// coefficients on photo-like input, an O(nnz^2) DP), and one thread per
+// block ran them serially and measured slower than the warp-per-block
+// kernel this one replaces; L lanes split each step's predecessors.
 //
 // Exactness: build with -fmad=false and without --use_fast_math; every f32
 // product feeding an add is also an explicit __fmul_rn, so it rounds
 // before the add like the C reference. 1/q^2 comes from the host IEEE
 // table (ltbl); nothing is divided in floating point on the device.
-// Integer division only sees non-negative operands. Loads and stores of
-// the column-major (64, N) arrays are strided; coalescing them is later
-// work.
+// Integer division only sees non-negative operands. The azd prefix is the
+// serial C-order sum over [Ss, Se] on one lane: positions outside the band
+// add +0.0, which leaves the sum unchanged. Cost order: (rate + cdist) +
+// tail with tail = (azd[i-1] - azd[j]) + acc[j]; end cost
+// ((acc + azd_Se) - azd[j]) + eobl.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,22 +60,35 @@ namespace {
 
 constexpr int KMAX = 10;        // NBITS(1023)
 constexpr int RR_K = 16;        // row width of the run-indexed rate LUT
+constexpr int LUT_ROWS = 64;    // rows staged: 64-i+j lies in [1, 63]
+constexpr int LUT_LD = 11;      // odd shared row stride: rows spread banks
 constexpr float BIGF = 1e38f;
-constexpr int WARPS = 4;        // warps (= 8x8 blocks) per thread block
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int L = 8;            // lanes per 8x8 block
+constexpr int TB = 16;          // blocks per CTA (one tile)
+constexpr int NT = TB * L;      // threads per CTA
+constexpr int LD = TB + 1;      // row stride of the [position][block] arrays
+constexpr int ROWS = NT / TB;   // tile rows one pass of the CTA moves
+static_assert(32 % L == 0 && L <= 8, "a block's lanes share one warp");
+static_assert(NT >= 64, "one thread stages each of the 64 table entries");
 
 __device__ __forceinline__ int nbits(int v) {
   return v > 0 ? 32 - __clz(v) : 0;
 }
 
-// Lexicographic (cost, j) minimum across the warp, carrying one payload.
-template <typename T>
-__device__ __forceinline__ void warp_argmin(float& c, int& j, T& pay) {
+__device__ __forceinline__ int low_bit(unsigned long long m) {
+  return __ffsll((long long)m) - 1;
+}
+
+// Lexicographic (cost, j) minimum over the L lanes of a block (gm names
+// them), carrying one payload.
+template <typename P>
+__device__ __forceinline__ void group_argmin(unsigned gm, float& c, int& j,
+                                             P& pay) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float oc = __shfl_xor_sync(FULL, c, off);
-    const int oj = __shfl_xor_sync(FULL, j, off);
-    const T op = __shfl_xor_sync(FULL, pay, off);
+  for (int off = L / 2; off > 0; off >>= 1) {
+    const float oc = __shfl_xor_sync(gm, c, off);
+    const int oj = __shfl_xor_sync(gm, j, off);
+    const P op = __shfl_xor_sync(gm, pay, off);
     if (oc < c || (oc == c && oj < j)) {
       c = oc;
       j = oj;
@@ -65,179 +97,217 @@ __device__ __forceinline__ void warp_argmin(float& c, int& j, T& pay) {
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(NT, 4)
 trellis_ac_kernel(const int32_t* __restrict__ raw,
                   const int32_t* __restrict__ qtbl,
                   const float* __restrict__ ltbl,
                   const float* __restrict__ luts,
                   const float* __restrict__ lam,
                   int32_t* __restrict__ nb_out, float* __restrict__ ei_out,
-                  long long N, long long n_img, int Ss, int Se) {
-  __shared__ int s_x[WARPS][64];
-  __shared__ int s_qval[WARPS][64];
-  __shared__ float s_azd[WARPS][64];
-  __shared__ int s_rs[WARPS][64];
-  __shared__ int s_bv[WARPS][64];
+                  long long N, long long n_img, long long tiles, int Ss,
+                  int Se) {
+  __shared__ int s_raw[64 * LD];      // raw, then the new band values
+  __shared__ float s_azd[64 * LD];
+  __shared__ float s_acc[64 * LD];
+  __shared__ int s_rb[64 * LD];       // qval, then rs | bv << 6
+  __shared__ float s_ei[8 * LD];
+  __shared__ float s_lut[LUT_ROWS * LUT_LD];
+  __shared__ int s_q8[64];
+  __shared__ float s_lt[64];
+  __shared__ float s_lam[TB];
+  __shared__ float s_eobl;
 
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long n = (long long)blockIdx.x * WARPS + w;
-  if (n >= N) return;                       // uniform across the warp
+  const int tid = threadIdx.x;
+  const long long img = blockIdx.x / tiles;
+  const long long first = (blockIdx.x % tiles) * TB;   // within the image
+  const long long n0 = img * n_img + first;
+  const int width = (int)(n_img - first < TB ? n_img - first : TB);
+  const float* lut = luts + img * 128 * RR_K;
+  const int col = tid % TB;
 
-  int* x = s_x[w];
-  int* qv = s_qval[w];
-  float* azd = s_azd[w];
-  int* rs = s_rs[w];
-  int* bv = s_bv[w];
-  const float* lut = luts + (size_t)(n / n_img) * 128 * RR_K;
-  const float lam_n = lam[n];
-
-  int raw_p[2];
-  bool nzj[2];
-  float acc[2];
+  // stage the band's rows of the raw tile, lambda and the tables, every
+  // load in flight at once
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = lane + 32 * h;
-    const int r = raw[(long long)p * N + n];
-    const int xa = r < 0 ? -r : r;
-    const int q8 = qtbl[p] << 3;
-    int q = (xa + (q8 >> 1)) / q8;
-    if (q > 1023) q = 1023;
-    const bool in_band = p >= Ss && p <= Se;
-    raw_p[h] = r;
-    x[p] = xa;
-    qv[p] = q;
-    const float zd = __fmul_rn(__fmul_rn((float)(xa * xa), lam_n), ltbl[p]);
-    azd[p] = in_band ? zd : 0.0f;           // zterm; prefix-summed below
-    nzj[h] = in_band && q != 0;
-    acc[h] = (p == Ss - 1) ? 0.0f : BIGF;
-    rs[p] = 0;
-    bv[p] = 0;
+  for (int m = 0; m < (64 + ROWS - 1) / ROWS; ++m) {
+    const int p = Ss + tid / TB + m * ROWS;
+    if (p <= Se && col < width) s_raw[p * LD + col] = raw[p * N + n0 + col];
   }
-  __syncwarp();
-  if (lane == 0) {                          // serial f32 prefix, C order
-    float run = azd[0];
-    for (int p = 1; p < 64; ++p) {
-      run = run + azd[p];
-      azd[p] = run;
-    }
-  }
-  __syncwarp();
-
-  for (int i = Ss; i <= Se; ++i) {
-    const int qval_i = qv[i];
-    float minval = BIGF;
-    int win_j = 0, win_cand = 0;
-    if (qval_i != 0) {
-      const int x_i = x[i];
-      const int q8_i = qtbl[i] << 3;
-      const int nc_i = nbits(qval_i);
-      const float ltbl_i = ltbl[i];
-      const float azd_im1 = azd[i - 1];
-      float cdist[KMAX];
-      int cand[KMAX];
 #pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        const int c = (nc_i == k + 1) ? qval_i : (2 << k) - 1;
-        const int d = c * q8_i - x_i;
-        cand[k] = c;
-        cdist[k] = __fmul_rn(__fmul_rn((float)(d * d), lam_n), ltbl_i);
+  for (int m = 0; m < (LUT_ROWS * KMAX + NT - 1) / NT; ++m) {
+    const int w = tid + m * NT, r = w / KMAX, k = w - r * KMAX;
+    if (w < LUT_ROWS * KMAX) s_lut[r * LUT_LD + k] = lut[r * RR_K + k];
+  }
+  if (tid < 64) {
+    s_q8[tid] = qtbl[tid] << 3;
+    s_lt[tid] = ltbl[tid];
+  }
+  if (tid < width) s_lam[tid] = lam[n0 + tid];
+  if (tid == 0) s_eobl = lut[127 * RR_K];           // EOB code length
+  __syncthreads();
+
+  const int b = tid / L, lane = tid % L;
+  if (b < width) {
+    const unsigned gm = ((1u << L) - 1) << ((tid & 31) & ~(L - 1));
+    const unsigned long long mine = (~0ull / ((1ull << L) - 1)) << lane;
+    const unsigned long long band =
+        (Se == 63 ? ~0ull : (1ull << (Se + 1)) - 1) & ~((1ull << Ss) - 1);
+    const float lam_n = s_lam[b];
+    const float eobl = s_eobl;
+    int* rawb = s_raw + b;                          // word p*LD of the block
+    float* azd = s_azd + b;
+    float* acc = s_acc + b;
+    int* rb = s_rb + b;
+
+    // zero-distortion terms, the nonzero mask and qval, lanes over
+    // positions
+    unsigned long long mask = 0;
+    for (unsigned long long todo = band & mine; todo; todo &= todo - 1) {
+      const int p = low_bit(todo);
+      const int r = rawb[p * LD];
+      const int xa = r < 0 ? -r : r;
+      const int q8 = s_q8[p];
+      azd[p * LD] = __fmul_rn(__fmul_rn((float)(xa * xa), lam_n), s_lt[p]);
+      if (xa >= q8 - (q8 >> 1)) {                   // qval != 0
+        mask |= 1ull << p;
+        const int q = (xa + (q8 >> 1)) / q8;
+        rb[p * LD] = q > 1023 ? 1023 : q;
       }
-      float bc = BIGF;
-      int bj = 0, bcand = 0;
+    }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        if ((nzj[h] || j == Ss - 1) && j < i) {
-          const float tail = (azd_im1 - azd[j]) + acc[h];
-          const float* rrow = lut + (64 - i + j) * RR_K;  // rate(run=i-1-j)
-          float cj = BIGF;
-          int candj = 0;
+    for (int off = L / 2; off > 0; off >>= 1)
+      mask |= __shfl_xor_sync(gm, mask, off);
+    __syncwarp(gm);
+    if (lane == 0) {                  // serial f32 prefix, C order
+      float run = 0.0f;
+      azd[(Ss - 1) * LD] = 0.0f;      // the start state Ss-1
+      acc[(Ss - 1) * LD] = 0.0f;
+      for (int p0 = Ss; p0 <= Se; p0 += 16) {      // 16 loads in flight
+        float z[16];
 #pragma unroll
-          for (int k = 0; k < KMAX; ++k) {
-            const float rate = rrow[k];
-            float cost = (rate + cdist[k]) + tail;
-            if (!(k < nc_i && rate < BIGF)) cost = BIGF;
-            if (cost < cj) {
-              cj = cost;
-              candj = cand[k];
-            }
-          }
-          if (cj < bc) {
-            bc = cj;
-            bj = j;
-            bcand = candj;
+        for (int u = 0; u < 16; ++u)
+          z[u] = p0 + u <= Se ? azd[(p0 + u) * LD] : 0.0f;
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          if (p0 + u <= Se) {
+            run = run + z[u];
+            azd[(p0 + u) * LD] = run;
           }
         }
       }
-      warp_argmin(bc, bj, bcand);
-      minval = bc;
-      win_j = bj;
-      win_cand = bcand;
     }
-    if (lane == (i & 31)) {
-      if (i < 32) acc[0] = minval; else acc[1] = minval;
-    }
-    if (lane == 0) {
-      rs[i] = win_j;
-      bv[i] = win_cand;
-    }
-    __syncwarp();
-  }
+    __syncwarp(gm);
+    const float azd_Se = azd[Se * LD];
 
-  // end selection: first minimum of the end costs, carrying the cost
-  // without EOB (the eob-info "skip")
-  const float azd_Se = azd[Se];
-  const float eobl = lut[127 * RR_K];       // EOB code length
-  float ec_best = BIGF;
-  int last = 64;
-  float skip = 0.0f;
+    for (unsigned long long todo = mask; todo; todo &= todo - 1) {
+      const int i = low_bit(todo);
+      const int r = rawb[i * LD];
+      const int x_i = r < 0 ? -r : r;
+      const int q8_i = s_q8[i];
+      const int qval_i = rb[i * LD];
+      const int nc_i = nbits(qval_i);
+      const float ltbl_i = s_lt[i];
+      const float azd_im1 = azd[(i - 1) * LD];
+      float cdist[KMAX];              // k < nc_i only: no larger k is read
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
-    const float end_wo = (acc[h] + azd_Se) - azd[j];
-    float ec = end_wo + (j < Se ? eobl : 0.0f);
-    if (!nzj[h]) ec = BIGF;
-    float wo = end_wo;
-    if (j == Ss - 1) {
-      ec = azd_Se + eobl;
-      wo = azd_Se;
+      for (int k = 0; k < KMAX; ++k) {
+        if (k >= nc_i) break;
+        const int c = (nc_i == k + 1) ? qval_i : (2 << k) - 1;
+        const int d = c * q8_i - x_i;
+        cdist[k] = __fmul_rn(__fmul_rn((float)(d * d), lam_n), ltbl_i);
+      }
+      float best = BIGF;
+      int bj = 0, bk = -1;
+      const unsigned long long pred =
+          ((mask & ((1ull << i) - 1)) | (1ull << (Ss - 1))) & mine;
+      for (unsigned long long js = pred; js; js &= js - 1) {
+        const int j = low_bit(js);
+        const float tail = (azd_im1 - azd[j * LD]) + acc[j * LD];
+        const float* rrow = s_lut + (64 - i + j) * LUT_LD;  // run i-1-j
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+          if (k >= nc_i) break;
+          const float rate = rrow[k];
+          const float cost = (rate + cdist[k]) + tail;
+          if (rate < BIGF && cost < best) {
+            best = cost;
+            bj = j;
+            bk = k;
+          }
+        }
+      }
+      int bcand = bk < 0 ? 0 : (bk == nc_i - 1 ? qval_i : (2 << bk) - 1);
+      group_argmin(gm, best, bj, bcand);
+      if (lane == 0) {
+        acc[i * LD] = best;
+        rb[i * LD] = bj | (bcand << 6);
+      }
+      __syncwarp(gm);
     }
-    if (ec < ec_best || (ec == ec_best && j < last)) {
-      ec_best = ec;
-      last = j;
-      skip = wo;
-    }
-  }
-  warp_argmin(ec_best, last, skip);
 
-  unsigned long long keep = 0;
-  if (lane == 0) {                          // path walk
-    int cur = last;
-    for (int s = 0; s <= Se - Ss; ++s) {
-      if (cur >= Ss) {
-        keep |= 1ull << cur;
-        cur = rs[cur];
-      } else {
-        cur = Ss - 1;
+    // end selection: the lexicographic minimum of (end cost, j) over
+    // j = 0..63, carrying the cost without EOB (the eob-info "skip").
+    // Lane 0 holds the start state Ss-1 and the first position that is
+    // neither Ss-1 nor nonzero, whose end cost is BIG; the lanes split
+    // the nonzero positions as in the DP.
+    float ebest = __int_as_float(0x7f800000);       // +inf
+    int last = 64;
+    float skip = 0.0f;
+    if (lane == 0) {
+      ebest = azd_Se + eobl;
+      last = Ss - 1;
+      skip = azd_Se;
+      const unsigned long long valid = mask | (1ull << (Ss - 1));
+      if (~valid) {
+        const int z = low_bit(~valid);
+        if (BIGF < ebest || (BIGF == ebest && z < last)) {
+          // acc is BIG there; azd is 0 below the band, azd_Se above it
+          const float azd_z =
+              z < Ss ? 0.0f : (z > Se ? azd_Se : azd[z * LD]);
+          ebest = BIGF;
+          last = z;
+          skip = (BIGF + azd_Se) - azd_z;
+        }
       }
     }
-  }
-  keep = __shfl_sync(FULL, keep, 0);
+    for (unsigned long long js = mask & mine; js; js &= js - 1) {
+      const int j = low_bit(js);
+      const float end_wo = (acc[j * LD] + azd_Se) - azd[j * LD];
+      const float ec = end_wo + (j < Se ? eobl : 0.0f);
+      if (ec < ebest || (ec == ebest && j < last)) {
+        ebest = ec;
+        last = j;
+        skip = end_wo;
+      }
+    }
+    group_argmin(gm, ebest, last, skip);
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = lane + 32 * h;
-    const bool kept = ((keep >> p) & 1ull) && nzj[h];
-    const int v = bv[p];
-    nb_out[(long long)p * N + n] = kept ? (raw_p[h] < 0 ? -v : v) : 0;
+    unsigned long long keep = 0;      // path walk, on every lane
+    for (int cur = last; cur >= Ss && cur < 64 && ((mask >> cur) & 1ull);
+         cur = rb[cur * LD] & 63)
+      keep |= 1ull << cur;
+
+    for (int p = lane; p < 64; p += L) {
+      int v = 0;
+      if ((keep >> p) & 1ull) {
+        v = (rb[p * LD] >> 6) & 1023;
+        if (rawb[p * LD] < 0) v = -v;
+      }
+      rawb[p * LD] = v;
+    }
+    const float has_eob = (float)(last < Se) + (float)(last == Ss - 1);
+    for (int r = lane; r < 8; r += L)
+      s_ei[r * LD + b] =
+          r == 0 ? azd_Se : (r == 1 ? skip : (r == 2 ? has_eob : 0.0f));
   }
-  if (lane < 8) {
-    float e = 0.0f;
-    if (lane == 0) e = azd_Se;
-    if (lane == 1) e = skip;
-    if (lane == 2) e = (float)(last < Se) + (float)(last == Ss - 1);
-    ei_out[(long long)lane * N + n] = e;
+  __syncthreads();
+
+  // write the tile back row by row: 64 rows of new_band, 8 of ei
+  if (col < width) {
+#pragma unroll 4
+    for (int p = tid / TB; p < 64; p += ROWS)
+      nb_out[p * N + n0 + col] = s_raw[p * LD + col];
+    for (int r = tid / TB; r < 8; r += ROWS)
+      ei_out[r * N + n0 + col] = s_ei[r * LD + col];
   }
 }
 
@@ -251,12 +321,12 @@ extern "C" int mj_trellis_ac(const void* raw, const void* qtbl,
                              const void* lam, void* nb, void* ei,
                              long long N, long long n_img, int Ss, int Se,
                              void* stream) {
-  if (N <= 0) return 0;
-  const long long grid = (N + WARPS - 1) / WARPS;
-  trellis_ac_kernel<<<(unsigned)grid, WARPS * 32, 0,
-                      (cudaStream_t)stream>>>(
+  if (N <= 0 || n_img <= 0) return 0;
+  const long long tiles = (n_img + TB - 1) / TB;
+  const long long grid = tiles * (N / n_img);
+  trellis_ac_kernel<<<(unsigned)grid, NT, 0, (cudaStream_t)stream>>>(
       (const int32_t*)raw, (const int32_t*)qtbl, (const float*)ltbl,
       (const float*)luts, (const float*)lam, (int32_t*)nb, (float*)ei, N,
-      n_img, Ss, Se);
+      n_img, tiles, Ss, Se);
   return (int)cudaGetLastError();
 }

@@ -42,19 +42,27 @@ def ensure_built(out_name: str, sources, command) -> str:
     """Build BUILD_DIR/out_name from `sources` with command(srcs, out)
     unless it is newer than every source. Safe across processes: the
     build runs under a file lock and the output is renamed into place.
-    Returns the library path."""
+    Returns the compiler's output of the build that made the library,
+    kept beside it as out_name.log; a failed build raises with it."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, out_name)
+    log = out + ".log"
     with open(os.path.join(BUILD_DIR, out_name + ".lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
-        if (os.path.exists(out)
+        if not (os.path.exists(out) and os.path.exists(log)
                 and all(os.path.getmtime(out) >= os.path.getmtime(s)
                         for s in sources)):
-            return out
-        tmp = "%s.%d.tmp" % (out, os.getpid())
-        subprocess.run(command(list(sources), tmp), check=True)
-        os.replace(tmp, out)
-    return out
+            tmp = "%s.%d.tmp" % (out, os.getpid())
+            res = subprocess.run(command(list(sources), tmp),
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError("building %s failed:\n%s%s"
+                                   % (out_name, res.stdout, res.stderr))
+            with open(log, "w") as f:
+                f.write(res.stdout + res.stderr)
+            os.replace(tmp, out)
+        with open(log) as f:
+            return f.read()
 
 
 def build_native() -> float:

@@ -2,7 +2,9 @@
 plain PyTorch version.
 
 Port of mozjpeg_tpu/ops/pallas_trellis.py::trellis_ac_dp_pallas. The
-kernel (csrc/trellis_ac.cu) is built with nvcc at first use into
+kernel (csrc/trellis_ac.cu: tiles of 16 blocks of one image moved through
+shared memory as whole rows, 8 lanes per block, a DP over the nonzero
+positions only) is built with nvcc at first use into
 mozjpeg_tpu_torch/_build/ and called through ctypes on PyTorch's current
 stream. trellis_ac() launches it for CUDA tensors and takes the plain
 version only for tensors on the CPU; anything else raises.
@@ -43,15 +45,19 @@ def nvcc_command(srcs, out):
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-            "-o", out, *srcs]
+            "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+            "-fPIC", "-o", out, *srcs]
 
 
-def build() -> float:
-    """Compile the kernel (if stale); returns the seconds spent."""
+def build():
+    """Compile the kernel (if stale). Returns (seconds spent, the report
+    lines of ptxas from the build that made the library: registers,
+    spills and shared memory)."""
     t0 = time.perf_counter()
-    _build.ensure_built(LIB_NAME, [SOURCE], nvcc_command)
-    return time.perf_counter() - t0
+    out = _build.ensure_built(LIB_NAME, [SOURCE], nvcc_command)
+    report = [ln.strip() for ln in out.splitlines()
+              if "ptxas" in ln or "spill" in ln]
+    return time.perf_counter() - t0, report
 
 
 def _lib():

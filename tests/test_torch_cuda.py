@@ -1,6 +1,7 @@
 """Tests that need the card: the AC trellis kernel against its plain
-version, and the port's encode on the GPU against its CPU path. They
-skip without a GPU; run them on one with
+version (ragged tiles, N = 1, all-zero, dense and rate-less inputs, three
+bands), and the port's encode on the GPU against its CPU path. They skip
+without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -13,6 +14,7 @@ import torch
 import mozjpeg_tpu_torch as mjt
 from mozjpeg_tpu_torch.codec import trellis as ttr
 from mozjpeg_tpu_torch.ops import trellis_ac as tac
+from test_torch_trellis_order import BANDS
 
 pytestmark = pytest.mark.cuda
 
@@ -55,6 +57,27 @@ def test_kernel_equals_plain_on_the_card(cuda, band, tie):
     torch.cuda.synchronize()
     assert torch.equal(nb, nb_p)
     assert torch.equal(ei, ei_p)
+
+
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("kind,b,n_img", [
+    ("sparse", 3, 1001), ("sparse", 3, 2752), ("tie", 3, 1001),
+    ("sparse", 1, 1), ("dense", 1, 1), ("zero", 3, 1001),
+    ("dense", 3, 1001), ("no_codes", 3, 1001)])
+def test_kernel_tiles_and_extremes_equal_plain(cuda, kind, b, n_img, band):
+    """Ragged last tiles and odd N (n_img 1,001 and 2,752 with B = 3),
+    N = 1, all-zero and fully dense blocks, and blocks where no step
+    beats BIG."""
+    args = tuple(torch.as_tensor(a, device=cuda)
+                 for a in ttr.ac_example_inputs(kind, b, n_img, seed=n_img)) \
+        + band + (n_img,)
+    before = tac.trellis_ac.launches
+    nb, ei = tac.trellis_ac(*args)
+    assert tac.trellis_ac.launches == before + 1
+    nb_p, ei_p = tac.trellis_ac_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nb, nb_p)
+    assert torch.equal(ei.view(torch.int32), ei_p.view(torch.int32))
 
 
 def test_encode_on_the_card_equals_cpu(cuda):
