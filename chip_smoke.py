@@ -18,16 +18,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      photo-like images on the card, warm-up first; every output starts
      with SOI and ends with EOI, and the first and last image of each
      shape are byte-equal to the port's device="cpu" path;
-  5. timings: median MP/s over 3 reps, per-stage times of one group
-     (synchronised instrumented pass), the kernel's time per group beside
-     its plain version's and its bound, and the same on the dense input;
-     each kernel time both with the card's queue held (device time alone)
-     and without (the host's launch gaps counted too);
-  6. the kernels line, then {"ok": true, "device": ...} as the last line.
+  5. decode of the nineteen JPEGs of phase 4 on the card, warm-up first:
+     decode_many's RGB for images 0, 7, 16 and 18 equals the port's
+     device="cpu" path, every image's PSNR against its source photo is
+     at least 25 dB; decode() of image 0, decode_many of image 0 cut to
+     two thirds of its bytes plus EOI (block smoothing) and decode_many's
+     YUV output of the first eight equal the CPU path; decode_many's
+     median MP/s over 3 reps, the stage times of one 8x768x512 group
+     (parse and entropy on the host, upload, render, download;
+     synchronised), and the render's time per group, as the sum of its
+     device kernels (torch.profiler) and between CUDA events (held, and
+     with the host's launch gaps), beside its bytes bound;
+  6. encode timings: median MP/s over 3 reps, per-stage times of one
+     group (synchronised instrumented pass), the kernel's time per group
+     beside its plain version's and its bound, and the same on the dense
+     input; each kernel time both with the card's queue held (device time
+     alone) and without (the host's launch gaps counted too);
+  7. the kernels line, then {"ok": true, "device": ...} as the last line.
 The launch counts are set to 0 just before the first timed main-path run
 and read just after it. It needs no network and imports no JAX.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -70,14 +82,20 @@ def cuda_ms(fn, reps, hold=True):
     """Device ms per call of fn, between CUDA events. With `hold`, a sleep
     kernel first holds the card while the host queues the calls, so that
     short kernels run back to back and the host's launch time is not
-    counted; without it, the gaps between the host's launches count."""
+    counted; without it, the gaps between the host's launches count. The
+    sleep lasts at least twice as long as the host takes to queue the
+    calls (one call's queueing time, timed here, at up to 2 GHz)."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     if hold:
-        torch.cuda._sleep(50_000_000)
+        tq = time.perf_counter()
+        fn()
+        queue_s = time.perf_counter() - tq
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(max(50_000_000, 4e9 * queue_s * reps)))
     t0.record()
     for _ in range(reps):
         fn()
@@ -125,6 +143,117 @@ def trellis_bound(args):
     nc = nbits(qval).to(torch.int64)
     ops = torch.where(live, 3 * nj * nc + 2 * nj + 2 * nc, 0).sum()
     return nbytes, float(ops)
+
+
+def psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def same(a, b):
+    """Equal arrays, or equal lists of arrays (YUV planes), dtype too."""
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def decode_phase(images, outs, dev):
+    """Phase 5: the port's decode on the card against its CPU path."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import decoder, marker, smooth
+    mp = sum(im.shape[0] * im.shape[1] for im in images) / 1e6
+    mjt.decode_many(outs)                               # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decs = mjt.decode_many(outs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    checked = (0, 7, 16, len(images) - 1)
+    cpus = mjt.decode_many([outs[i] for i in checked], device="cpu")
+    for i, cpu in zip(checked, cpus):
+        ok = same(decs[i], cpu)
+        log("decode card vs cpu [image %d, %dx%d]: equal=%s"
+            % (i, images[i].shape[1], images[i].shape[0], ok))
+        if not ok:
+            raise SystemExit("decode on the card differs from the CPU path")
+    ps = [psnr(d, im) for d, im in zip(decs, images)]
+    log("decode PSNR vs source (dB): %s" % ", ".join("%.2f" % p for p in ps))
+    if min(ps) < 25.0 or any(d.shape != im.shape
+                             for d, im in zip(decs, images)):
+        raise SystemExit("decoded image far from its source")
+
+    trunc = outs[0][:len(outs[0]) * 2 // 3] + b"\xff\xd9"
+    jp = marker.parse(trunc)
+    decoder.decode_coefficients(jp, trunc)
+    if not smooth.smoothing_ok(jp, jp.coef_bits):
+        raise SystemExit("the truncated stream does not take smoothing")
+    for label, card, cpu in (
+            ("decode() image 0", lambda: mjt.decode(outs[0]),
+             lambda: mjt.decode(outs[0], device="cpu")),
+            ("decode_many truncated image 0 (block smoothing)",
+             lambda: mjt.decode_many([trunc]),
+             lambda: mjt.decode_many([trunc], device="cpu")),
+            ("decode_many yuv images 0-7",
+             lambda: mjt.decode_many(outs[:8], output="yuv"),
+             lambda: mjt.decode_many(outs[:8], output="yuv",
+                                     device="cpu"))):
+        ok = same(card(), cpu())
+        log("decode card vs cpu [%s]: equal=%s" % (label, ok))
+        if not ok:
+            raise SystemExit("decode on the card differs from the CPU path")
+    mps = [mp / w for w in walls]
+    log("decode_many MP/s: median %.3f (reps %s)"
+        % (statistics.median(mps), ", ".join("%.3f" % v for v in mps)))
+
+    # stage times of one 8x768x512 group, synchronised
+    datas = outs[:8]
+    times = {}
+    t0 = time.perf_counter()
+    jps = [marker.parse(d) for d in datas]
+    with ThreadPoolExecutor(min(8, max(2, os.cpu_count() or 4))) as pool:
+        planes = list(pool.map(decoder.decode_coefficients, jps, datas))
+    times["parse_entropy"] = time.perf_counter() - t0
+    key = decoder.group_key(jps[0], planes[0])
+    if key is None or any(decoder.group_key(j, p) != key
+                          for j, p in zip(jps, planes)):
+        raise SystemExit("the 768x512 images do not share a render group")
+    rec = {}
+    t0 = time.perf_counter()
+    decoder.render_group(key, jps, planes, dev, times=times, record=rec)
+    group_s = time.perf_counter() - t0 + times["parse_entropy"]
+    log("decode stages of one 8x768x512 group (ms): %s; total %.1f"
+        % (json.dumps({k: round(v * 1e3, 3) for k, v in times.items()}),
+           group_s * 1e3))
+    args = rec["render_ycc_batch"]
+    out = decoder.render_ycc_batch(*args)
+    nbytes = sum(a.numel() * a.element_size() for a in args[:5]) \
+        + out.numel() * out.element_size()
+    # a render call queues hundreds of launches, and its held time moves
+    # with the host's load from run to run, so the device's own time is
+    # the sum of its kernels' durations in the profiler's trace; the held
+    # time stays beside it
+    r_held = cuda_ms(lambda: decoder.render_ycc_batch(*args), 10)
+    r_un = cuda_ms(lambda: decoder.render_ycc_batch(*args), 10, hold=False)
+    b_ms, _ = bound(nbytes, 0)
+    from torch.profiler import ProfilerActivity, profile
+    reps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            decoder.render_ycc_batch(*args)
+        torch.cuda.synchronize()
+    dev_evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_evs) / 1e3 / reps
+    log("decode render per group: %.4f ms of device kernels (torch.profiler, "
+        "%d kernels); between CUDA events %.4f ms held, %.4f ms with the "
+        "host's launch gaps (card busy %.0f%%); bound %.4f ms (%d bytes, by "
+        "bytes), %.2f%% of the bound"
+        % (busy_ms, len(dev_evs) // reps, r_held, r_un, 100 * busy_ms / r_un,
+           b_ms, nbytes, 100 * b_ms / busy_ms))
 
 
 def main():
@@ -276,7 +405,10 @@ def main():
     log("encode_many MP/s: median %.3f (reps %s)"
         % (statistics.median(mps), ", ".join("%.3f" % v for v in mps)))
 
-    # ---- 5. stage times of one group, kernel and plain times ----
+    # ---- 5. decode ----
+    decode_phase(images, outs, dev)
+
+    # ---- 6. stage times of one group, kernel and plain times ----
     times = {}
     with ThreadPoolExecutor(8) as pool:
         t0 = time.perf_counter()
@@ -325,7 +457,7 @@ def main():
         % (dense[0].shape[1], d_ms, d_un, dp_ms, d_bound, d_ops, d_bytes,
            d_by, 100 * d_bound / d_ms))
 
-    # ---- 6. result lines ----
+    # ---- 7. result lines ----
     log(json.dumps({"kernels": [{
         "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -1,15 +1,19 @@
-"""PyTorch + CUDA port of the mozjpeg_tpu encoder.
+"""PyTorch + CUDA port of the mozjpeg_tpu codec.
 
-Byte-identical to mozjpeg_tpu for the configurations it carries (see
-codec/encoder.py); it imports neither jax nor mozjpeg_tpu. The AC trellis
+Byte-identical to mozjpeg_tpu for the encode configurations it carries
+(see codec/encoder.py) and pixel-identical for the streams it decodes (see
+codec/decoder.py); it imports neither jax nor mozjpeg_tpu. The AC trellis
 runs as a hand-written CUDA kernel (csrc/trellis_ac.cu); the rest of the
 device work is PyTorch, and the host work is the shared C++ engine built
 into the port's own library.
 
     import mozjpeg_tpu_torch as mjt
     jpegs = mjt.encode_many(images, mjt.EncoderConfig(quality=75))
+    pixels = mjt.decode_many(jpegs)
 """
 from .codec.config import DCTMethod, EncoderConfig, Profile
+from .codec.decoder import decode, decode_many
 from .codec.encoder import encode_many
 
-__all__ = ["DCTMethod", "EncoderConfig", "Profile", "encode_many"]
+__all__ = ["DCTMethod", "EncoderConfig", "Profile", "decode", "decode_many",
+           "encode_many"]

@@ -1,7 +1,10 @@
 """ctypes bindings for the port's native host library (built at first use).
 
-Binds only what the encode path calls: mj_prep_ycc, mj_gen_optimal_table
-and mj_scan_search (see build.py for the sources).
+Binds what the encode path calls (mj_prep_ycc, mj_gen_optimal_table,
+mj_scan_search) and what the decode path calls (the six Huffman decoders
+mj_decode_seq, mj_decode_seq_par, mj_decode_{dc,ac}_{first,refine} and
+the warning counter mj_set_warnings / mj_get_warnings, all in
+entropy.cpp); see build.py for the sources.
 """
 from __future__ import annotations
 
@@ -15,6 +18,18 @@ _p = ctypes.POINTER
 u8p = _p(ctypes.c_uint8)
 i32p = _p(ctypes.c_int32)
 i64p = _p(ctypes.c_int64)
+
+
+class CompPlane(ctypes.Structure):
+    """One component's coefficient plane for the native decoders
+    (entropy.cpp CompPlaneMut)."""
+    _fields_ = [
+        ("coef", ctypes.c_void_p),
+        ("bw", ctypes.c_int32), ("bh", ctypes.c_int32),
+        ("stride", ctypes.c_int32),
+        ("h", ctypes.c_int32), ("v", ctypes.c_int32),
+        ("dc_tbl", ctypes.c_int32), ("ac_tbl", ctypes.c_int32),
+    ]
 
 
 class SearchComp(ctypes.Structure):
@@ -54,4 +69,36 @@ def _bind(so):
     so.mj_scan_search.argtypes = [
         _p(SearchComp), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, i32p, u8p, ctypes.c_long, i32p, ctypes.c_int]
+
+    cpp = _p(CompPlane)
+    tabs = [i32p, i64p, i32p, u8p]      # mincode, maxcode, valptr, vals
+    so.mj_decode_seq.restype = ctypes.c_long
+    so.mj_decode_seq.argtypes = [
+        u8p, ctypes.c_long, cpp, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *tabs, *tabs, i32p, i64p]
+    so.mj_decode_seq_par.restype = ctypes.c_long
+    so.mj_decode_seq_par.argtypes = [
+        u8p, ctypes.c_long, cpp, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *tabs, *tabs, i32p, ctypes.c_int, i64p]
+    so.mj_decode_dc_first.restype = ctypes.c_long
+    so.mj_decode_dc_first.argtypes = [
+        u8p, ctypes.c_long, cpp, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *tabs, i32p, i64p]
+    so.mj_decode_dc_refine.restype = ctypes.c_long
+    so.mj_decode_dc_refine.argtypes = [
+        u8p, ctypes.c_long, cpp, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, i64p]
+    for fn in (so.mj_decode_ac_first, so.mj_decode_ac_refine):
+        fn.restype = ctypes.c_long
+        fn.argtypes = [
+            u8p, ctypes.c_long, cpp,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            *tabs, i32p, i64p]
+    so.mj_set_warnings.restype = None
+    so.mj_set_warnings.argtypes = [ctypes.c_long]
+    so.mj_get_warnings.restype = ctypes.c_long
+    so.mj_get_warnings.argtypes = []
     return so

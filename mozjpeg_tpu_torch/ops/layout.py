@@ -2,7 +2,9 @@
 
 Port of mozjpeg_tpu/ops/layout.py (blockify_t, to_zigzag_t,
 from_zigzag_t): blocks live as (8, 8, N) / (64, N) tensors with the block
-index last, N in raster block order (image-major for a batch).
+index last, N in raster block order (image-major for a batch). The
+decoder's from_zigzag and unblockify keep the block-major layout of
+decoded planes, (..., bh, bw, 64) and (..., bh, bw, 8, 8).
 """
 from __future__ import annotations
 
@@ -41,3 +43,15 @@ def from_zigzag_t(zz: torch.Tensor) -> torch.Tensor:
     """(64, N) zigzag -> (8, 8, N) natural."""
     inv = _index(JPEG_ZIGZAG_INV, zz.device)
     return zz.index_select(0, inv).reshape(8, 8, -1)
+
+
+def from_zigzag(zz: torch.Tensor) -> torch.Tensor:
+    """(..., 64) zigzag -> (..., 8, 8) natural (block-major layout)."""
+    inv = _index(JPEG_ZIGZAG_INV, zz.device)
+    return zz.index_select(-1, inv).reshape(*zz.shape[:-1], 8, 8)
+
+
+def unblockify(blocks: torch.Tensor) -> torch.Tensor:
+    """(..., bh, bw, 8, 8) -> (..., bh*8, bw*8)."""
+    *lead, bh, bw, _, _ = blocks.shape
+    return blocks.movedim(-2, -3).reshape(*lead, bh * 8, bw * 8)

@@ -1,6 +1,8 @@
 """Tests that need the card: the AC trellis kernel against its plain
 version (ragged tiles, N = 1, all-zero, dense and rate-less inputs, three
-bands), and the port's encode on the GPU against its CPU path. They skip
+bands), the port's encode on the GPU against its CPU path, and its decode
+(decode, decode_many in RGB and YUV, a truncated progressive stream) on
+the GPU against its CPU path. They skip
 without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -87,3 +89,36 @@ def test_encode_on_the_card_equals_cpu(cuda):
     cfg = mjt.EncoderConfig(quality=75)
     assert (mjt.encode_many(imgs, cfg)
             == mjt.encode_many(imgs, cfg, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def port_jpegs():
+    """Port-encoded q75 4:2:0, 2x1 and 1x1 streams (two shapes each) and a
+    truncated copy of the first, which takes block smoothing."""
+    rng = np.random.default_rng(9)
+    outs = []
+    for samp in ((2, 2), (2, 1), (1, 1)):
+        imgs = [np.clip(rng.normal(128, 50, (h, w, 3)), 0, 255)
+                .astype(np.uint8) for h, w in ((48, 64), (29, 37))]
+        outs += mjt.encode_many(imgs, mjt.EncoderConfig(
+            quality=75, subsampling=samp), device="cpu")
+    trunc = outs[0][:len(outs[0]) * 2 // 3] + b"\xff\xd9"
+    return outs + [trunc]
+
+
+def _same(a, b):
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_decode_on_the_card_equals_cpu(cuda, port_jpegs):
+    for data in port_jpegs:
+        assert _same(mjt.decode(data), mjt.decode(data, device="cpu"))
+
+
+@pytest.mark.parametrize("output", ["rgb", "yuv"])
+def test_decode_many_on_the_card_equals_cpu(cuda, port_jpegs, output):
+    datas = port_jpegs * 3               # more than one group of a shape
+    assert _same(mjt.decode_many(datas, output=output),
+                 mjt.decode_many(datas, output=output, device="cpu"))

@@ -59,9 +59,28 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("device", [None, "cuda"])
-def test_gpu_entry_raises_without_cuda(monkeypatch, device):
+_IMG = np.zeros((16, 16, 3), np.uint8)
+_CFG = mjt.EncoderConfig(quality=75)
+_ENTRIES = {
+    "encode_many": lambda jpeg, device: mjt.encode_many(
+        [_IMG], _CFG, device=device),
+    "decode": lambda jpeg, device: mjt.decode(jpeg, device=device),
+    "decode_many": lambda jpeg, device: mjt.decode_many([jpeg],
+                                                        device=device),
+}
+
+
+@pytest.fixture(scope="module")
+def jpeg():
+    return mjt.encode_many([_IMG], _CFG, device="cpu")[0]
+
+
+@pytest.mark.parametrize("entry,device", [
+    pytest.param("encode_many", None, id="None"),
+    pytest.param("encode_many", "cuda", id="cuda"),
+    *(pytest.param(e, d, id="%s-%s" % (e, d))
+      for e in ("decode", "decode_many") for d in (None, "cuda"))])
+def test_gpu_entry_raises_without_cuda(monkeypatch, jpeg, entry, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    img = np.zeros((16, 16, 3), np.uint8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        mjt.encode_many([img], mjt.EncoderConfig(quality=75), device=device)
+        _ENTRIES[entry](jpeg, device)
