@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about one to two minutes
+    python3 chip_smoke.py            # about three to four minutes
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
@@ -34,9 +34,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      beside its plain version's and its bound, and the same on the dense
      input; each kernel time both with the card's queue held (device time
      alone) and without (the host's launch gaps counted too);
-  7. the kernels line, then {"ok": true, "device": ...} as the last line.
-The launch counts are set to 0 just before the first timed main-path run
-and read just after it. It needs no network and imports no JAX.
+  7. the config matrix: for each configuration family of the batched
+     encode surface (grayscale from 2-D planes and from RGB, RGB, CMYK
+     and YCCK from seeded 4-channel images, device prep, smoothing, the
+     ifast and float DCTs, restarts, sequential, standard tables,
+     FASTEST, the simple script, the trellis options, quant tables and
+     markers) one 768x512 and one 1021x683 corpus image on the card, with
+     SOI/EOI and the same bytes twice, and the card's bytes equal to the
+     CPU path's on a 256x192 and a 131x97 crop; the trellis kernel
+     against its plain version, exactly with `ei`, on the launches of the
+     grayscale, CMYK, use_scans_in_trellis and trellis_eob_opt groups;
+     encode_many median MP/s over 3 reps of the 19-image corpus for nine
+     families beside the default's, with the stage times of one
+     8x768x512 group for the three slowest; the device time and kernel
+     count of the EOB-run DP, the device prep and the float DCT per group
+     (torch.profiler);
+  8. the kernels line, then {"ok": true, "device": ...} as the last line.
+Launch counts are set to 0 just before each timed run of a path (phase
+4's main path, each family of phase 7) and read just after it; the
+kernels line carries phase 4's. It needs no network and imports no JAX.
 """
 import json
 import os
@@ -256,6 +272,221 @@ def decode_phase(images, outs, dev):
            b_ms, nbytes, 100 * b_ms / busy_ms))
 
 
+def profiled(fn, reps=3):
+    """(device ms of fn's kernels per call, kernels per call, wall ms per
+    call synchronised) from torch.profiler over `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps,
+            len(evs) // reps, wall * 1e3)
+
+
+# (name, input channels, EncoderConfig fields) per family of phase 7;
+# channels 1 = 2-D planes, 4 = seeded CMYK
+FAMILIES = [
+    ("grayscale", 1, dict(gray_sample=(1, 2))),
+    ("gray-from-rgb", 3, dict(grayscale=True)),
+    ("rgb", 3, dict(colorspace="rgb")),
+    ("cmyk", 4, dict()),
+    ("ycck", 4, dict(colorspace="ycck")),
+    ("device-prep-1x2", 3, dict(host_prep=False, subsampling=(1, 2))),
+    ("smoothing", 3, dict(smoothing_factor=30)),
+    ("ifast", 3, dict(dct_method="ifast")),
+    ("float", 3, dict(dct_method="float")),
+    ("float-no-dering", 3, dict(dct_method="float",
+                                overshoot_deringing=False)),
+    ("restart_interval=4", 3, dict(restart_interval=4)),
+    ("restart_in_rows=1", 3, dict(restart_in_rows=1)),
+    ("progressive=False", 3, dict(progressive=False)),
+    ("standard-tables", 3, dict(progressive=False, optimize_coding=False)),
+    ("FASTEST", 3, dict(profile="fastest")),
+    ("simple-script", 3, dict(optimize_scans=False, dc_scan_opt_mode=1)),
+    ("no-trellis", 3, dict(trellis_quant=False)),
+    ("no-dc-trellis", 3, dict(trellis_quant_dc=False)),
+    ("trellis_eob_opt", 3, dict(trellis_eob_opt=True)),
+    ("trellis_num_loops=2", 3, dict(trellis_num_loops=2)),
+    ("use_scans_in_trellis", 3, dict(use_scans_in_trellis=True)),
+    ("delta-dc-weight", 3, dict(trellis_delta_dc_weight=0.5)),
+    ("qualities-icc", 3, dict(quality=[70, 85], icc=bytes(range(256)) * 8,
+                              density=(1, 72, 72))),
+]
+TIMED = ("grayscale", "ifast", "float", "restart_in_rows=1",
+         "progressive=False", "FASTEST", "trellis_eob_opt",
+         "trellis_num_loops=2", "use_scans_in_trellis")
+RECORDED = ("grayscale", "cmyk", "use_scans_in_trellis", "trellis_eob_opt")
+
+
+def family_images(images, channels, seed):
+    """The corpus as a family's input: 2-D planes, RGB, or RGB with a
+    seeded K channel."""
+    if channels == 1:
+        return [np.ascontiguousarray(im[..., 0]) for im in images]
+    if channels == 4:
+        return [np.concatenate([im, photo(im.shape[0], im.shape[1],
+                                          seed + i)[..., :1]], -1)
+                for i, im in enumerate(images)]
+    return images
+
+
+def family_config(kw):
+    import mozjpeg_tpu_torch as mjt
+    kw = dict(kw)
+    if "dct_method" in kw:
+        kw["dct_method"] = mjt.DCTMethod(kw["dct_method"])
+    if "profile" in kw:
+        kw["profile"] = mjt.Profile(kw["profile"])
+    kw.setdefault("quality", 75)
+    return mjt.EncoderConfig(**kw)
+
+
+def config_matrix(kodak, odd, dev, default_mps, compare):
+    """Phase 7; returns the largest kernel-vs-plain error it saw."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import encoder, pipeline_t, trellis
+    from mozjpeg_tpu_torch.ops import dct, dering, layout
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    corpus = kodak + odd
+    mp = sum(im.shape[0] * im.shape[1] for im in corpus) / 1e6
+    t_phase = time.perf_counter()
+    max_err = 0.0
+    rates, recs = {}, {}
+    for name, ch, kw in FAMILIES:
+        cfg = family_config(kw)
+        big = family_images([kodak[0], odd[0]], ch, 300)
+        outs = mjt.encode_many(big, cfg)
+        again = mjt.encode_many(big, cfg)
+        if not all(o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"
+                   for o in outs):
+            raise SystemExit("%s: output without SOI/EOI" % name)
+        if again != outs:
+            raise SystemExit("%s: outputs differ between runs" % name)
+        crops = [big[0][100:292, 200:456], big[1][301:398, 17:148]]
+        same = mjt.encode_many(crops, cfg) == mjt.encode_many(
+            crops, cfg, device="cpu")
+        log("config matrix [%s]: 768x512 %d bytes, 1021x683 %d bytes, "
+            "deterministic; card vs cpu on 256x192 and 131x97 crops: "
+            "equal=%s (phase at %.1f s)" % (name, len(outs[0]), len(outs[1]),
+                                            same,
+                                            time.perf_counter() - t_phase))
+        if not same:
+            raise SystemExit("%s: card output differs from the CPU path"
+                             % name)
+        if name in RECORDED:
+            ctx = encoder.resolve_group(family_images(kodak[:1], ch, 300)[0],
+                                        cfg)
+            rec = {}
+            with ThreadPoolExecutor(8) as pool:
+                for f in encoder.encode_group(
+                        family_images(kodak[:8], ch, 300), ctx, dev, pool,
+                        record=rec):
+                    f.result()
+            recs[name] = (ctx, rec)
+            for i, args in enumerate(rec["trellis_ac"]):
+                max_err = max(max_err, compare(
+                    args, "%s group launch %d" % (name, i)))
+        if name in TIMED:
+            # warm: this family's kernels and shapes just ran above
+            imgs = family_images(corpus, ch, 400)
+            torch.cuda.synchronize()
+            tac.trellis_ac.launches = 0
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                mjt.encode_many(imgs, cfg)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = tac.trellis_ac.launches
+            if cfg.resolved().trellis_quant and launches <= 0:
+                raise SystemExit("%s never launched the trellis kernel"
+                                 % name)
+            rates[name] = [mp / w for w in walls]
+            log("config matrix MP/s [%s]: median %.3f (reps %s), "
+                "trellis_ac launches=%d; default %.3f"
+                % (name, statistics.median(rates[name]),
+                   ", ".join("%.3f" % v for v in rates[name]), launches,
+                   default_mps))
+
+    slowest = sorted(rates, key=lambda k: statistics.median(rates[k]))[:3]
+    for name in slowest:
+        ch, kw = next((c, k) for n, c, k in FAMILIES if n == name)
+        cfg = family_config(kw)
+        group = family_images(kodak[:8], ch, 400)
+        ctx = encoder.resolve_group(group[0], cfg)
+        times = {}
+        with ThreadPoolExecutor(8) as pool:
+            t0 = time.perf_counter()
+            encoder.encode_group(group, ctx, dev, pool, times=times)
+            group_s = time.perf_counter() - t0
+        log("config matrix stages of one 8x768x512 group [%s] (ms): %s; "
+            "total %.1f" % (name, json.dumps(
+                {k: round(v * 1e3, 3) for k, v in times.items()}),
+                group_s * 1e3))
+
+    # the EOB-run DP of one group (Y, Cb, Cr) on the kernel's ei strips of
+    # the recorded launches (the EOBn code lengths of the standard tables:
+    # the DP's work does not depend on them)
+    from mozjpeg_tpu_torch.codec.pipeline import geometry
+    ctx, rec = recs["trellis_eob_opt"]
+    h, w = kodak[0].shape[:2]
+    comps = geometry(w, h, ctx.samp)[2]
+    eob_in = []
+    for args, g, slot in zip(rec["trellis_ac"], comps, (0, 1, 1)):
+        _, ei = tac.trellis_ac(*args)
+        si = trellis.trellis_tables_from_hist(None, slot, False)[0][::16]
+        eob_in.append((ei, g, torch.as_tensor(
+            np.repeat(si[None].astype(np.float32), 8 * g.bh, 0),
+            device=dev)))
+
+    def eob_group():
+        for ei, g, si in eob_in:
+            trellis.eob_block_dp(
+                ei[0].reshape(-1, g.bw), ei[1].reshape(-1, g.bw),
+                ei[2].to(torch.int64).reshape(-1, g.bw), si)
+
+    # device prep of one group (RGB -> YCbCr, 4:2:0) and the float DCT of
+    # its luma (dering, DCT, quantize, rescale)
+    group_t = torch.from_numpy(np.stack(kodak[:8])).to(dev)
+    geom = geometry(w, h, [(2, 2), (1, 1), (1, 1)])
+    planes = pipeline_t.prep_planes(group_t, geom, "ycbcr")
+    blocks = layout.blockify_t(planes[0].to(torch.int32) - 128)
+    qt = encoder.make_qtables(family_config({}).resolved())[0]
+    div = torch.as_tensor(dct.float_divisors(qt).reshape(8, 8, 1),
+                          device=dev)
+    q0 = int(qt[0, 0])
+
+    def float_dct():
+        f = layout.from_zigzag_t(dering.dering_float_t(
+            layout.to_zigzag_t(blocks.to(torch.float32)), q0))
+        sc = dct.fdct_float_t(f)
+        dct.quantize_float_t(sc, div)
+        dct.rescale_float_t(sc)
+
+    for label, fn, reps in (
+            ("EOB-run DP (Y, Cb, Cr)", eob_group, 1),
+            ("device prep (RGB -> YCbCr 4:2:0)",
+             lambda: pipeline_t.prep_planes(group_t, geom, "ycbcr"), 3),
+            ("float DCT of the luma (dering, DCT, quantize, rescale)",
+             float_dct, 3)):
+        dev_ms, nk, wall_ms = profiled(fn, reps)
+        log("config matrix per 8x768x512 group [%s]: %.4f ms of device "
+            "kernels (torch.profiler, %d kernels), %.3f ms synchronised "
+            "wall under the profiler" % (label, dev_ms, nk, wall_ms))
+    log("config matrix: %.1f s" % (time.perf_counter() - t_phase))
+    return max_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -457,7 +688,11 @@ def main():
         % (dense[0].shape[1], d_ms, d_un, dp_ms, d_bound, d_ops, d_bytes,
            d_by, 100 * d_bound / d_ms))
 
-    # ---- 7. result lines ----
+    # ---- 7. the config matrix ----
+    max_err = max(max_err, config_matrix(kodak, odd, dev, statistics.median(
+        mps), compare))
+
+    # ---- 8. result lines ----
     log(json.dumps({"kernels": [{
         "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -8,6 +8,10 @@ TPU-tunnel engines (device entropy, device scan search, sparse and
 transport downloads, plane packing); the port has none of those engines
 yet, so their "auto" resolves to off here, and an explicit request for
 one is refused by the encoder (codec/encoder.py _check_slice).
+
+Also the per-colorspace component layout (CS_INFO), the quant slot
+mapping and the restart-interval conversions of mozjpeg_tpu/codec/
+encoder.py, which the encoder and the scan search share.
 """
 from __future__ import annotations
 
@@ -148,6 +152,51 @@ class EncoderConfig:
             plane_pack=bool(self.plane_pack),
             coef_transport=bool(self.coef_transport),
         )
+
+
+# per-colorspace component layout: (quant slots, huff table slots, comp IDs)
+# (jcparam.c:600-646 jpeg_set_colorspace SET_COMP calls)
+CS_INFO = {
+    "grayscale": ((0,), (0,), (1,)),
+    "ycbcr": ((0, 1, 1), (0, 1, 1), (1, 2, 3)),
+    "rgb": ((0, 0, 0), (0, 0, 0), (0x52, 0x47, 0x42)),
+    "cmyk": ((0, 0, 0, 0), (0, 0, 0, 0), (0x43, 0x4D, 0x59, 0x4B)),
+    "ycck": ((0, 1, 1, 0), (0, 1, 1, 0), (1, 2, 3, 4)),
+}
+
+
+def qt_slots(cfg, cs: str, ncomps: int) -> tuple:
+    """Per-component quant slots, with the qslots override (rdswitch.c
+    set_quant_slots: the last value replicates)."""
+    if cfg.qslots:
+        sl = list(cfg.qslots)[:ncomps]
+        while len(sl) < ncomps:
+            sl.append(sl[-1])
+        return tuple(sl)
+    return CS_INFO[cs][0][:ncomps]
+
+
+def scan_restart_interval(cfg, scan, geom) -> int:
+    """Per-scan restart interval (jcmaster.c:595-600 per_scan_setup):
+    restart_in_rows converts with the scan's MCUs per row, which is the
+    component's width in blocks for a non-interleaved scan
+    (jcmaster.c:533)."""
+    mcus_x, _, comps = geom
+    if cfg.restart_in_rows:
+        mpr = mcus_x if len(scan.comps) > 1 else comps[scan.comps[0]].bw
+        return min(cfg.restart_in_rows * mpr, 65535)
+    return cfg.restart_interval
+
+
+def trellis_ris(cfg, comps):
+    """Restart interval per component for the trellis's statistics
+    passes, or None: each gather is a single-component pseudo-scan, so
+    restart_in_rows converts with that component's width in blocks."""
+    if cfg.restart_in_rows:
+        return tuple(min(cfg.restart_in_rows * g.bw, 65535) for g in comps)
+    if cfg.restart_interval:
+        return (cfg.restart_interval,) * len(comps)
+    return None
 
 
 @dataclasses.dataclass

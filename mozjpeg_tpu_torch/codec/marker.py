@@ -1,10 +1,12 @@
 """JPEG marker segment writer and parser.
 
 Port of mozjpeg_tpu/codec/marker.py. The writer (the part the encode path
-uses): SOI, JFIF APP0, one multi-table DQT (mozjpeg's non-FASTEST
-profile, jcmarker.c:190-246), SOF and EOI, with field layouts as mozjpeg
-jcmarker.c writes them. The parser (the decode path) follows mozjpeg
-jdmarker.c for the markers a conformant decoder needs, plus the Adobe
+uses): SOI, JFIF APP0, Adobe APP14, ICC APP2 chunks, DQT (one
+marker per table, or all in one as mozjpeg's non-FASTEST profile does,
+jcmarker.c:190-246), SOF, DHT (likewise single or merged), DRI, SOS and
+EOI, with field layouts as mozjpeg jcmarker.c writes them. The parser
+(the decode path) follows mozjpeg jdmarker.c for the markers a
+conformant decoder needs, plus the Adobe
 APP14 transform that names the colourspace; other APPn and COM segments
 are skipped.
 """
@@ -56,18 +58,31 @@ class MarkerWriter:
         self.segment(APP0, b"JFIF\x00" + bytes([major, minor, unit])
                      + struct.pack(">HH", xd, yd) + b"\x00\x00")
 
+    def adobe_app14(self, transform: int):
+        """Adobe APP14 (jcmarker.c emit_adobe_app14): version 100, flags
+        0, the colour transform (0 none, 1 YCbCr, 2 YCCK)."""
+        self.segment(APP14, b"Adobe" + struct.pack(">HHHB", 100, 0, 0,
+                                                   transform))
+
+    @staticmethod
+    def _dqt_payload(index: int, qtbl_natural) -> bytes:
+        q = np.asarray(qtbl_natural).reshape(64)[JPEG_ZIGZAG]
+        prec = 1 if int(q.max()) > 255 else 0
+        payload = bytes([(prec << 4) | index])
+        if prec:
+            return payload + b"".join(struct.pack(">H", int(v)) for v in q)
+        return payload + bytes(int(v) for v in q)
+
+    def dqt(self, index: int, qtbl_natural: np.ndarray):
+        """One table (natural order in, zigzag out) in its own DQT marker
+        (the FASTEST profile)."""
+        self.segment(DQT, self._dqt_payload(index, qtbl_natural))
+
     def dqt_multi(self, tables: List[Tuple[int, np.ndarray]]):
-        """All tables (natural order in, zigzag out) in one DQT marker."""
-        payload = b""
-        for index, qtbl_natural in tables:
-            q = np.asarray(qtbl_natural).reshape(64)[JPEG_ZIGZAG]
-            prec = 1 if int(q.max()) > 255 else 0
-            payload += bytes([(prec << 4) | index])
-            if prec:
-                payload += b"".join(struct.pack(">H", int(v)) for v in q)
-            else:
-                payload += bytes(int(v) for v in q)
-        self.segment(DQT, payload)
+        """All tables in one DQT marker (jcmarker.c:190-246
+        emit_multi_dqt, the non-FASTEST profile)."""
+        self.segment(DQT, b"".join(self._dqt_payload(i, t)
+                                   for i, t in tables))
 
     def sof(self, code: int, precision: int, height: int, width: int,
             comps: List[Tuple[int, int, int, int]]):
@@ -76,6 +91,45 @@ class MarkerWriter:
         for cid, h, v, q in comps:
             payload += bytes([cid, (h << 4) | v, q])
         self.segment(code, payload)
+
+    @staticmethod
+    def _dht_payload(cls: int, index: int, tbl: HuffTable) -> bytes:
+        return bytes([(cls << 4) | index]) + bytes(tbl.bits[1:17]) \
+            + bytes(tbl.vals[:int(tbl.bits[1:17].sum())])
+
+    def dht(self, cls: int, index: int, tbl: HuffTable):
+        self.segment(DHT, self._dht_payload(cls, index, tbl))
+
+    def dht_multi(self, entries):
+        """One DHT marker holding several tables, entries [(cls, idx,
+        tbl)] (jcmarker.c emit_multi_dht). A scan that uses no table (a
+        progressive DC refinement) still gets a bare FFC4 0002 marker."""
+        self.segment(DHT, b"".join(self._dht_payload(c, i, t)
+                                   for c, i, t in entries))
+
+    def dri(self, interval: int):
+        self.segment(DRI, struct.pack(">H", interval))
+
+    def sos(self, comps: List[Tuple[int, int, int]], Ss: int, Se: int,
+            Ah: int, Al: int):
+        """comps: (component_id, dc_tbl, ac_tbl)."""
+        payload = bytes([len(comps)])
+        for cid, dc, ac in comps:
+            payload += bytes([cid, (dc << 4) | ac])
+        payload += bytes([Ss, Se, (Ah << 4) | Al])
+        self.segment(SOS, payload)
+
+
+ICC_MARKER_PAYLOAD = 65533 - 14  # profile bytes per APP2 chunk
+
+
+def icc_chunks(profile: bytes):
+    """APP2 ICC_PROFILE chunking (jcicc.c jpeg_write_icc_profile) ->
+    [(marker code, payload), ...]."""
+    n = (len(profile) + ICC_MARKER_PAYLOAD - 1) // ICC_MARKER_PAYLOAD
+    return [(APP2, b"ICC_PROFILE\x00" + bytes([i + 1, n])
+             + profile[i * ICC_MARKER_PAYLOAD:(i + 1) * ICC_MARKER_PAYLOAD])
+            for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,20 @@
-"""Batched p1 from host-prepped planes, and the dense coefficient download.
+"""Batched p1 and the dense coefficient download.
 
-Port of the mozjpeg_tpu/codec/pipeline_t.py route the main path runs
-(run_p1_batch_pre -> _p1_batch_pre -> _p1_raw, islow): the native
-mj_prep_ycc converts and downsamples each image into one uint8 buffer
-[Y | Cb | Cr] (edge-padded planes), the group's buffers go up in one
-upload, and p1 runs on the device over every block of the group at once:
+Port of mozjpeg_tpu/codec/pipeline_t.py. p1 runs on the device over every
+block of a group of same-shape images at once, per component:
 
-  blockify -> zigzag -> dering -> natural -> islow FDCT -> quantize
-  -> clip +-1023 -> zigzag; norm sums; AC-first histograms.
+  blockify -> [zigzag -> dering -> natural] -> FDCT (islow, ifast or
+  float) -> quantize -> clip +-1023 -> zigzag; norm sums; AC-first
+  histograms (segmented at the trellis's restart intervals).
+
+Its planes come one of two ways, as in the JAX package's _batch_p1:
+  - host prep (run_p1_batch_pre): the native mj_prep_ycc converts and
+    downsamples each RGB image into one uint8 buffer [Y | Cb | Cr] of
+    edge-padded planes, and the group's buffers go up in one upload
+    (YCbCr without smoothing);
+  - device prep (run_p1_batch -> _p1): the raw images go up, and the
+    colour conversion (YCbCr, gray, YCCK, or none for RGB and CMYK),
+    padding, input smoothing and downsampling run on the device.
 
 Block data is coefficient-major, (64, B*n) image-major, like the JAX
 package's merged planes. The small sidecar is the JAX package's layout:
@@ -21,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import consts, native
-from ..ops import dct, dering, layout, quant, symbols
+from ..ops import color, dct, dering, layout, quant, sample, symbols
 from .pipeline import CompGeom, geometry
 
 
@@ -63,47 +70,154 @@ def norm_seq(raw_zz: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _t81(table: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(table).reshape(8, 8, 1),
+                           device=device)
+
+
 def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
-            dering_on: bool, batch: int):
-    """One component of a group: plane (B, bh_pad*8, bw_pad*8) uint8 ->
+            dering_on: bool, batch: int, dct_method: str = "islow",
+            ri: int = 0):
+    """One component of a group: plane (B, >= bh*8, >= bw*8) uint8 ->
     (q_zz (64, B*n) int16, raw_zz (64, B*n) int32, norm (B*n,) f32,
     AC-first histograms (B, 256) int32)."""
+    dev = plane.device
+    qtbl = np.asarray(qtbl)
+    q0 = int(qtbl.reshape(64)[0])
     blocks = layout.blockify_t(
         plane[:, :g.bh * 8, :g.bw * 8].to(torch.int32) - 128)
-    if dering_on:
-        szz = dering.dering_t(layout.to_zigzag_t(blocks), int(qtbl[0, 0]))
-        blocks = layout.from_zigzag_t(szz)
-    coeffs = dct.fdct_islow_t(blocks)
-    q81 = torch.as_tensor(np.asarray(qtbl, np.int32).reshape(8, 8, 1),
-                          device=plane.device)
-    qz = quant.quantize_islow_t(coeffs, q81)
+    if dering_on and dct_method != "float":
+        blocks = layout.from_zigzag_t(
+            dering.dering_t(layout.to_zigzag_t(blocks), q0))
+    if dct_method == "ifast":
+        sc = dct.fdct_ifast_t(blocks)                  # AAN-scaled
+        qz = dct.quantize_ifast_t(sc, _t81(dct.ifast_divisors(qtbl), dev))
+        coeffs = dct.rescale_ifast_t(sc)               # nominal-range raw
+    elif dct_method == "float":
+        fblocks = blocks.to(torch.float32)
+        if dering_on:
+            fblocks = layout.from_zigzag_t(
+                dering.dering_float_t(layout.to_zigzag_t(fblocks), q0))
+        sc = dct.fdct_float_t(fblocks)
+        qz = dct.quantize_float_t(sc, _t81(dct.float_divisors(qtbl), dev))
+        coeffs = dct.rescale_float_t(sc)
+    else:
+        coeffs = dct.fdct_islow_t(blocks)
+        qz = quant.quantize_islow_t(
+            coeffs, _t81(np.asarray(qtbl, np.int32), dev))
     if dering_on:
         qz = torch.clamp(qz, -1023, 1023)    # post-dering clamp
     q_zz = layout.to_zigzag_t(qz)
     raw_zz = layout.to_zigzag_t(coeffs)
     return (q_zz, raw_zz, norm_seq(raw_zz),
-            symbols.ac_first_histograms_t(q_zz, batch))
+            symbols.ac_first_histograms_t(q_zz, batch, ri))
 
 
-def p1_batch_pre(bufs: torch.Tensor, geom: tuple, qtables, dering_on: bool):
-    """bufs (B, total) uint8 on the device -> ([(q_zz, raw_zz)] per comp,
+def _p1_planes(planes, geom, qtables, dering_on: bool, dct_method: str,
+               ris):
+    """Per component (B, H, W) uint8 planes -> ([(q_zz, raw_zz)] per comp,
     smalls (B*stride,) int32, [norm (B*n,) f32] per comp)."""
-    b = bufs.shape[0]
+    b = planes[0].shape[0]
     merged, norms, hists = [], [], []
-    off = 0
-    for ci, g in enumerate(geom):
-        size = g.bh_pad * 8 * g.bw_pad * 8
-        plane = bufs[:, off:off + size].reshape(b, g.bh_pad * 8,
-                                                g.bw_pad * 8)
-        off += size
-        qtbl = np.asarray(qtables[min(ci, 1, len(qtables) - 1)])
-        q_zz, raw_zz, norm, hist = p1_comp(plane, g, qtbl, dering_on, b)
+    for ci, (plane, g) in enumerate(zip(planes, geom)):
+        q_zz, raw_zz, norm, hist = p1_comp(
+            plane, g, qtables[ci], dering_on, b, dct_method,
+            ris[ci] if ris else 0)
         merged.append((q_zz, raw_zz))
         norms.append(norm)
         hists.append(hist)
     smalls = torch.cat(
         [n.view(torch.int32).reshape(b, -1) for n in norms] + hists, 1)
     return merged, smalls.reshape(-1), norms
+
+
+def comp_qtables(qtables, slots) -> list:
+    """The quant table of each component's slot (the last table where a
+    slot has none, as the JAX package's min(slot, len - 1))."""
+    return [qtables[min(s, len(qtables) - 1)] for s in slots]
+
+
+def p1_batch_pre(bufs: torch.Tensor, geom: tuple, qtables, dering_on: bool,
+                 dct_method: str = "islow", ris=None):
+    """bufs (B, total) uint8 of host-prepped [Y | Cb | Cr] planes on the
+    device -> ([(q_zz, raw_zz)] per comp, smalls (B*stride,) int32,
+    [norm (B*n,) f32] per comp). qtables: the table list, per slot; the
+    components take YCbCr's slots 0, 1, 1."""
+    b = bufs.shape[0]
+    planes, off = [], 0
+    for g in geom:
+        size = g.bh_pad * 8 * g.bw_pad * 8
+        planes.append(bufs[:, off:off + size].reshape(b, g.bh_pad * 8,
+                                                      g.bw_pad * 8))
+        off += size
+    return _p1_planes(planes, geom, comp_qtables(qtables, (0, 1, 1)),
+                      dering_on, dct_method, ris)
+
+
+def _comp_plane(p: torch.Tensor, g: CompGeom, max_h: int, max_v: int,
+                h2: int, smoothing: int = 0) -> torch.Tensor:
+    """One component's (B, ph, pw) full-rate padded plane -> its
+    (B, bh_pad*8, bw_pad*8) plane, downsampled and padded."""
+    if smoothing:
+        # context mode (jcprepct.c pre_process_context): rows replicate
+        # through the whole iMCU height before downsampling, so the
+        # two-stage (downsample, then replicate) padding does not apply
+        if g.h == max_h and g.v == max_v:
+            p = sample.smooth_fullsize(p, smoothing)
+        elif g.h * 2 == max_h and g.v * 2 == max_v:
+            p = sample.downsample_h2v2_smooth(p, smoothing)
+        elif g.h * 2 == max_h and g.v == max_v:
+            # h2v1 has no smoothing variant (jcsample.c:499-507)
+            p = sample.downsample_h2v1(p)
+        elif g.h < max_h or g.v < max_v:
+            p = sample.downsample_int(p, max_h // g.h, max_v // g.v)
+        return p[..., :g.bh_pad * 8, :g.bw_pad * 8]
+    if g.v < max_v:
+        p = p[..., :h2, :]
+    hexp, vexp = max_h // g.h, max_v // g.v
+    if (hexp, vexp) == (2, 2):
+        p = sample.downsample_h2v2(p)
+    elif (hexp, vexp) == (2, 1):
+        p = sample.downsample_h2v1(p)
+    elif (hexp, vexp) != (1, 1):
+        # jcsample has no special 1x2 kernel: every other ratio (1x2,
+        # 4x1, 1x4, 4x2, ...) takes the plain integral average
+        p = sample.downsample_int(p, hexp, vexp)
+    p = layout.pad_plane(p, g.bh_pad * 8, g.bw_pad * 8)
+    return p[..., :g.bh_pad * 8, :g.bw_pad * 8]
+
+
+def prep_planes(images: torch.Tensor, geom_full, cs: str,
+                smoothing: int = 0):
+    """Device prep: images (B, H, W) or (B, H, W, C) uint8 on the device
+    -> per component (B, bh_pad*8, bw_pad*8) uint8 planes. cs names the
+    colour conversion (YCbCr, gray, YCCK, or none for RGB and CMYK)."""
+    mcus_x, mcus_y, geom = geom_full
+    max_h, max_v = geom[0].h, geom[0].v
+    h = images.shape[1]
+    ph, pw = mcus_y * 8 * max_v, mcus_x * 8 * max_h
+    h2 = -(-h // max_v) * max_v
+    if cs == "ycck":
+        chans = color.cmyk_to_ycck(images)
+    elif cs in ("rgb", "cmyk"):
+        chans = images                # null conversion (jccolor.c:723)
+    elif images.dim() == 4:
+        chans = color.rgb_to_ycc(images)
+    else:
+        chans = images[..., None]
+    return [_comp_plane(layout.pad_plane(chans[..., ci], ph, pw), g,
+                        max_h, max_v, h2, smoothing)
+            for ci, g in enumerate(geom)]
+
+
+def p1_batch(images: torch.Tensor, geom_full, cs: str, qtables, slots,
+             dering_on: bool, dct_method: str = "islow", ris=None,
+             smoothing: int = 0):
+    """Device prep + p1 -> as p1_batch_pre; slots are the components'
+    quant slots."""
+    planes = prep_planes(images, geom_full, cs, smoothing)
+    return _p1_planes(planes, geom_full[2], comp_qtables(qtables, slots),
+                      dering_on, dct_method, ris)
 
 
 def download_hists(geom, small: torch.Tensor, b: int) -> np.ndarray:

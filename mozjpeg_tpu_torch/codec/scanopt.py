@@ -2,9 +2,11 @@
 
 Port of mozjpeg_tpu/codec/scanopt.py::encode_optimize_scans_native: the
 whole candidate sweep, greedy selection and stitching run in C++
-(mozjpeg_tpu/native/scansearch.cpp mj_scan_search, GIL released); Python
-writes the frame header around the stitched scans (mozjpeg
-jcmaster.c:773-962 select_scans, jcparam.c:734-852).
+(mozjpeg_tpu/native/scansearch.cpp mj_scan_search, GIL released), each
+candidate scan with its own restart interval; Python writes the frame
+header around the stitched scans (mozjpeg jcmaster.c:773-962
+select_scans, jcparam.c:734-852). The search runs for grayscale and
+YCbCr frames only (jcparam.c:753-756).
 """
 from __future__ import annotations
 
@@ -12,18 +14,20 @@ import numpy as np
 
 from .. import native
 from . import marker, scans
+from .config import CS_INFO, qt_slots, scan_restart_interval
 
 
 def encode_optimize_scans_native(width: int, height: int, geom, planes,
                                  qtables, cfg, ncomps: int,
-                                 precision: int = 8, nthreads: int = 1
-                                 ) -> bytes:
-    """planes: per component (bh_pad, bw_pad, 64) int16 zigzag blocks."""
+                                 precision: int = 8, nthreads: int = 1,
+                                 extra_markers=None) -> bytes:
+    """planes: per component (bh_pad, bw_pad, 64) int16 zigzag blocks;
+    extra_markers: [(marker code, payload)] written after the JFIF
+    header (the ICC chunks)."""
     mcus_x, mcus_y, comps = geom
     script = scans.search_progression(ncomps, cfg.dc_scan_opt_mode)
-    # restart intervals are outside the port's slice (the encoder refuses
-    # them), so every candidate scan runs without one
-    restarts = np.zeros(len(script), np.int32)
+    restarts = np.asarray([scan_restart_interval(cfg, s, geom)
+                           for s in script], np.int32)
 
     arr = (native.SearchComp * ncomps)()
     keep = []
@@ -52,15 +56,22 @@ def encode_optimize_scans_native(width: int, height: int, geom, planes,
     if n < 0:
         raise RuntimeError("native scan search: output buffer overflow")
 
+    cs = "grayscale" if ncomps == 1 else "ycbcr"
+    slots = qt_slots(cfg, cs, ncomps)
+    comp_ids = CS_INFO[cs][2]
+    sof_samp = [(comps[ci].h, comps[ci].v) for ci in range(ncomps)]
+    if ncomps == 1 and cfg.gray_sample:
+        sof_samp[0] = tuple(cfg.gray_sample)
     w = marker.MarkerWriter()
     w.soi()
     if cfg.write_jfif:
         w.jfif_app0(unit=cfg.density[0], xd=cfg.density[1],
                     yd=cfg.density[2])
-    w.dqt_multi([(i, qtables[i]) for i in range(min(ncomps, 2))])
-    comp_ids = [1, 2, 3][:ncomps]
+    for code, payload in (extra_markers or ()):
+        w.segment(code, payload)
+    w.dqt_multi([(i, qtables[i]) for i in dict.fromkeys(slots)])
     w.sof(marker.SOF2, precision, height, width,
-          [(comp_ids[ci], comps[ci].h, comps[ci].v, 0 if ci == 0 else 1)
+          [(comp_ids[ci], sof_samp[ci][0], sof_samp[ci][1], slots[ci])
            for ci in range(ncomps)])
     w.raw(out[:n].tobytes())
     w.eoi()

@@ -1,9 +1,11 @@
-"""Progressive scan scripts: the jpegrescan search candidate list.
+"""Scan scripts.
 
-Port of mozjpeg_tpu/codec/scans.py (ScanInfo, search_progression), the
-64-scan YCbCr / 23-scan gray list of mozjpeg jcparam.c:734-852. The
-native scan search builds the same list itself; the port reads it for
-the per-candidate restart intervals.
+Port of mozjpeg_tpu/codec/scans.py: mozjpeg's 9-scan JCP_MAX_COMPRESSION
+default script, libjpeg-turbo's 10-scan legacy script, the one-scan
+sequential script, and the jpegrescan search candidate list (64 scans
+YCbCr / 23 gray, mozjpeg jcparam.c:655-978). The native scan search
+builds the candidate list itself; the port reads it for the per-candidate
+restart intervals.
 """
 from __future__ import annotations
 
@@ -26,6 +28,55 @@ class ScanInfo:
 
 def _scan(ci, Ss, Se, Ah, Al):
     return ScanInfo((ci,), Ss, Se, Ah, Al)
+
+
+def simple_progression_max(ncomps: int, dc_scan_opt_mode: int = 0,
+                           ycbcr: bool = True) -> List[ScanInfo]:
+    """mozjpeg's JCP_MAX_COMPRESSION default script (jcparam.c:917-958).
+    Non-YCbCr colorspaces take the all-purpose branch even at 3
+    components (jcparam.c:884,929)."""
+    s: List[ScanInfo] = []
+    if ncomps == 3 and ycbcr:
+        if dc_scan_opt_mode == 0:
+            s.append(ScanInfo((0, 1, 2), 0, 0, 0, 0))
+        elif dc_scan_opt_mode == 1:
+            s += [_scan(0, 0, 0, 0, 0), _scan(1, 0, 0, 0, 0),
+                  _scan(2, 0, 0, 0, 0)]
+        else:
+            s += [_scan(0, 0, 0, 0, 0), ScanInfo((1, 2), 0, 0, 0, 0)]
+        s += [_scan(0, 1, 8, 0, 2), _scan(1, 1, 8, 0, 0),
+              _scan(2, 1, 8, 0, 0), _scan(0, 9, 63, 0, 2),
+              _scan(0, 1, 63, 2, 1), _scan(0, 1, 63, 1, 0),
+              _scan(1, 9, 63, 0, 0), _scan(2, 9, 63, 0, 0)]
+    else:
+        s.append(ScanInfo(tuple(range(ncomps)), 0, 0, 0, 0))
+        for Ss, Se, Ah, Al in ((1, 8, 0, 2), (9, 63, 0, 2), (1, 63, 2, 1),
+                               (1, 63, 1, 0)):
+            s += [_scan(ci, Ss, Se, Ah, Al) for ci in range(ncomps)]
+    return s
+
+
+def simple_progression_legacy(ncomps: int,
+                              ycbcr: bool = True) -> List[ScanInfo]:
+    """libjpeg-turbo's classic 10-scan script (jcparam.c:959-978)."""
+    allc = tuple(range(ncomps))
+    if ncomps == 3 and ycbcr:
+        return [ScanInfo(allc, 0, 0, 0, 1), _scan(0, 1, 5, 0, 2),
+                _scan(2, 1, 63, 0, 1), _scan(1, 1, 63, 0, 1),
+                _scan(0, 6, 63, 0, 2), _scan(0, 1, 63, 2, 1),
+                ScanInfo(allc, 0, 0, 1, 0), _scan(2, 1, 63, 1, 0),
+                _scan(1, 1, 63, 1, 0), _scan(0, 1, 63, 1, 0)]
+    s = [ScanInfo(allc, 0, 0, 0, 1)]
+    for Ss, Se, Ah, Al in ((1, 5, 0, 2), (6, 63, 0, 2), (1, 63, 2, 1)):
+        s += [_scan(ci, Ss, Se, Ah, Al) for ci in range(ncomps)]
+    s.append(ScanInfo(allc, 0, 0, 1, 0))
+    s += [_scan(ci, 1, 63, 1, 0) for ci in range(ncomps)]
+    return s
+
+
+def baseline_script(ncomps: int) -> List[ScanInfo]:
+    """One interleaved full-spectrum scan (sequential mode)."""
+    return [ScanInfo(tuple(range(ncomps)), 0, 63, 0, 0)]
 
 
 def search_progression(ncomps: int, dc_scan_opt_mode: int = 0

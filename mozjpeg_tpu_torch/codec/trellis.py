@@ -1,19 +1,28 @@
-"""Trellis quantization program: lambdas, rate tables, AC and DC trellis.
+"""Trellis quantization program: lambdas, rate tables, AC and DC trellis,
+and the EOB-run DP.
 
-Port of the mozjpeg_tpu/codec/trellis.py pieces that the main path runs
-(the make_trellis_all_t program with the AC kernel and host-built rate
-tables, i.e. use_pallas=True and dev_first=None): mozjpeg's
-rate-distortion Viterbi (jcdctmgr.c:936-1330 quantize_trellis).
+Port of the mozjpeg_tpu/codec/trellis.py pieces of the batched encode
+path (the make_trellis_all_t program with the AC kernel and host-built
+rate tables, i.e. use_pallas=True and dev_first=None, and the
+make_band_hist_t statistics): mozjpeg's rate-distortion Viterbi
+(jcdctmgr.c:936-1330 quantize_trellis).
 
   - lambda_from_norm_t: per-block lambda from the p1 norm sums, the host
     chain of trellis.lambda_from_norm in float64 torch on the device;
-  - trellis_tables_from_hist: per-image AC code lengths from the AC-first
-    histogram (native Annex-K tablegen) and the standard DC lengths;
+  - trellis_tables_from_hist: per-image AC code lengths from an AC-first
+    histogram (native Annex-K tablegen), or the standard table's when
+    Huffman optimization is off, and the standard DC lengths;
+  - band_hists: per-image AC-first histograms of the current coefficients
+    over one band, for the statistics passes that precede each trellis
+    pass after the first (trellis_num_loops > 1, use_scans_in_trellis);
   - rate_lut: the run-indexed (B, 128, 16) rate table of the AC kernel;
+  - eob_block_dp: trellis_eob_opt's DP over whole blocks per block row,
+    reading the kernel's `ei` strip;
   - trellis_dc_rows: the DC DP over independent block rows, lastDC chained
-    through each row and reset per iMCU row (jccoefct.c:417-419);
-  - trellis_all: every component's AC band trellis (ops/trellis_ac.py) and
-    DC trellis with the per-image phase split.
+    through each row and reset per iMCU row (jccoefct.c:417-419), with the
+    vertical-gradient term of trellis_delta_dc_weight;
+  - trellis_all: every component's AC band trellis (ops/trellis_ac.py),
+    EOB DP and DC trellis with the per-image phase split.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch
 from ..entropy import encode as entenc
 from ..entropy.huffman import derive_codes
 from ..ops import trellis_ac as _ac
-from ..ops.symbols import nbits
+from ..ops.symbols import ac_first_histograms_t, nbits
 from .stages import stage
 
 DC_CAND_MAX = 9    # DC_TRELLIS_MAX_CANDIDATES
@@ -56,18 +65,33 @@ def lambda_from_norm_t(norm_sum: torch.Tensor, s1: float, s2: float
     return lam.to(torch.float32)
 
 
-def trellis_tables_from_hist(achist: np.ndarray, tbl_slot: int):
-    """Optimized-coding rate tables for the trellis pass: (ac_si, dc_si)
-    int32 code lengths; AC from the AC-first histogram, DC standard."""
+def trellis_tables_from_hist(achist, tbl_slot: int,
+                             optimize_coding: bool = True):
+    """Rate tables for a trellis pass: (ac_si, dc_si) int32 code lengths.
+    With optimize_coding the AC table is the optimal one for the AC-first
+    histogram (every run/size pair counted once more, so that each has a
+    code), else the standard table of the slot; DC is always standard."""
     from .encoder import STD_TABLES
-    f = np.zeros(257, np.int64)
-    f[:256] = np.asarray(achist).astype(np.int64)
-    for run in range(16):
-        for size in range(12):
-            f[16 * run + size] += 1
-    _, ac_si = derive_codes(entenc.gen_optimal_table(f))
+    if optimize_coding:
+        f = np.zeros(257, np.int64)
+        f[:256] = np.asarray(achist).astype(np.int64)
+        for run in range(16):
+            for size in range(12):
+                f[16 * run + size] += 1
+        ac_tbl = entenc.gen_optimal_table(f)
+    else:
+        ac_tbl = STD_TABLES[(1, tbl_slot)]
+    _, ac_si = derive_codes(ac_tbl)
     _, dc_si = derive_codes(STD_TABLES[(0, tbl_slot)])
     return ac_si.astype(np.int32), dc_si.astype(np.int32)
+
+
+def band_hists(qs, ss: int, se: int, batch: int, ris=None):
+    """Per component (64, B*n) coefficients -> (B, 256) int32 AC-first
+    histograms over [ss, se], each image on its own, with the
+    components' restart intervals ris (make_band_hist_t)."""
+    return [ac_first_histograms_t(q, batch, ris[ci] if ris else 0, ss, se)
+            for ci, q in enumerate(qs)]
 
 
 def get_num_dc_candidates(q0: int) -> int:
@@ -139,13 +163,17 @@ def ac_example_inputs(kind: str, b: int, n_img: int, seed: int = 0):
     return raw, qtbl, recip2_table()[qtbl], luts, lam
 
 
-def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int):
+def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int,
+                    delta_w: float = 0.0, above_raw=None, above_dc=None):
     """DC trellis over a batch of independent block rows.
 
     raw_dc (R, L) int32 unquantized DC (x8); last_dc0 (R,) int32 initial
     predictor per row; dc_si (256,) int32; lam_dc (R, L) f32 (lambda *
     1/q0^2) -> ((R, L) int32 chosen quantized DC, (R,) int32 last DC).
-    The DP runs one step per block column; ties go to the first index."""
+    With delta_w > 0 and the row above (above_raw, its raw DC, and
+    above_dc, its chosen DC), the distortion blends in the vertical
+    gradient error (jcdctmgr.c:1069-1084). The DP runs one step per block
+    column; ties go to the first index."""
     dev = raw_dc.device
     R, L = raw_dc.shape
     q8 = q0 * 8
@@ -157,6 +185,12 @@ def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int):
     delta = cand_mag * q8 - x[..., None]
     dist = (delta * delta).to(torch.float32) * lam_dc[..., None]
     cand = cand_mag * sign[..., None]                  # (R, L, nc) signed
+    if delta_w > 0.0 and above_raw is not None:
+        vd = ((above_raw - raw_dc)[..., None]
+              - (above_dc[..., None] * q8 - cand * q8))
+        vdist = (vd * vd).to(torch.float32) * lam_dc[..., None]
+        w = torch.tensor(delta_w, dtype=torch.float32, device=dev)
+        dist = dist + w * (vdist - dist)
 
     def trans_cost(d):
         # nbits(|d|) + dc code length of that category, exact in f32
@@ -184,35 +218,105 @@ def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int):
     return out, out[:, -1]
 
 
+def eob_block_dp(czero, skip, has_eob, eob_si):
+    """trellis_eob_opt's block-level EOB-run DP over R block rows of L
+    blocks (jcdctmgr.c:1224-1297), from the AC kernel's `ei` strip:
+    czero (R, L) f32 all-zero cost, skip (R, L) f32 best cost without the
+    block's EOB, has_eob (R, L) int 0/1/2 (2: the block is all zero in the
+    band); eob_si (R, 16) f32, the EOBn code lengths ac_si[16 * k] of each
+    row's image -> (R, L) bool, the blocks that keep their coefficients.
+    Float adds run in C's order, the first minimum wins, and an EOB run of
+    n blocks costs ac_si[16 * nbits(n)] + nbits(n). One step per block
+    column, then the walk back along the row."""
+    dev = czero.device
+    R, L = czero.shape
+    big = torch.tensor(_ac.BIGF, dtype=torch.float32, device=dev)
+    iidx = torch.arange(L + 1, device=dev)
+
+    def eobrun_cost(run):
+        nb = nbits(run.clamp_min(0)).to(torch.int64)   # run < 32768
+        return nb.to(torch.float32) + torch.gather(eob_si, 1, nb)
+
+    has_eob = has_eob.to(torch.int64)
+    blk_nz = has_eob != 2
+    azbc = torch.zeros((R, L + 1), dtype=torch.float32, device=dev)
+    abc = torch.zeros_like(azbc)
+    req = torch.zeros((R, L + 1), dtype=torch.int64, device=dev)
+    brs = torch.zeros((R, L), dtype=torch.int64, device=dev)
+    for b in range(L):
+        azbc_b = azbc[:, b]
+        azbc[:, b + 1] = azbc_b + czero[:, b]
+        run = (b - iidx)[None] + req
+        # C order: cost = skip; += azbc[bi]; -= azbc[i]; += abc[i]; += rate
+        cost = (((skip[:, b, None] + azbc_b[:, None]) - azbc) + abc) \
+            + eobrun_cost(run)
+        valid = (iidx <= b)[None] & (req != 2) & blk_nz[:, b, None]
+        cost = torch.where(valid, cost, big)
+        arg = cost.argmin(1)
+        best = torch.gather(cost, 1, arg[:, None])[:, 0]
+        abc[:, b + 1] = torch.where(blk_nz[:, b], best, big)
+        brs[:, b] = torch.where(blk_nz[:, b], arg, 0)
+        req[:, b + 1] = has_eob[:, b]
+    # the final EOB run to the end of the row (jcdctmgr.c:1258-1276)
+    run = (L - iidx)[None] + req
+    fcost = (azbc[:, L, None] - azbc) + eobrun_cost(run)
+    fcost = torch.where(req != 2, fcost, big)
+    last = fcost.argmin(1) - 1
+    kept = torch.empty((R, L), dtype=torch.bool, device=dev)
+    for b in range(L - 1, -1, -1):
+        k = last == b
+        kept[:, b] = k
+        last = torch.where(k, brs[:, b] - 1, last)
+    return kept
+
+
 def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
-                batch: int, times=None, record=None):
+                batch: int, bands=((1, 63),), dc_on: bool = True,
+                eob_opt: bool = False, delta_w: float = 0.0, times=None,
+                record=None):
     """Trellis every component of a batch of same-shape images: the AC
-    band (1, 63), then the DC.
+    trellis of each band in `bands` (with the EOB-run DP when eob_opt),
+    then, with dc_on, the DC trellis.
 
     raws/qs: per component (64, B*n) int32 / int16 image-major planes;
-    lams: per component (B*n,) f32; ac_sis: per component (B, 256) int32;
-    dc_sis: per component (256,) int32; qtbl_zzs: per component (64,)
-    int32 numpy zigzag quant tables. Returns the final (64, B*n) int16
-    planes. `times` (dict) accumulates synchronised stage seconds;
-    record["trellis_ac"] (dict `record`) gets each kernel call's args."""
+    lams: per component (B*n,) f32; ac_sis: per component (B, 256) int32
+    tensors; dc_sis: per component (256,) int32; qtbl_zzs: per component
+    (64,) int32 numpy zigzag quant tables. Returns the final (64, B*n)
+    int16 planes. `times` (dict) accumulates synchronised stage seconds
+    (trellis_ac, trellis_eob, trellis_dc); record["trellis_ac"] (dict
+    `record`) gets each kernel call's arguments."""
     dev = raws[0].device
     recip = recip2_table()
+    pos = torch.arange(64, device=dev)[:, None]
     outs = []
     with stage(times, "trellis_ac", dev):
         luts_all = rate_lut(torch.cat(list(ac_sis), 0))
-        pos = torch.arange(64, device=dev)[:, None]
-        for ci, g in enumerate(geoms):
-            qz = np.asarray(qtbl_zzs[ci], np.int32)
-            qz_t = torch.as_tensor(qz, device=dev)
-            ltbl_t = torch.as_tensor(recip[qz], device=dev)
-            lut = luts_all[ci * batch:(ci + 1) * batch]
-            args = (raws[ci], qz_t, ltbl_t, lut, lams[ci], 1, 63,
-                    g.bh * g.bw)
-            if record is not None:
-                record.setdefault("trellis_ac", []).append(args)
-            new_band, _ = _ac.trellis_ac(*args)
-            outs.append(torch.where(pos >= 1, new_band.to(torch.int16),
-                                    qs[ci]))
+    for ci, g in enumerate(geoms):
+        qz = np.asarray(qtbl_zzs[ci], np.int32)
+        new_q = qs[ci]
+        for ss, se in bands:
+            with stage(times, "trellis_ac", dev):
+                args = (raws[ci], torch.as_tensor(qz, device=dev),
+                        torch.as_tensor(recip[qz], device=dev),
+                        luts_all[ci * batch:(ci + 1) * batch], lams[ci], ss,
+                        se, g.bh * g.bw)
+                if record is not None:
+                    record.setdefault("trellis_ac", []).append(args)
+                new_band, ei = _ac.trellis_ac(*args)
+                in_band = (pos >= ss) & (pos <= se)
+                new_q = torch.where(in_band, new_band.to(torch.int16), new_q)
+            if eob_opt:
+                with stage(times, "trellis_eob", dev):
+                    eob_si = ac_sis[ci][:, ::16].to(torch.float32) \
+                        .repeat_interleave(g.bh, 0)
+                    keep = eob_block_dp(
+                        ei[0].reshape(-1, g.bw), ei[1].reshape(-1, g.bw),
+                        ei[2].to(torch.int64).reshape(-1, g.bw), eob_si)
+                    new_q = torch.where(in_band & ~keep.reshape(1, -1),
+                                        torch.zeros_like(new_q), new_q)
+        outs.append(new_q)
+    if not dc_on:
+        return tuple(outs)
     with stage(times, "trellis_dc", dev):
         for ci, g in enumerate(geoms):
             q0 = int(qtbl_zzs[ci][0])
@@ -233,9 +337,15 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
                 init = (torch.zeros(batch * nph, dtype=torch.int32,
                                     device=dev) if p == 0
                         else prev[:, :nph].reshape(-1))
+                ar = ad = None
+                if delta_w > 0.0 and p > 0:
+                    # the row above is phase p-1 of the same iMCU row
+                    ar = raw_dc[:, p - 1::v][:, :nph].reshape(-1, g.bw)
+                    ad = dc_all[:, p - 1::v][:, :nph].reshape(-1, g.bw)
                 dc, fin = trellis_dc_rows(
                     rr.reshape(-1, g.bw), init, q0, dc_si,
-                    lam_dc_full[:, p::v].reshape(-1, g.bw), ncands[ci])
+                    lam_dc_full[:, p::v].reshape(-1, g.bw), ncands[ci],
+                    delta_w, ar, ad)
                 dc_all[:, p::v] = dc.reshape(batch, nph, g.bw)
                 prev = fin.reshape(batch, nph)
             new_q = outs[ci].clone()

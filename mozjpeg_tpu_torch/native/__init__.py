@@ -1,7 +1,9 @@
 """ctypes bindings for the port's native host library (built at first use).
 
 Binds what the encode path calls (mj_prep_ycc, mj_gen_optimal_table,
-mj_scan_search) and what the decode path calls (the six Huffman decoders
+mj_scan_search, and the scan encoders mj_encode_seq and
+mj_encode_{dc,ac}_{first,refine} of entropy.cpp, which gather symbol
+counts or emit one scan) and what the decode path calls (the six Huffman decoders
 mj_decode_seq, mj_decode_seq_par, mj_decode_{dc,ac}_{first,refine} and
 the warning counter mj_set_warnings / mj_get_warnings, all in
 entropy.cpp); see build.py for the sources.
@@ -16,6 +18,7 @@ from . import build
 
 _p = ctypes.POINTER
 u8p = _p(ctypes.c_uint8)
+u32p = _p(ctypes.c_uint32)
 i32p = _p(ctypes.c_int32)
 i64p = _p(ctypes.c_int64)
 
@@ -71,6 +74,22 @@ def _bind(so):
         ctypes.c_int, i32p, u8p, ctypes.c_long, i32p, ctypes.c_int]
 
     cpp = _p(CompPlane)
+    lng, cint = ctypes.c_long, ctypes.c_int
+    so.mj_encode_seq.argtypes = [
+        cpp, cint, cint, cint, cint, u32p, u8p, u32p, u8p, u8p, lng, i64p,
+        i64p, cint]
+    so.mj_encode_dc_first.argtypes = [
+        cpp, cint, cint, cint, cint, cint, u32p, u8p, u8p, lng, i64p, cint]
+    so.mj_encode_dc_refine.argtypes = [
+        cpp, cint, cint, cint, cint, cint, u8p, lng]
+    for fn in (so.mj_encode_ac_first, so.mj_encode_ac_refine):
+        fn.argtypes = [cpp, cint, cint, cint, cint, u32p, u8p, u8p, lng,
+                       i64p, cint]
+    for fn in (so.mj_encode_seq, so.mj_encode_dc_first,
+               so.mj_encode_dc_refine, so.mj_encode_ac_first,
+               so.mj_encode_ac_refine):
+        fn.restype = lng
+
     tabs = [i32p, i64p, i32p, u8p]      # mincode, maxcode, valptr, vals
     so.mj_decode_seq.restype = ctypes.c_long
     so.mj_decode_seq.argtypes = [

@@ -1,8 +1,10 @@
-"""Exact fixed-point YCbCr -> RGB for decode, batched over whole planes.
+"""Exact fixed-point colour conversions, batched over whole planes.
 
-Port of mozjpeg_tpu/ops/color.py ycc_to_rgb: the table semantics of
-mozjpeg jdcolor.c build_ycc_rgb_table inlined as int32 multiplies
-(SCALEBITS=16), clamped with the plain range-limit table of
+Port of mozjpeg_tpu/ops/color.py (rgb_to_ycc, cmyk_to_ycck, ycc_to_rgb):
+the table semantics of mozjpeg jccolor.c (encode) and jdcolor.c
+build_ycc_rgb_table (decode) inlined as int32 multiplies (SCALEBITS=16).
+The tables are linear in the sample value, so the inlined products give
+the tables' integers. Decode clamps with the plain range-limit table of
 ycc_rgb_convert (not the post-IDCT wraparound one).
 """
 from __future__ import annotations
@@ -17,12 +19,50 @@ def _fix(x: float) -> int:
     return int(x * (1 << SCALEBITS) + 0.5)
 
 
+# encode side (jccolor.c:227-241)
+FIX_0_29900 = _fix(0.29900)
+FIX_0_58700 = _fix(0.58700)
+FIX_0_11400 = _fix(0.11400)
+FIX_0_16874 = _fix(0.16874)
+FIX_0_33126 = _fix(0.33126)
+FIX_0_50000 = _fix(0.50000)
+FIX_0_41869 = _fix(0.41869)
+FIX_0_08131 = _fix(0.08131)
+
 # jdcolor.c build_ycc_rgb_table: Cr=>R and Cb=>B round with ONE_HALF;
 # the G terms are summed unrounded, with ONE_HALF folded into the sum
 FIX_1_40200 = _fix(1.40200)
 FIX_1_77200 = _fix(1.77200)
 FIX_0_71414 = _fix(0.71414)
 FIX_0_34414 = _fix(0.34414)
+
+
+def _ycc(r, g, b):
+    """int32 planes -> (Y, Cb, Cr) int32; Cb/Cr round with ONE_HALF-1
+    plus the centre offset (rgb_ycc_start's 0.5-epsilon)."""
+    ctr_off = 128 << SCALEBITS
+    y = (FIX_0_29900 * r + FIX_0_58700 * g + FIX_0_11400 * b
+         + ONE_HALF) >> SCALEBITS
+    cb = ((-FIX_0_16874) * r + (-FIX_0_33126) * g + FIX_0_50000 * b
+          + ctr_off + ONE_HALF - 1) >> SCALEBITS
+    cr = (FIX_0_50000 * r + (-FIX_0_41869) * g + (-FIX_0_08131) * b
+          + ctr_off + ONE_HALF - 1) >> SCALEBITS
+    return y, cb, cr
+
+
+def rgb_to_ycc(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., >=3) uint8 RGB -> (..., 3) uint8 YCbCr (8-bit samples)."""
+    r, g, b = (rgb[..., i].to(torch.int32) for i in range(3))
+    return torch.stack(_ycc(r, g, b), dim=-1).to(torch.uint8)
+
+
+def cmyk_to_ycck(cmyk: torch.Tensor) -> torch.Tensor:
+    """(..., 4) uint8 CMYK -> (..., 4) uint8 YCCK (jccolor.c:396-437
+    cmyk_ycck_convert): CMY inverts to RGB and takes the YCC transform;
+    K passes through."""
+    r, g, b = (255 - cmyk[..., i].to(torch.int32) for i in range(3))
+    k = cmyk[..., 3].to(torch.int32)
+    return torch.stack(_ycc(r, g, b) + (k,), dim=-1).to(torch.uint8)
 
 
 def ycc_to_rgb(ycc: torch.Tensor, precision: int = 8) -> torch.Tensor:

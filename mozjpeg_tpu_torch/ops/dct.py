@@ -1,9 +1,10 @@
-"""Exact-integer islow DCTs, batched over blocks (int32).
+"""Forward and inverse DCTs batched over blocks.
 
-Port of mozjpeg_tpu/ops/dct.py (fdct_islow_t, idct_islow and their
-butterflies): the Loeffler-Ligtenberg-Moshovitz fixed-point DCTs of
-mozjpeg jfdctint.c / jidctint.c (CONST_BITS=13, PASS1_BITS=2, 32-bit
-arithmetic) as whole-tensor ops over every block at once.
+Port of mozjpeg_tpu/ops/dct.py: the Loeffler-Ligtenberg-Moshovitz
+fixed-point islow DCTs of mozjpeg jfdctint.c / jidctint.c (CONST_BITS=13,
+PASS1_BITS=2, 32-bit arithmetic), and the encoder's AAN ifast
+(jfdctfst.c) and float (jfdctflt.c) forward DCTs with their quantizers
+and raw rescales, as whole-tensor ops over every block at once.
 
 Exactness: everything stays int32, as in the reference's `int`
 workspace. Products of extreme coefficients (corrupt streams) overflow
@@ -13,6 +14,7 @@ arithmetic shift in torch, as C's DESCALE needs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 CONST_BITS = 13
@@ -102,6 +104,200 @@ def fdct_islow_t(x: torch.Tensor) -> torch.Tensor:
     d = [y[r, :, :] for r in range(8)]                 # pass 2 over columns
     o = _fdct_butterfly(d, -PASS1_BITS, CONST_BITS + PASS1_BITS)
     return torch.stack(o, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# AAN "ifast" forward DCT (jfdctfst.c, plain-C build: DCTELEM = int,
+# CONST_BITS = 8, MULTIPLY is a plain arithmetic shift with no rounding).
+# ---------------------------------------------------------------------------
+
+AANSCALES = np.asarray([
+    16384, 22725, 21407, 19266, 16384, 12873, 8867, 4520,
+    22725, 31521, 29692, 26722, 22725, 17855, 12299, 6270,
+    21407, 29692, 27969, 25172, 21407, 16819, 11585, 5906,
+    19266, 26722, 25172, 22654, 19266, 15137, 10426, 5315,
+    16384, 22725, 21407, 19266, 16384, 12873, 8867, 4520,
+    12873, 17855, 16819, 15137, 12873, 10114, 6967, 3552,
+    8867, 12299, 11585, 10426, 8867, 6967, 4799, 2446,
+    4520, 6270, 5906, 5315, 4520, 3552, 2446, 1247,
+], dtype=np.int32).reshape(8, 8)
+
+_F_0_382 = 98     # FIX(0.382683433) at CONST_BITS=8
+_F_0_541 = 139
+_F_0_707 = 181
+_F_1_306 = 334
+
+
+def _mul8(v, c: int):
+    """ifast MULTIPLY: (v * c) >> 8, an arithmetic shift without rounding
+    (jfdctfst.c:101 redefines DESCALE as RIGHT_SHIFT)."""
+    return (v * c) >> 8
+
+
+def _fdct_ifast_1d(d):
+    t0 = d[0] + d[7]
+    t7 = d[0] - d[7]
+    t1 = d[1] + d[6]
+    t6 = d[1] - d[6]
+    t2 = d[2] + d[5]
+    t5 = d[2] - d[5]
+    t3 = d[3] + d[4]
+    t4 = d[3] - d[4]
+    t10 = t0 + t3
+    t13 = t0 - t3
+    t11 = t1 + t2
+    t12 = t1 - t2
+    o0 = t10 + t11
+    o4 = t10 - t11
+    z1 = _mul8(t12 + t13, _F_0_707)
+    o2 = t13 + z1
+    o6 = t13 - z1
+    t10 = t4 + t5
+    t11 = t5 + t6
+    t12 = t6 + t7
+    z5 = _mul8(t10 - t12, _F_0_382)
+    z2 = _mul8(t10, _F_0_541) + z5
+    z4 = _mul8(t12, _F_1_306) + z5
+    z3 = _mul8(t11, _F_0_707)
+    z11 = t7 + z3
+    z13 = t7 - z3
+    return [o0, z11 + z4, o2, z13 - z2, o4, z13 + z2, o6, z11 - z4]
+
+
+def fdct_ifast_t(x: torch.Tensor) -> torch.Tensor:
+    """AAN forward DCT on (8, 8, N) int32 centred samples; the output
+    carries the AAN scale factors (the divisors absorb them)."""
+    x = x.to(torch.int32)
+    y = torch.stack(_fdct_ifast_1d([x[:, c, :] for c in range(8)]), dim=1)
+    return torch.stack(_fdct_ifast_1d([y[r, :, :] for r in range(8)]),
+                       dim=0)
+
+
+def ifast_divisors(qtbl) -> np.ndarray:
+    """Encoder divisors DESCALE(quantval * aanscale, 11) with the rounding
+    add (jcdctmgr.c:296-345) -> (8, 8) int32."""
+    q = np.asarray(qtbl).astype(np.int64).reshape(8, 8)
+    return ((q * AANSCALES.astype(np.int64) + (1 << 10)) >> 11) \
+        .astype(np.int32)
+
+
+def quantize_ifast_t(coeffs: torch.Tensor, dtbl81: torch.Tensor
+                     ) -> torch.Tensor:
+    """floor((|x| + d//2) / d) with the sign of x, the value of jcdctmgr's
+    reciprocal-multiply quantize for every divisor; int16 out."""
+    d = dtbl81.to(torch.int32)
+    a = coeffs.abs()
+    mag = (a + (d >> 1)) // d
+    return torch.where(coeffs < 0, -mag, mag).to(torch.int16)
+
+
+def rescale_ifast_t(coeffs: torch.Tensor) -> torch.Tensor:
+    """AAN output to the nominal islow range for the trellis's raw save
+    (jcdctmgr.c:730-748): (x*32768 +- s) divided by 2s, truncating. The
+    int32 products wrap as the JAX program's do."""
+    s = torch.as_tensor(AANSCALES.reshape(8, 8, 1), device=coeffs.device)
+    num = torch.where(coeffs >= 0, coeffs * 32768 + s, coeffs * 32768 - s)
+    return torch.div(num, 2 * s, rounding_mode="trunc")
+
+
+# ---------------------------------------------------------------------------
+# Float AAN forward DCT (jfdctflt.c): single-precision butterflies. Eager
+# PyTorch rounds every f32 product before it feeds an add (one kernel per
+# op), which is what the JAX package's minimum() guards force on XLA; so
+# no addcmul, no fused form and no torch.compile here. The constants are
+# the f32 values of the C literals.
+# ---------------------------------------------------------------------------
+
+_AAN_F = (1.0, 1.387039845, 1.306562965, 1.175875602,
+          1.0, 0.785694958, 0.541196100, 0.275899379)
+
+
+def _f32(c: float) -> float:
+    return float(np.float32(c))
+
+
+_C_0_707 = _f32(0.707106781)
+_C_0_382 = _f32(0.382683433)
+_C_0_541 = _f32(0.541196100)
+_C_1_306 = _f32(1.306562965)
+
+
+def _fdct_float_1d(d):
+    tmp0 = d[0] + d[7]
+    tmp7 = d[0] - d[7]
+    tmp1 = d[1] + d[6]
+    tmp6 = d[1] - d[6]
+    tmp2 = d[2] + d[5]
+    tmp5 = d[2] - d[5]
+    tmp3 = d[3] + d[4]
+    tmp4 = d[3] - d[4]
+    t10 = tmp0 + tmp3
+    t13 = tmp0 - tmp3
+    t11 = tmp1 + tmp2
+    t12 = tmp1 - tmp2
+    o0 = t10 + t11
+    o4 = t10 - t11
+    z1 = (t12 + t13) * _C_0_707
+    o2 = t13 + z1
+    o6 = t13 - z1
+    t10 = tmp4 + tmp5
+    t11 = tmp5 + tmp6
+    t12 = tmp6 + tmp7
+    z5 = (t10 - t12) * _C_0_382
+    z2 = t10 * _C_0_541 + z5
+    z4 = t12 * _C_1_306 + z5
+    z3 = t11 * _C_0_707
+    z11 = tmp7 + z3
+    z13 = tmp7 - z3
+    return [o0, z11 + z4, o2, z13 - z2, o4, z13 + z2, o6, z11 - z4]
+
+
+def fdct_float_t(x: torch.Tensor) -> torch.Tensor:
+    """(8, 8, N) float32 centred samples -> AAN-scaled float coefficients."""
+    y = torch.stack(_fdct_float_1d([x[:, c, :] for c in range(8)]), dim=1)
+    return torch.stack(_fdct_float_1d([y[r, :, :] for r in range(8)]),
+                       dim=0)
+
+
+def float_divisors(qtbl) -> np.ndarray:
+    """1 / (quantval * aan_r * aan_c * 8) in double, stored as float
+    (jcdctmgr.c JDCT_FLOAT divisors) -> (8, 8) float32."""
+    q = np.asarray(qtbl, dtype=np.float64).reshape(8, 8)
+    aan = np.asarray(_AAN_F, dtype=np.float64)
+    return (1.0 / (q * aan[:, None] * aan[None, :] * 8.0)).astype(np.float32)
+
+
+def quantize_float_t(coeffs: torch.Tensor, div81: torch.Tensor
+                     ) -> torch.Tensor:
+    """(JCOEF)((int)(v * divisor + 16384.5) - 16384): the product, then
+    the add, then the truncating cast (quantize_float)."""
+    temp = coeffs * div81 + 16384.5
+    return (temp.to(torch.int32) - 16384).to(torch.int16)
+
+
+def _rescale_float_consts(device):
+    """The f32 reciprocals and the f32 hi/lo split of aan_r * aan_c."""
+    aan = np.asarray(_AAN_F, dtype=np.float64)
+    a2 = aan[:, None] * aan[None, :]
+    hi = a2.astype(np.float32)
+    lo = (a2 - hi.astype(np.float64)).astype(np.float32)
+    r = (1.0 / a2).astype(np.float32)
+    return tuple(torch.as_tensor(t.reshape(8, 8, 1), device=device)
+                 for t in (r, hi, lo))
+
+
+def rescale_float_t(coeffs: torch.Tensor) -> torch.Tensor:
+    """The trellis's raw save: coefficient / (aan_r * aan_c) rounded half
+    away from zero to int32 (jcdctmgr.c forward_DCT_float). C divides in
+    double; the JAX package takes a reciprocal product with one
+    float-float Newton correction, and this is that formula, op for op in
+    f32, so the two agree on every input, ties included."""
+    r, a_hi, a_lo = _rescale_float_consts(coeffs.device)
+    q1 = coeffs * r
+    resid = (coeffs - q1 * a_hi) - q1 * a_lo
+    q = q1 + resid * r
+    half = torch.where(q >= 0, 0.5, -0.5)
+    return (q + half).to(torch.int32)
 
 
 def _idct_butterfly(d, descale_n: int):

@@ -1,9 +1,10 @@
 """Overshoot deringing, batched over all blocks (coefficient-major).
 
-Port of mozjpeg_tpu/ops/dering.py::dering_t, which reproduces
-preprocess_deringing (mozjpeg jcdctmgr.c:416-498): runs of clipped-white
-samples along the zigzag walk are replaced by a Catmull-Rom overshoot
-curve capped by min(31, 2*q0, headroom).
+Port of mozjpeg_tpu/ops/dering.py (dering_t, dering_float_t), which
+reproduces preprocess_deringing and float_preprocess_deringing (mozjpeg
+jcdctmgr.c:416-570): runs of clipped-white samples along the zigzag walk
+are replaced by a Catmull-Rom overshoot curve capped by min(31, 2*q0,
+headroom).
 
 Exactness: eager PyTorch rounds every f32 op, so the cubic keeps C's
 per-product rounding without the JAX package's contraction barriers (do
@@ -41,20 +42,40 @@ def _hold(values, valid, reverse: bool, seed):
 
 def dering_t(zz: torch.Tensor, q0: int) -> torch.Tensor:
     """(64, N) int32 centered zigzag samples, q0 = the DC quant value."""
+    m = zz >= MAXS
+    cnt = m.sum(0)
+    # C's int division truncates toward zero (the numerator can go
+    # negative at deeper precisions, where floor division would differ)
+    headroom = torch.div(MAXS * 64 - zz.sum(0), cnt.clamp_min(1),
+                         rounding_mode="trunc")
+    maxovershoot = MAXS + torch.clamp_max(headroom, min(31, 2 * int(q0)))
+    val, active = _curve(zz, m, cnt)
+    new = torch.minimum(torch.ceil(val).to(torch.int32), maxovershoot[None])
+    return torch.where(m & active[None], new, zz).to(torch.int32)
+
+
+def dering_float_t(zz: torch.Tensor, q0: int) -> torch.Tensor:
+    """Float-DCT deringing (jcdctmgr.c:503-570 float_preprocess_deringing)
+    on (64, N) float32 centered zigzag samples: the headroom cap divides in
+    f32 (tensor by tensor, IEEE) and the curve value is not ceil'd."""
+    m = zz >= MAXS
+    cnt = m.sum(0)
+    total = zz.sum(0)            # integers in f32: exact in any order
+    head = torch.div(MAXS * 64.0 - total, cnt.clamp_min(1).to(torch.float32))
+    maxovershoot = MAXS + torch.clamp_max(head, float(min(31, 2 * int(q0))))
+    val, active = _curve(zz, m, cnt)
+    new = torch.minimum(val, maxovershoot[None])
+    return torch.where(m & active[None], new, zz)
+
+
+def _curve(zz: torch.Tensor, m: torch.Tensor, cnt: torch.Tensor):
+    """The Catmull-Rom overshoot value at every position of a run of
+    clipped samples (f32, (64, N)), and whether each block is deringed."""
     dev = zz.device
     n = zz.shape[1]
     pos = torch.arange(64, device=dev)[:, None]
-    m = zz >= MAXS
     notm = ~m
-
-    total = zz.sum(0)
-    cnt = m.sum(0)
     active = (cnt > 0) & (cnt < 64)
-    # C's int division truncates toward zero (the numerator can go
-    # negative at deeper precisions, where floor division would differ)
-    headroom = torch.div(MAXS * 64 - total, cnt.clamp_min(1),
-                         rounding_mode="trunc")
-    maxovershoot = MAXS + torch.clamp_max(headroom, min(31, 2 * int(q0)))
 
     start = torch.where(notm, pos, -1).cummax(0).values + 1
     end = torch.where(notm, pos, 64).flip(0).cummin(0).values.flip(0)
@@ -94,5 +115,4 @@ def dering_t(zz: torch.Tensor, q0: int) -> torch.Tensor:
     cf3 = (t3 - 2.0 * t2) + t
     cf4 = t3 - t2
     val = ((127.0 * cf1 + tan1 * cf3) + 127.0 * cf2) + tan2 * cf4
-    new = torch.minimum(torch.ceil(val).to(torch.int32), maxovershoot[None])
-    return torch.where(m & active[None], new, zz).to(torch.int32)
+    return val, active

@@ -1,6 +1,6 @@
 """Blockification and zigzag reordering in coefficient-major layout.
 
-Port of mozjpeg_tpu/ops/layout.py (blockify_t, to_zigzag_t,
+Port of mozjpeg_tpu/ops/layout.py (pad_plane, blockify_t, to_zigzag_t,
 from_zigzag_t): blocks live as (8, 8, N) / (64, N) tensors with the block
 index last, N in raster block order (image-major for a batch). The
 decoder's from_zigzag and unblockify keep the block-major layout of
@@ -23,6 +23,20 @@ def _index(order: np.ndarray, device) -> torch.Tensor:
         t = torch.as_tensor(order.astype(np.int64), device=device)
         _INDEX_CACHE[key] = t
     return t
+
+
+def pad_plane(plane: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Edge-replicate (..., H, W) up to (..., ph, pw): columns first, then
+    rows (mozjpeg jcsample.c expand_right_edge and the prep controller's
+    row duplication)."""
+    h, w = plane.shape[-2], plane.shape[-1]
+    if pw > w:
+        plane = torch.cat([plane, plane[..., :, -1:].expand(
+            *plane.shape[:-1], pw - w)], -1)
+    if ph > h:
+        plane = torch.cat([plane, plane[..., -1:, :].expand(
+            *plane.shape[:-2], ph - h, plane.shape[-1])], -2)
+    return plane
 
 
 def blockify_t(plane: torch.Tensor) -> torch.Tensor:

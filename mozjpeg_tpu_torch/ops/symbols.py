@@ -2,8 +2,9 @@
 
 Port of mozjpeg_tpu/ops/symbols.py (ac_first_histogram_t and
 _ac_first_hist_seg): the exact phuff AC-first gather counts of mozjpeg
-jcphuff.c encode_mcu_AC_first, including the cross-block EOB runs and the
-0x7FFF forced flush, as whole-tensor ops. Every count is an exact integer
+jcphuff.c encode_mcu_AC_first, including the cross-block EOB runs, the
+0x7FFF forced flush and the flush at restart boundaries, as whole-tensor
+ops. Every count is an exact integer
 bincount; a batch axis computes one histogram per image at once.
 """
 from __future__ import annotations
@@ -82,15 +83,29 @@ def _ac_first_hist_seg(zz: torch.Tensor, Ss: int, Se: int) -> torch.Tensor:
     return hist
 
 
-def ac_first_histogram_t(zz: torch.Tensor, Ss: int = 1, Se: int = 63
-                         ) -> torch.Tensor:
+def ac_first_histogram_t(zz: torch.Tensor, Ss: int = 1, Se: int = 63,
+                         ri: int = 0) -> torch.Tensor:
     """(64, N) zigzag coefficients of one component in scan order ->
-    (256,) int32 AC-first counts over band [Ss, Se], no restart interval."""
-    return _ac_first_hist_seg(zz[:, None, :], Ss, Se)[0].to(torch.int32)
+    (256,) int32 AC-first counts over band [Ss, Se]; ri > 0 is the restart
+    interval in blocks, at whose boundaries the EOB runs flush
+    (emit_restart, jcphuff.c)."""
+    return ac_first_histograms_t(zz, 1, ri, Ss, Se)[0]
 
 
-def ac_first_histograms_t(zz: torch.Tensor, batch: int) -> torch.Tensor:
+def ac_first_histograms_t(zz: torch.Tensor, batch: int, ri: int = 0,
+                          Ss: int = 1, Se: int = 63) -> torch.Tensor:
     """(64, B*n) image-major planes -> (B, 256) int32: one AC-first
-    histogram per image over band (1, 63), no restart interval."""
-    return _ac_first_hist_seg(zz.reshape(64, batch, -1), 1, 63) \
-        .to(torch.int32)
+    histogram per image over band [Ss, Se]. With a restart interval ri
+    each image splits into segments of ri blocks in raster order (the
+    last one shorter), counted independently and summed."""
+    zb = zz.reshape(64, batch, -1)
+    n = zb.shape[2]
+    if not ri or ri >= n:
+        return _ac_first_hist_seg(zb, Ss, Se).to(torch.int32)
+    nfull = n // ri
+    hist = _ac_first_hist_seg(
+        zb[:, :, :nfull * ri].reshape(64, batch * nfull, ri), Ss, Se) \
+        .reshape(batch, nfull, 256).sum(1)
+    if n > nfull * ri:
+        hist = hist + _ac_first_hist_seg(zb[:, :, nfull * ri:], Ss, Se)
+    return hist.to(torch.int32)

@@ -91,6 +91,34 @@ def test_encode_on_the_card_equals_cpu(cuda):
             == mjt.encode_many(imgs, cfg, device="cpu"))
 
 
+@pytest.mark.parametrize("channels,kw", [
+    (1, dict(gray_sample=(1, 2), restart_interval=3)),
+    (4, dict(colorspace="ycck")),
+    (3, dict(dct_method=mjt.DCTMethod.IFAST, restart_in_rows=1)),
+    (3, dict(dct_method=mjt.DCTMethod.FLOAT, smoothing_factor=20)),
+    (3, dict(trellis_eob_opt=True, trellis_num_loops=2)),
+    (3, dict(use_scans_in_trellis=True, trellis_delta_dc_weight=0.5)),
+    (3, dict(profile=mjt.Profile.FASTEST, subsampling=(1, 2))),
+], ids=["gray-2d", "ycck", "ifast-rows", "float-smooth", "eob-loops",
+        "scans-delta-dc", "fastest-1x2"])
+def test_config_on_the_card_equals_cpu(cuda, channels, kw):
+    """The configuration families of the batched encode surface: the
+    card's bytes equal the CPU path's (which the CPU tests hold equal to
+    the JAX package's)."""
+    rng = np.random.default_rng(6)
+    imgs = []
+    for h, w in ((64, 96), (64, 96), (45, 77)):
+        base = rng.normal(128, 60, (h, w, 3))
+        base[h // 4:h // 2, w // 4:w // 2] = 255
+        if channels == 4:
+            base = np.concatenate([base, base[..., :1]], -1)
+        img = np.clip(base, 0, 255).astype(np.uint8)
+        imgs.append(img[..., 0].copy() if channels == 1 else img)
+    cfg = mjt.EncoderConfig(quality=75, **kw)
+    assert (mjt.encode_many(imgs, cfg)
+            == mjt.encode_many(imgs, cfg, device="cpu"))
+
+
 @pytest.fixture(scope="module")
 def port_jpegs():
     """Port-encoded q75 4:2:0, 2x1 and 1x1 streams (two shapes each) and a

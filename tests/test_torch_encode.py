@@ -37,11 +37,32 @@ def _fields(cfg):
             for k, v in dataclasses.asdict(cfg).items()}
 
 
+def _jax_kw(kw):
+    """The port's enum members in kw as the JAX package's."""
+    return {k: (getattr(mj, type(v).__name__)(v.value)
+                if isinstance(v, (mjt.Profile, mjt.DCTMethod)) else v)
+            for k, v in kw.items()}
+
+
 def assert_byte_identical(imgs, **kw):
-    want = mj.encode_many(imgs, mj.EncoderConfig(**kw))
+    """The port's CPU bytes equal mozjpeg_tpu.encode_many's; returns
+    them."""
+    want = mj.encode_many(imgs, mj.EncoderConfig(**_jax_kw(kw)))
     got = mjt.encode_many(imgs, mjt.EncoderConfig(**kw), device="cpu")
     assert [len(g) for g in got] == [len(w) for w in want]
     assert got == want
+    return got
+
+
+def assert_config_encodes(imgs, **kw):
+    """Byte-identical to the JAX package, and different from the q75
+    default's bytes for the same images, so that an option the port
+    ignored could not pass."""
+    got = assert_byte_identical(imgs, **kw)
+    default = mjt.encode_many(imgs, mjt.EncoderConfig(quality=75),
+                              device="cpu")
+    for g, d in zip(got, default):
+        assert g != d
 
 
 def test_encode_many_byte_identical_q75():
@@ -77,10 +98,10 @@ def test_shared_config_and_tables_match(kw):
 @pytest.mark.parametrize("kw,image", [
     (dict(arithmetic=True), None),
     (dict(precision=12), None),
-    (dict(restart_interval=4), None),
-    (dict(trellis_eob_opt=True), None),
-    (dict(dct_method=mjt.DCTMethod.IFAST), None),
-    (dict(quality=75), np.zeros((16, 16), np.uint8)),
+    (dict(trellis_q_opt=True), None),
+    (dict(qslots=(0, 0, 0)), None),
+    (dict(device_scanopt=True), None),
+    (dict(coef_transport=True), np.zeros((16, 16), np.uint8)),
 ])
 def test_out_of_slice_configs_raise(kw, image):
     img = IMAGES[2] if image is None else image
