@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about three to four minutes
+    python3 chip_smoke.py            # about two to four minutes
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
@@ -49,10 +49,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      8x768x512 group for the three slowest; the device time and kernel
      count of the EOB-run DP, the device prep and the float DCT per group
      (torch.profiler);
-  8. the kernels line, then {"ok": true, "device": ...} as the last line.
+  8. the per-image routes: serial encode() of a 768x512 and the 1021x683
+     image on the card against encode(..., device="cpu") (the host
+     engine), byte-equal, with the median of 5 warm calls each way; the
+     families the batched route does not carry (the arithmetic trellis,
+     on one full-size image, sequential with restarts too, trellis_q_opt
+     and qslots) and arithmetic coding without the trellis, checked as
+     in phase 7, with the kernel exactly against its plain version on the
+     trellis_q_opt and qslots groups' launches and MP/s for three of
+     them; the arithmetic trellis's seconds per 768x512 image, split into
+     the row trellis on the card and the coder on the host; the device
+     time and kernel count of its AC and DC parts per iMCU row
+     (torch.profiler); and the row
+     trellis on the card exactly against the CPU on a real iMCU row and
+     a tie-heavy one;
+  9. the script's time, the kernels line, then {"ok": true, "device":
+     ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
-4's main path, each family of phase 7) and read just after it; the
-kernels line carries phase 4's. It needs no network and imports no JAX.
+4's main path, each timed family of phases 7 and 8, the serial calls of
+phase 8) and read just after it; the kernels line carries phase 4's. It
+needs no network and imports no JAX.
 """
 import json
 import os
@@ -325,6 +341,19 @@ TIMED = ("grayscale", "ifast", "float", "restart_in_rows=1",
          "progressive=False", "FASTEST", "trellis_eob_opt",
          "trellis_num_loops=2", "use_scans_in_trellis")
 RECORDED = ("grayscale", "cmyk", "use_scans_in_trellis", "trellis_eob_opt")
+# phase 8: the configurations the batched route does not carry (the
+# per-image route on the card), and arithmetic coding without the trellis
+ROUTE_FAMILIES = [
+    ("arithmetic", 3, dict(arithmetic=True)),
+    ("arithmetic-notrellis", 3, dict(arithmetic=True, trellis_quant=False)),
+    ("arithmetic-seq-restart", 3, dict(arithmetic=True, progressive=False,
+                                       restart_interval=2)),
+    ("trellis_q_opt", 3, dict(trellis_q_opt=True)),
+    ("qslots", 3, dict(qslots=(1, 0, 1))),
+]
+ROUTE_ONE_IMAGE = ("arithmetic", "arithmetic-seq-restart")
+ROUTE_TIMED = ("arithmetic-notrellis", "trellis_q_opt", "qslots")
+ROUTE_RECORDED = ("trellis_q_opt", "qslots")
 
 
 def family_images(images, channels, seed):
@@ -350,21 +379,28 @@ def family_config(kw):
     return mjt.EncoderConfig(**kw)
 
 
-def config_matrix(kodak, odd, dev, default_mps, compare):
-    """Phase 7; returns the largest kernel-vs-plain error it saw."""
+def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
+                   compare, t_phase, one_image=()):
+    """Each family on the card: SOI/EOI and the same bytes twice on one
+    768x512 and one 1021x683 corpus image (only the first for the
+    families in one_image), the card's bytes equal to the CPU path's on a
+    256x192 and a 131x97 crop; the kernel against its plain version on a
+    group's launches for the recorded families; encode_many MP/s of the
+    corpus for the timed ones, with the kernel's launches counted from 0
+    just before their 3 reps. -> (MP/s per timed family, (ctx, record)
+    per recorded family, largest kernel-vs-plain error)."""
     import torch
     import mozjpeg_tpu_torch as mjt
-    from mozjpeg_tpu_torch.codec import encoder, pipeline_t, trellis
-    from mozjpeg_tpu_torch.ops import dct, dering, layout
+    from mozjpeg_tpu_torch.codec import encoder
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     corpus = kodak + odd
     mp = sum(im.shape[0] * im.shape[1] for im in corpus) / 1e6
-    t_phase = time.perf_counter()
     max_err = 0.0
     rates, recs = {}, {}
-    for name, ch, kw in FAMILIES:
+    for name, ch, kw in families:
         cfg = family_config(kw)
-        big = family_images([kodak[0], odd[0]], ch, 300)
+        big = family_images([kodak[0]] if name in one_image
+                            else [kodak[0], odd[0]], ch, 300)
         outs = mjt.encode_many(big, cfg)
         again = mjt.encode_many(big, cfg)
         if not all(o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"
@@ -372,18 +408,19 @@ def config_matrix(kodak, odd, dev, default_mps, compare):
             raise SystemExit("%s: output without SOI/EOI" % name)
         if again != outs:
             raise SystemExit("%s: outputs differ between runs" % name)
-        crops = [big[0][100:292, 200:456], big[1][301:398, 17:148]]
+        crops = [big[0][100:292, 200:456], big[-1][301:398, 17:148]]
         same = mjt.encode_many(crops, cfg) == mjt.encode_many(
             crops, cfg, device="cpu")
-        log("config matrix [%s]: 768x512 %d bytes, 1021x683 %d bytes, "
-            "deterministic; card vs cpu on 256x192 and 131x97 crops: "
-            "equal=%s (phase at %.1f s)" % (name, len(outs[0]), len(outs[1]),
-                                            same,
-                                            time.perf_counter() - t_phase))
+        log("config matrix [%s]: %s, deterministic; card vs cpu on 256x192 "
+            "and 131x97 crops: equal=%s (phase at %.1f s)"
+            % (name, ", ".join("%dx%d %d bytes" % (im.shape[1], im.shape[0],
+                                                   len(o))
+                               for im, o in zip(big, outs)),
+               same, time.perf_counter() - t_phase))
         if not same:
             raise SystemExit("%s: card output differs from the CPU path"
                              % name)
-        if name in RECORDED:
+        if name in recorded:
             ctx = encoder.resolve_group(family_images(kodak[:1], ch, 300)[0],
                                         cfg)
             rec = {}
@@ -396,7 +433,7 @@ def config_matrix(kodak, odd, dev, default_mps, compare):
             for i, args in enumerate(rec["trellis_ac"]):
                 max_err = max(max_err, compare(
                     args, "%s group launch %d" % (name, i)))
-        if name in TIMED:
+        if name in timed:
             # warm: this family's kernels and shapes just ran above
             imgs = family_images(corpus, ch, 400)
             torch.cuda.synchronize()
@@ -417,6 +454,19 @@ def config_matrix(kodak, odd, dev, default_mps, compare):
                 % (name, statistics.median(rates[name]),
                    ", ".join("%.3f" % v for v in rates[name]), launches,
                    default_mps))
+    return rates, recs, max_err
+
+
+def config_matrix(kodak, odd, dev, default_mps, compare):
+    """Phase 7; returns the largest kernel-vs-plain error it saw."""
+    import torch
+    from mozjpeg_tpu_torch.codec import encoder, pipeline_t, trellis
+    from mozjpeg_tpu_torch.ops import dct, dering, layout
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+    rates, recs, max_err = check_families(
+        FAMILIES, RECORDED, TIMED, kodak, odd, dev, default_mps, compare,
+        t_phase)
 
     slowest = sorted(rates, key=lambda k: statistics.median(rates[k]))[:3]
     for name in slowest:
@@ -487,7 +537,135 @@ def config_matrix(kodak, odd, dev, default_mps, compare):
     return max_err
 
 
+def per_image_routes(kodak, odd, dev, default_mps, compare):
+    """Phase 8; returns the largest kernel-vs-plain error it saw."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch import consts
+    from mozjpeg_tpu_torch.codec import encoder, trellis
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+
+    # serial encode() on the card against the CPU's host engine
+    cfg = mjt.EncoderConfig(quality=75)
+    for img in (kodak[0], odd[0]):
+        label = "%dx%d" % (img.shape[1], img.shape[0])
+        cpu = mjt.encode(img, cfg, device="cpu")
+        card = mjt.encode(img, cfg)
+        ok = card == cpu and card[:2] == b"\xff\xd8" and card[-2:] == \
+            b"\xff\xd9"
+        ms = {}
+        for way, dv in (("card", None), ("cpu host engine", "cpu")):
+            walls = []
+            tac.trellis_ac.launches = 0
+            for _ in range(5):
+                t0 = time.perf_counter()
+                mjt.encode(img, cfg, device=dv)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms[way] = (statistics.median(walls), tac.trellis_ac.launches)
+        log("serial encode() [%s]: card %.3f ms (trellis_ac launches=%d in "
+            "5 calls), cpu host engine %.3f ms (launches=%d), median of 5 "
+            "warm calls; card vs host engine bytes equal=%s (%d bytes)"
+            % (label, ms["card"][0], ms["card"][1],
+               ms["cpu host engine"][0], ms["cpu host engine"][1], ok,
+               len(cpu)))
+        if not ok:
+            raise SystemExit("serial encode() on the card differs from the "
+                             "host engine")
+        if ms["card"][1] <= 0 or ms["cpu host engine"][1] != 0:
+            raise SystemExit("serial encode() took the wrong route")
+
+    rates, _, max_err = check_families(
+        ROUTE_FAMILIES, ROUTE_RECORDED, ROUTE_TIMED, kodak, odd, dev,
+        default_mps, compare, t_phase, ROUTE_ONE_IMAGE)
+
+    # the arithmetic trellis of one 768x512 image, its stages synchronised
+    acfg = family_config(dict(arithmetic=True))
+    ctx = encoder.resolve_group(kodak[0], acfg)
+    times = {}
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        encoder.encode_group(kodak[:1], ctx, dev, pool, times=times)
+        total = time.perf_counter() - t0
+    log("arithmetic per 768x512 image on the card: %.3f s; row trellis on "
+        "the card %.3f s, coder on the host with the rows' download %.3f s; "
+        "stages (ms): %s" % (total, times["trellis_arith_rows"],
+                             times["trellis_arith_coder"], json.dumps(
+                                 {k: round(v * 1e3, 3)
+                                  for k, v in times.items()})))
+
+    # the row trellis of one iMCU row (two block rows) of that image, its
+    # card time and kernels (torch.profiler), and the card against the CPU
+    # on it and on a tie-heavy row
+    p1 = encoder._batch_p1(kodak[:1], ctx, dev)
+    geom, merged, _, norms = p1
+    g = geom[2][0]
+    qz = np.asarray(ctx.qtables[0]).reshape(64)[consts.JPEG_ZIGZAG] \
+        .astype(np.int32)
+    q0 = int(qz[0])
+    nc = trellis.get_num_dc_candidates(q0)
+    lam = trellis.lambda_from_norm_t(norms[0], 14.75, 16.5)
+    sl = slice(20 * g.bw, 22 * g.bw)
+    with encoder.ArithTrainer(ctx.cfg, 0) as coder:
+        for r in range(20):
+            coder.train(merged[0][0][:, r * g.bw:(r + 1) * g.bw].t().cpu()
+                        .numpy())
+        rate_dc, rate_ac = (r.copy() for r in coder.rates())
+    ltbl0 = float(np.float32(1.0 / (q0 * q0)))
+    row_in = (merged[0][1][:, sl], merged[0][0][:, sl],
+              torch.as_tensor(qz, device=dev), lam[sl])
+    dc_in = (merged[0][1][0, sl].reshape(2, g.bw), q0, rate_dc, nc,
+             (lam[sl] * ltbl0).reshape(2, g.bw))
+
+    for label, fn in (
+            ("AC band (1, 63)",
+             lambda: trellis.arith_ac_row(*row_in, rate_ac, 1, 63)),
+            ("DC, the pair of rows", lambda: trellis.arith_dc_imcu_row(
+                *dc_in))):
+        dev_ms, nk, wall_ms = profiled(fn, 3)
+        log("arithmetic row trellis per iMCU row (2 block rows of %d "
+            "blocks) [%s]: %.4f ms of device kernels (torch.profiler, %d "
+            "kernels), %.3f ms synchronised wall under the profiler"
+            % (g.bw, label, dev_ms, nk, wall_ms))
+    rng = np.random.default_rng(12)
+    n = 2 * g.bw
+    raw = (rng.integers(-6, 7, (64, n)) * 8).astype(np.int32)
+    raw[rng.random(raw.shape) < 0.6] = 0
+    tie = (raw, (raw // 8).astype(np.int16), np.ones(64, np.int32),
+           np.full(n, 1 / 64, np.float32))
+    for label, args, dcs in (
+            ("768x512 iMCU row 10", [a.cpu().numpy() for a in row_in],
+             (dc_in[0].cpu().numpy(), dc_in[4].cpu().numpy())),
+            ("tie-heavy row", list(tie), (tie[0][0].reshape(2, g.bw),
+                                          tie[3].reshape(2, g.bw)))):
+        qq0 = int(args[2][0])
+        ncc = trellis.get_num_dc_candidates(qq0)
+        for band in ((1, 63), (1, 8)):
+            outs = [trellis.arith_ac_row(*(torch.as_tensor(a, device=d)
+                                           for a in args), rate_ac, *band)
+                    for d in (dev, "cpu")]
+            same = torch.equal(outs[0].cpu(), outs[1])
+            log("arithmetic AC row trellis card vs cpu [%s, band %s]: "
+                "exact=%s" % (label, band, same))
+            if not same:
+                raise SystemExit("the arithmetic AC row trellis on the card "
+                                 "differs from the CPU")
+        outs = [trellis.arith_dc_imcu_row(
+            torch.as_tensor(dcs[0], device=d), qq0, rate_dc, ncc,
+            torch.as_tensor(dcs[1], device=d)) for d in (dev, "cpu")]
+        same = torch.equal(outs[0].cpu(), outs[1])
+        log("arithmetic DC iMCU-row trellis card vs cpu [%s]: exact=%s"
+            % (label, same))
+        if not same:
+            raise SystemExit("the arithmetic DC row trellis on the card "
+                             "differs from the CPU")
+    log("per-image routes: %.1f s" % (time.perf_counter() - t_phase))
+    return max_err
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -692,7 +870,12 @@ def main():
     max_err = max(max_err, config_matrix(kodak, odd, dev, statistics.median(
         mps), compare))
 
-    # ---- 8. result lines ----
+    # ---- 8. the per-image routes ----
+    max_err = max(max_err, per_image_routes(kodak, odd, dev,
+                                            statistics.median(mps), compare))
+
+    # ---- 9. result lines ----
+    log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -9,11 +9,12 @@ into the port's own library.
 
     import mozjpeg_tpu_torch as mjt
     jpegs = mjt.encode_many(images, mjt.EncoderConfig(quality=75))
+    jpeg = mjt.encode(image, quality=75)
     pixels = mjt.decode_many(jpegs)
 """
 from .codec.config import DCTMethod, EncoderConfig, Profile
 from .codec.decoder import decode, decode_many
-from .codec.encoder import encode_many
+from .codec.encoder import encode, encode_many
 
 __all__ = ["DCTMethod", "EncoderConfig", "Profile", "decode", "decode_many",
-           "encode_many"]
+           "encode", "encode_many"]

@@ -1,9 +1,9 @@
-"""Batched encode: prep -> device p1 -> device trellis -> dense download
--> host scan search or scan emission, and marker assembly.
+"""Encode: prep -> device p1 -> device trellis -> dense download -> host
+scan search or scan emission, and marker assembly.
 
-Port of mozjpeg_tpu/codec/encoder.py's batched path (_fast_ctx and what
-it runs): encode_many groups the images by shape into batches of up to 8
-(fewer for large frames) and runs each group through
+Port of mozjpeg_tpu/codec/encoder.py: encode() and encode_many.
+encode_many groups the images by shape into batches of up to 8 (fewer
+for large frames) and runs each group through (encode_group)
 
   _batch_p1    host prep (native mj_prep_ycc, YCbCr without smoothing) or
                device prep (colour conversion, smoothing, downsampling),
@@ -14,18 +14,24 @@ it runs): encode_many groups the images by shape into batches of up to 8
                DC trellis (the JAX package's host-tablegen route, byte-
                identical to its default); use_scans_in_trellis and
                trellis_num_loops regather histograms on the device and
-               download them once per pass;
+               download them once per pass; or, for the arithmetic
+               trellis, arith_trellis (row by row, the coder on the host);
   _batch_host  one dense download, iMCU dummy blocks on the host, then
                per image on a thread pool (which overlaps the next group's
-               device work) the native scan search, or the script's scans
-               emitted one by one, and the markers.
+               device work) the native scan search, the script's scans
+               emitted one by one or arithmetic-coded, and the markers.
 
-The slice is the JAX package's whole batched surface at 8 bits: gray,
-YCbCr, RGB, CMYK and YCCK; any subsampling; islow, ifast and float DCTs;
-smoothing; restart intervals; sequential, progressive, custom and FASTEST
-scripts with optimized or standard Huffman tables; every trellis option
-but trellis_q_opt; quant tables, ICC and density. What it does not carry
-raises NotImplementedError naming the ROADMAP.md item that brings it.
+The configurations the JAX package does not batch (batchable: the
+arithmetic trellis, trellis_q_opt, quant slots other than the
+colorspace's) run its per-image route on the same groups; on the CPU
+they, and encode()'s single images, take the host engine
+(codec/host_engine.py) where the JAX package does. The surface is the
+JAX package's whole 8-bit one: gray, YCbCr, RGB, CMYK and YCCK; any
+subsampling; islow, ifast and float DCTs; smoothing; restart intervals;
+sequential, progressive, custom and FASTEST scripts with optimized or
+standard Huffman tables or arithmetic coding; every trellis option;
+quant tables and slots, ICC and density. What it does not carry raises
+NotImplementedError naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -36,10 +42,11 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import consts
+from .. import consts, native
 from ..entropy import encode as entenc
 from ..entropy.huffman import HuffTable, derive_codes
-from . import marker, pipeline_t, scanopt, scans, trellis
+from . import (arith, host_engine, marker, pipeline_t, scanopt, scans,
+               trellis)
 from .config import (CS_INFO, EncoderConfig, Profile, ResolvedConfig,
                      qt_slots, scan_restart_interval, trellis_ris)
 from .pipeline import geometry
@@ -114,7 +121,7 @@ def resolve_group(image, config: Optional[EncoderConfig] = None,
     ncomps = len(CS_INFO[cs][0])
     if cs in ("cmyk", "ycck") and channels != 4:
         raise ValueError("%s needs (H, W, 4) input" % cs)
-    _check_slice(image, cfg, cs, ncomps)
+    _check_slice(image, cfg)
     sub = tuple(cfg.subsampling)
     if cs == "ycbcr":
         samp = [sub, (1, 1), (1, 1)]
@@ -125,7 +132,7 @@ def resolve_group(image, config: Optional[EncoderConfig] = None,
     return GroupCtx(cfg, config.profile, cs, ncomps, samp, make_qtables(cfg))
 
 
-def _check_slice(image, cfg, cs, ncomps):
+def _check_slice(image, cfg):
     """Refuse what this slice does not carry, naming the ROADMAP.md item
     (queue 1) that brings it."""
     def no(what, item):
@@ -134,15 +141,9 @@ def _check_slice(image, cfg, cs, ncomps):
             "item %s)" % (what, item))
 
     if image.dtype != np.uint8:
-        no("input other than uint8 samples", "4.2")
+        no("input other than uint8 samples", "4.1")
     if cfg.precision != 8:
-        no("12-bit precision", "4.2")
-    if cfg.arithmetic:
-        no("arithmetic coding", "4.1")
-    if cfg.trellis_q_opt:
-        no("trellis_q_opt", "4.1")
-    if qt_slots(cfg, cs, ncomps) != CS_INFO[cs][0][:ncomps]:
-        no("quant slots other than the colorspace's", "4.1")
+        no("12-bit precision", "4.1")
     if cfg.device_entropy or cfg.device_scanopt:
         no("the device entropy and scan-search engines", "7")
     if cfg.sparse_download or cfg.plane_pack or cfg.coef_transport:
@@ -164,25 +165,90 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _no_reporting(progress, trace):
+    if progress is not None or trace is not None:
+        raise NotImplementedError(
+            "mozjpeg_tpu_torch: progress and trace reporting "
+            "(codec/report.py) is not ported yet (ROADMAP.md queue 1 item "
+            "10)")
+
+
+def encode(image, config: Optional[EncoderConfig] = None, progress=None,
+           trace=None, device=None, **overrides) -> bytes:
+    """Encode one image to JPEG bytes, byte-identical to mozjpeg_tpu.encode.
+    On the GPU (device None or "cuda", the default; raises without one)
+    it is encode_many of the one image. With device="cpu" it routes as
+    the JAX package does: the host engine (codec/host_engine.py) when
+    MJ_HOST_ENGINE is not 0 and the configuration is in its matrix with
+    the colorspace's quant slots, else encode_many."""
+    _no_reporting(progress, trace)
+    dev = _device(device)
+    image = np.asarray(image)
+    if dev.type == "cpu":
+        ctx = resolve_group(image, config, **overrides)
+        if _host_engine_serves(ctx):
+            return host_engine.encode_host(image, ctx)
+    return encode_many([image], config, device=dev, **overrides)[0]
+
+
+def _default_slots(ctx: GroupCtx) -> bool:
+    return (qt_slots(ctx.cfg, ctx.cs, ctx.ncomps)
+            == CS_INFO[ctx.cs][0][:ctx.ncomps])
+
+
+def _host_engine_serves(ctx: GroupCtx) -> bool:
+    """Whether the JAX package routes the configuration to its host
+    engine (taken by the port on the CPU only)."""
+    return (host_engine.enabled() and host_engine.supported(ctx.cfg, ctx.cs)
+            and _default_slots(ctx))
+
+
+def batchable(ctx: GroupCtx) -> bool:
+    """Whether the JAX package batches the configuration (_fast_ctx); the
+    others take its per-image route (or the host engine). The arithmetic
+    trellis trains the coder on each block row before the next row's
+    rates, trellis_q_opt refits each image's tables, and other quant
+    slots do not batch there either."""
+    cfg = ctx.cfg
+    return (not cfg.trellis_q_opt
+            and not (cfg.arithmetic and cfg.trellis_quant)
+            and _default_slots(ctx))
+
+
 def encode_many(images, config: Optional[EncoderConfig] = None,
-                device=None, **overrides) -> List[bytes]:
+                progress=None, trace=None, device=None,
+                **overrides) -> List[bytes]:
     """Encode uint8 images, (H, W) gray or (H, W, C) with C = 3 (RGB) or
     4 (CMYK), to JPEG bytes, byte-identical to mozjpeg_tpu.encode_many.
     device: None or "cuda" (the default, the GPU; raises without one) or
-    "cpu" (the kernels' plain versions)."""
+    "cpu" (the kernels' plain versions). Same-shape images run in groups
+    (encode_group); on the CPU the configurations the JAX package does
+    not batch take the host engine where it serves them, as there."""
+    _no_reporting(progress, trace)
     dev = _device(device)
     out = [None] * len(images)
     by_shape = {}
     for i, img in enumerate(images):
         by_shape.setdefault(np.asarray(img).shape, []).append(i)
-    chunks = []
+    chunks, host = [], []
     for idxs in by_shape.values():
         img0 = np.asarray(images[idxs[0]])
         ctx = resolve_group(img0, config, **overrides)
+        if dev.type == "cpu" and not batchable(ctx) and \
+                _host_engine_serves(ctx):
+            host += [(i, ctx) for i in idxs]
+            continue
         mp = img0.shape[0] * img0.shape[1] / 1e6
         ge = max(1, min(GROUP, int(BUDGET_MP / max(mp, 1e-6))))
         for k in range(0, len(idxs), ge):
             chunks.append((idxs[k:k + ge], ctx))
+    if host:
+        # each call threads its own stages over the host's cores
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for i, f in [(i, pool.submit(host_engine.encode_host,
+                                         np.asarray(images[i]), ctx))
+                         for i, ctx in host]:
+                out[i] = f.result()
     nthreads = max(2, (os.cpu_count() or 4) - 1)
     with ThreadPoolExecutor(max_workers=nthreads) as pool:
         pending = []
@@ -198,13 +264,32 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
 def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
                  record=None):
     """One same-shape group -> per image futures of the JPEG bytes.
-    With `times` (dict) every stage is synchronised and timed, and the
-    host entropy is waited for inside its stage. With `record` (dict)
-    record["lambda"] gets each component's (norm sums, lambda) and
-    record["trellis_ac"] the arguments of each trellis_ac call."""
+    A configuration that does not batch (see batchable) runs the JAX
+    package's per-image route on the whole group: its trellis regathers
+    the statistics of later loops with the restart segmentation, the
+    arithmetic trellis runs image by image and block row by block row
+    (arith_trellis), and trellis_q_opt refits each image's own tables
+    (q_opt_sums, q_opt_tables). With `times` (dict) every stage is
+    synchronised and timed, and the host entropy is waited for inside
+    its stage. With `record` (dict) record["lambda"] gets each
+    component's (norm sums, lambda) and record["trellis_ac"] the
+    arguments of each trellis_ac call."""
+    cfg, b = ctx.cfg, len(images)
     p1 = _batch_p1(images, ctx, dev, times)
-    finals = _batch_rest(images, p1, ctx, dev, times, record)
-    return _batch_host(images, p1[0], finals, ctx, pool, dev, times)
+    if cfg.trellis_quant and cfg.arithmetic:
+        finals = arith_trellis(p1, ctx, b, times)
+    else:
+        finals = _batch_rest(images, p1, ctx, dev, times, record,
+                             loop_ris=not batchable(ctx))
+    qtables = None
+    if cfg.trellis_quant and cfg.trellis_q_opt:
+        with stage(times, "q_opt", dev):
+            slots = qt_slots(cfg, ctx.cs, ctx.ncomps)
+            ns, nc = q_opt_sums([m[1] for m in p1[1]], finals, b)
+            qtables = [q_opt_tables(ns[i], nc[i], ctx.qtables, slots)
+                       for i in range(b)]
+    return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
+                       qtables)
 
 
 def _batch_p1(images, ctx: GroupCtx, dev, times=None):
@@ -225,7 +310,8 @@ def _batch_p1(images, ctx: GroupCtx, dev, times=None):
         with stage(times, "p1", dev):
             merged, smalls, norms = pipeline_t.p1_batch_pre(
                 bufs_t, tuple(geom[2]), ctx.qtables,
-                cfg.overshoot_deringing, dctm, ris)
+                cfg.overshoot_deringing, dctm, ris,
+                qt_slots(cfg, ctx.cs, ctx.ncomps))
     else:
         with stage(times, "prep", dev):
             imgs_t = torch.from_numpy(np.stack(images)).to(dev)
@@ -260,9 +346,13 @@ def _host_ac_tables(hists, slots, opt: bool, b: int, dev):
     return out
 
 
-def _batch_rest(images, p1, ctx: GroupCtx, dev, times=None, record=None):
+def _batch_rest(images, p1, ctx: GroupCtx, dev, times=None, record=None,
+                loop_ris: bool = False):
     """The trellis passes of one group -> the final (64, B*n) int16
-    planes per component (the quantized ones without trellis)."""
+    planes per component (the quantized ones without trellis). With
+    loop_ris the statistics of the loops after the first are segmented
+    at the restarts (the JAX per-image route), else not (its batched
+    route)."""
     cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
     b = len(images)
     geom, merged, smalls, norms = p1
@@ -329,14 +419,181 @@ def _batch_rest(images, p1, ctx: GroupCtx, dev, times=None, record=None):
         if opt:
             # each loop regathers per-image rate statistics from the
             # previous loop's coefficients (jcmaster.c:1129-1139), with no
-            # restart segmentation, as the JAX dev_tables route
-            ac_sis = tables(band_hists(finals, 1, 63, None))
+            # restart segmentation in the JAX batched route
+            ac_sis = tables(band_hists(finals, 1, 63,
+                                       ris if loop_ris else None))
         finals = run(finals, ac_sis, ((1, 63),), cfg.trellis_quant_dc)
     return finals
 
 
+def q_opt_sums(raws, finals, b: int):
+    """trellis_q_opt's sums per image: raws and finals per component
+    (64, B*n) (int32 unquantized x8, int16 final) -> (ns, nc), each
+    (B, ncomps, 64) int64 on the host (one download): sum(src * coef) and
+    sum(8 * coef^2) over each image's blocks, exact in int64."""
+    sums = []
+    for raw, fin in zip(raws, finals):
+        src = raw.to(torch.int64).reshape(64, b, -1)
+        coef = fin.to(torch.int64).reshape(64, b, -1)
+        sums.append(torch.stack([(src * coef).sum(2),
+                                 8 * (coef * coef).sum(2)]))
+    s = torch.stack(sums).cpu().numpy()              # (ncomps, 2, 64, B)
+    return s[:, 0].transpose(2, 0, 1), s[:, 1].transpose(2, 0, 1)
+
+
+def q_opt_tables(ns, nc, qtables, slots) -> List[np.ndarray]:
+    """trellis_q_opt (jcdctmgr.c:1299-1305, jcmaster.c:1014-1027): one
+    image's (ncomps, 64) sums -> its table list with each used slot refit
+    to the chosen levels, q[p] = round(sum(src * coef) / sum(8 * coef^2))
+    clamped to 1..254 at the AC positions p with a nonzero denominator,
+    the sums of the components sharing a slot added. The float64
+    division of exact int64 sums matches the reference's double sums."""
+    out = list(qtables)
+    nsl = np.zeros((max(slots) + 1, 64), np.int64)
+    ncl = np.zeros_like(nsl)
+    for ci, slot in enumerate(slots):
+        nsl[slot] += ns[ci]
+        ncl[slot] += nc[ci]
+    for slot in dict.fromkeys(slots):
+        q = np.asarray(out[slot]).copy()
+        for p in range(1, 64):
+            if ncl[slot, p]:
+                v = int(np.float64(nsl[slot, p]) / np.float64(ncl[slot, p])
+                        + 0.5)
+                j = consts.JPEG_ZIGZAG[p]
+                q[j // 8, j % 8] = min(max(v, 1), 254)
+        out[slot] = q
+    return out
+
+
+class ArithTrainer:
+    """The adaptive coder whose states the arithmetic trellis reads
+    (native arith.cpp, emission suppressed): rates() snapshots the -log2
+    probabilities of its DC (64, 2) and AC (256, 2) states, train(row)
+    codes one block row of chosen coefficients into it. The trellis pass
+    is a one-component pseudo-scan, so every `rint` blocks (restarts in
+    rows convert with the component's width) a restart resets the AC
+    statistics, and the DC ones too unless the frame is progressive, as
+    emit_restart does (jcarith.c:383-389); a reset lands after the row's
+    rate snapshot."""
+
+    def __init__(self, cfg, rint: int):
+        self._lib = native.lib()
+        self._ctx = self._lib.mj_arith_ctx_new()
+        prog = cfg.progressive
+        if cfg.scan_script is not None:
+            # a custom script is progressive unless its first scan is
+            # full-spectrum
+            s0 = cfg.scan_script[0]
+            prog = s0[1] != 0 or s0[2] != 63
+        self._reset_dc = 0 if prog else 1
+        self._rint = self._rtg = rint
+        self._nrst = 0
+        self._dc = np.empty((64, 2), np.float32)
+        self._ac = np.empty((256, 2), np.float32)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._lib.mj_arith_ctx_free(self._ctx)
+
+    def rates(self):
+        self._lib.mj_arith_get_rates(self._ctx,
+                                     self._dc.ctypes.data_as(native.f32p),
+                                     self._ac.ctypes.data_as(native.f32p))
+        return self._dc, self._ac
+
+    def train(self, row):
+        """row: (bw, 64) int16 blocks in zigzag order."""
+        blk = np.ascontiguousarray(row, np.int16)
+        bw, off = blk.shape[0], 0
+        while off < bw:
+            if self._rint and self._rtg == 0:
+                self._lib.mj_arith_ctx_restart(self._ctx, self._nrst,
+                                               self._reset_dc, 1)
+                self._nrst = (self._nrst + 1) & 7
+                self._rtg = self._rint
+            take = min(bw - off, self._rtg) if self._rint else bw
+            self._lib.mj_arith_train_rows(
+                self._ctx, blk[off:off + take].ctypes.data_as(native.i16p),
+                take, 0, 1, 5)
+            off += take
+            if self._rint:
+                self._rtg -= take
+
+
+def arith_trellis(p1, ctx: GroupCtx, b: int, times=None):
+    """The arithmetic trellis of a group on its device (the JAX package's
+    _phase_trellis arithmetic branch), image by image: per visited
+    component a fresh coder; per iMCU row the coder's rates go up, the AC
+    row trellis runs on the iMCU row's block rows at once (they share
+    the snapshot) and the DC row trellis on its rows in pairs (their
+    last DC chains through the iMCU row; trellis.arith_dc_imcu_row),
+    then the rows come down and train the coder.
+    -> the final (64, B*n) int16 planes per component. `times` (dict)
+    gets the synchronised seconds of the row trellis on the device
+    (trellis_arith_rows) and of the coder on the host with the rows'
+    download (trellis_arith_coder)."""
+    cfg, cs = ctx.cfg, ctx.cs
+    geom, merged, _, norms = p1
+    comps = geom[2]
+    dev = merged[0][0].device
+    tcomps = _trellis_comps(cfg, cs, comps)
+    cqt = pipeline_t.comp_qtables(ctx.qtables,
+                                  qt_slots(cfg, cs, ctx.ncomps))
+    fs = cfg.trellis_freq_split
+    band_defs = ([(1, fs), (fs + 1, 63)] if cfg.use_scans_in_trellis
+                 else [(1, 63)])
+    rint = trellis_ris(cfg, comps)
+    finals = [m[0] for m in merged]
+    for comp, band in trellis.arith_trellis_comps(
+            ctx.ncomps, max(1, cfg.trellis_num_loops),
+            cfg.use_scans_in_trellis):
+        g = tcomps[comp]
+        n = g.bh * g.bw
+        ss, se = band_defs[band]
+        qz = np.asarray(cqt[comp]).reshape(64)[consts.JPEG_ZIGZAG] \
+            .astype(np.int32)
+        q0 = int(qz[0])
+        ltbl0 = float(np.float32(1.0 / (q0 * q0)))
+        nc = trellis.get_num_dc_candidates(q0)
+        qz_t = torch.as_tensor(qz, device=dev)
+        raw = merged[comp][1]
+        cur = finals[comp].clone()
+        lam = trellis.lambda_from_norm_t(
+            norms[comp], cfg.lambda_log_scale1, cfg.lambda_log_scale2)
+        for img in range(b):
+            with ArithTrainer(cfg, rint[comp] if rint else 0) as coder:
+                for ri in range(-(-g.bh // g.v)):
+                    with stage(times, "trellis_arith_coder", dev):
+                        rate_dc, rate_ac = coder.rates()
+                    r0, r1 = ri * g.v, min((ri + 1) * g.v, g.bh)
+                    sl = slice(img * n + r0 * g.bw, img * n + r1 * g.bw)
+                    with stage(times, "trellis_arith_rows", dev):
+                        rows = trellis.arith_ac_row(raw[:, sl], cur[:, sl],
+                                                    qz_t, lam[sl], rate_ac,
+                                                    ss, se)
+                        if cfg.trellis_quant_dc and band == 0:
+                            rows[0] = trellis.arith_dc_imcu_row(
+                                raw[0, sl].reshape(r1 - r0, g.bw), q0,
+                                rate_dc, nc,
+                                (lam[sl] * ltbl0).reshape(r1 - r0, g.bw)) \
+                                .reshape(-1).to(torch.int16)
+                        cur[:, sl] = rows
+                    with stage(times, "trellis_arith_coder", dev):
+                        host = rows.t().cpu().numpy()
+                        for k in range(r1 - r0):
+                            coder.train(host[k * g.bw:(k + 1) * g.bw])
+        finals[comp] = cur
+    return tuple(finals)
+
+
 def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
-                times=None):
+                times=None, qtables=None):
+    """Download, dummy blocks, then each image's entropy stage on the
+    pool; qtables: each image's own table list (trellis_q_opt), else
+    the group's."""
     b = len(images)
     _, _, comps = geom
     with stage(times, "download", dev):
@@ -348,8 +605,9 @@ def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
     nthreads = (os.cpu_count() or 1) if b == 1 else 1
     with stage(times, "host_entropy", dev):
         futs = [pool.submit(entropy_image, img.shape[1], img.shape[0], geom,
-                            planes, ctx, nthreads)
-                for img, planes in zip(images, per_image)]
+                            planes, ctx._replace(qtables=qtables[i])
+                            if qtables else ctx, nthreads)
+                for i, (img, planes) in enumerate(zip(images, per_image))]
         if times is not None:
             for f in futs:
                 f.result()
@@ -406,16 +664,14 @@ def encode_scan_fixed(sg, dc_tbls, ac_tbls, dc_tables, ac_tables,
                       restart)
 
 
-def assemble(width: int, height: int, geom, qtables, scan_results,
-             progressive: bool, ncomps: int, multi_dqt: bool = True,
-             precision: int = 8, cs: str = "ycbcr", extra_markers=None,
-             density=(0, 1, 1), write_jfif: bool = True,
-             sof_samp=None) -> bytes:
-    """Write the markers and scans into the JPEG byte stream (the
-    colorspace's own quant slots, the only ones this slice carries)."""
-    _, _, comps = geom
-    slots, _, comp_ids = CS_INFO[cs]
-    w = marker.MarkerWriter()
+def _frame_header(w, width: int, height: int, geom, qtables, ncomps: int,
+                  sof_code: int, multi_dqt: bool, precision: int, cs: str,
+                  slots, extra_markers, density, write_jfif: bool,
+                  sof_samp):
+    """SOI through SOF: JFIF or Adobe APP14, the extra markers, the quant
+    tables of the components' slots and the frame header."""
+    comps = geom[2]
+    comp_ids = CS_INFO[cs][2]
     w.soi()
     # JFIF only for YCbCr and gray; Adobe APP14 flags RGB/CMYK/YCCK
     # (jcmarker.c:649-663, jcparam.c:600-638)
@@ -434,9 +690,6 @@ def assemble(width: int, height: int, geom, qtables, scan_results,
     else:
         for i in used_qt:
             w.dqt(i, qtables[i])
-    # 8-bit sequential is baseline SOF0, >8-bit SOF1
-    sof_code = (marker.SOF2 if progressive
-                else (marker.SOF0 if precision == 8 else marker.SOF1))
     # sof_samp: the declared sampling factors where they differ from the
     # geometry's (grayscale gray_sample, rdswitch.c:610-642)
     sof_samp = sof_samp or [(comps[ci].h, comps[ci].v)
@@ -444,6 +697,23 @@ def assemble(width: int, height: int, geom, qtables, scan_results,
     w.sof(sof_code, precision, height, width,
           [(comp_ids[ci], sof_samp[ci][0], sof_samp[ci][1], slots[ci])
            for ci in range(ncomps)])
+
+
+def assemble(width: int, height: int, geom, qtables, scan_results,
+             progressive: bool, ncomps: int, multi_dqt: bool = True,
+             precision: int = 8, cs: str = "ycbcr", extra_markers=None,
+             density=(0, 1, 1), write_jfif: bool = True,
+             sof_samp=None, slots=None) -> bytes:
+    """Write the markers and scans into the JPEG byte stream; slots: the
+    components' quant slots (the colorspace's by default)."""
+    comp_ids = CS_INFO[cs][2]
+    w = marker.MarkerWriter()
+    # 8-bit sequential is baseline SOF0, >8-bit SOF1
+    sof_code = (marker.SOF2 if progressive
+                else (marker.SOF0 if precision == 8 else marker.SOF1))
+    _frame_header(w, width, height, geom, qtables, ncomps, sof_code,
+                  multi_dqt, precision, cs, slots or CS_INFO[cs][0],
+                  extra_markers, density, write_jfif, sof_samp)
     sent_dc: Dict[int, HuffTable] = {}
     sent_ac: Dict[int, HuffTable] = {}
     last_dri = 0
@@ -486,6 +756,8 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
     or YCbCr), or the scans of a script emitted one by one."""
     cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
     extra = marker.icc_chunks(cfg.icc) if cfg.icc else None
+    if cfg.arithmetic:
+        return _entropy_arith(width, height, geom, planes, ctx, extra)
     ycbcr = cs == "ycbcr"
     progressive = cfg.progressive
     if cfg.scan_script is not None:
@@ -523,11 +795,68 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
             std_ac = {s: STD_TABLES[(1, s)] for s in tbl_slots[:ncomps]}
             results.append(encode_scan_fixed(sg, dc_tbls, ac_tbls, std_dc,
                                              std_ac, r))
-    sof_samp = ([tuple(cfg.gray_sample)]
-                if cs == "grayscale" and cfg.gray_sample else None)
     return assemble(width, height, geom, ctx.qtables, results, progressive,
                     ncomps, multi_dqt=ctx.profile != Profile.FASTEST,
                     precision=cfg.precision, cs=cs, extra_markers=extra,
                     density=cfg.density, write_jfif=cfg.write_jfif,
-                    sof_samp=sof_samp)
+                    sof_samp=_gray_sof_samp(cfg, cs),
+                    slots=qt_slots(cfg, cs, ncomps))
+
+
+def _gray_sof_samp(cfg, cs):
+    return ([tuple(cfg.gray_sample)]
+            if cs == "grayscale" and cfg.gray_sample else None)
+
+
+def _entropy_arith(width: int, height: int, geom, planes, ctx: GroupCtx,
+                   extra) -> bytes:
+    """Arithmetic-coded scans (SOF9 or SOF10, a DAC marker before every
+    scan) -> the JPEG bytes (the JAX package's _entropy_arith). A
+    progressive frame takes the scan search where it runs, else the
+    profile's script or a custom one; a sequential frame one scan."""
+    cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
+    ycbcr = cs == "ycbcr"
+    if cfg.progressive:
+        if cfg.scan_script is not None:
+            script = [scans.ScanInfo(tuple(s[0]), *s[1:])
+                      for s in cfg.scan_script]
+        elif cfg.optimize_scans and (ncomps == 1 or (ncomps == 3 and ycbcr)):
+            # the scan search runs with the arithmetic coder too
+            # (jcparam.c:739-742)
+            return scanopt.encode_optimize_scans_arith(
+                width, height, geom, planes, ctx.qtables, cfg, ncomps, extra)
+        elif ctx.profile == Profile.MAX_COMPRESSION:
+            script = scans.simple_progression_max(
+                ncomps, cfg.dc_scan_opt_mode, ycbcr)
+        else:
+            script = scans.simple_progression_legacy(ncomps, ycbcr)
+    else:
+        script = scans.baseline_script(ncomps)
+    tbl_slots = CS_INFO[cs][1]
+    dc_tbls = {ci: tbl_slots[ci] for ci in range(ncomps)}
+    ac_tbls = dict(dc_tbls)
+    comp_ids = CS_INFO[cs][2]
+    w = marker.MarkerWriter()
+    _frame_header(w, width, height, geom, ctx.qtables, ncomps,
+                  marker.SOF10 if cfg.progressive else marker.SOF9,
+                  ctx.profile != Profile.FASTEST, 8, cs,
+                  qt_slots(cfg, cs, ncomps), extra, cfg.density,
+                  cfg.write_jfif, _gray_sof_samp(cfg, cs))
+    last_dri = 0
+    for scan in script:
+        r = scan_restart_interval(cfg, scan, geom)
+        entries = arith.dac_entries(scan, dc_tbls, ac_tbls)
+        if entries:
+            w.dac(entries)
+        if r != last_dri:
+            w.dri(r)
+            last_dri = r
+        w.sos([(comp_ids[ci],
+                dc_tbls[ci] if scan.Ss == 0 and scan.Ah == 0 else 0,
+                ac_tbls[ci] if scan.Se else 0)
+               for ci in scan.comps], scan.Ss, scan.Se, scan.Ah, scan.Al)
+        w.raw(arith.encode_scan_arith(scan, geom, planes, dc_tbls, ac_tbls,
+                                      r))
+    w.eoi()
+    return w.bytes()
 

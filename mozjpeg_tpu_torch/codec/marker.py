@@ -3,8 +3,8 @@
 Port of mozjpeg_tpu/codec/marker.py. The writer (the part the encode path
 uses): SOI, JFIF APP0, Adobe APP14, ICC APP2 chunks, DQT (one
 marker per table, or all in one as mozjpeg's non-FASTEST profile does,
-jcmarker.c:190-246), SOF, DHT (likewise single or merged), DRI, SOS and
-EOI, with field layouts as mozjpeg jcmarker.c writes them. The parser
+jcmarker.c:190-246), SOF, DHT (likewise single or merged), DAC, DRI, SOS
+and EOI, with field layouts as mozjpeg jcmarker.c writes them. The parser
 (the decode path) follows mozjpeg jdmarker.c for the markers a
 conformant decoder needs, plus the Adobe
 APP14 transform that names the colourspace; other APPn and COM segments
@@ -106,6 +106,12 @@ class MarkerWriter:
         progressive DC refinement) still gets a bare FFC4 0002 marker."""
         self.segment(DHT, b"".join(self._dht_payload(c, i, t)
                                    for c, i, t in entries))
+
+    def dac(self, entries):
+        """Arithmetic conditioning, entries [(cls, idx, value)]: value is
+        (U << 4) | L for DC, Kx for AC (jcmarker.c emit_dac)."""
+        self.segment(DAC, b"".join(bytes([(c << 4) | i, v])
+                                   for c, i, v in entries))
 
     def dri(self, interval: int):
         self.segment(DRI, struct.pack(">H", interval))

@@ -138,11 +138,11 @@ def comp_qtables(qtables, slots) -> list:
 
 
 def p1_batch_pre(bufs: torch.Tensor, geom: tuple, qtables, dering_on: bool,
-                 dct_method: str = "islow", ris=None):
+                 dct_method: str = "islow", ris=None, slots=(0, 1, 1)):
     """bufs (B, total) uint8 of host-prepped [Y | Cb | Cr] planes on the
     device -> ([(q_zz, raw_zz)] per comp, smalls (B*stride,) int32,
-    [norm (B*n,) f32] per comp). qtables: the table list, per slot; the
-    components take YCbCr's slots 0, 1, 1."""
+    [norm (B*n,) f32] per comp). qtables: the table list, per slot;
+    slots: the components' quant slots."""
     b = bufs.shape[0]
     planes, off = [], 0
     for g in geom:
@@ -150,7 +150,7 @@ def p1_batch_pre(bufs: torch.Tensor, geom: tuple, qtables, dering_on: bool,
         planes.append(bufs[:, off:off + size].reshape(b, g.bh_pad * 8,
                                                       g.bw_pad * 8))
         off += size
-    return _p1_planes(planes, geom, comp_qtables(qtables, (0, 1, 1)),
+    return _p1_planes(planes, geom, comp_qtables(qtables, slots),
                       dering_on, dct_method, ris)
 
 

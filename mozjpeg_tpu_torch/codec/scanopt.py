@@ -1,20 +1,38 @@
-"""jpegrescan-style scan optimization through the native scan search.
+"""jpegrescan-style scan optimization (optimize_scans).
 
-Port of mozjpeg_tpu/codec/scanopt.py::encode_optimize_scans_native: the
-whole candidate sweep, greedy selection and stitching run in C++
+Port of mozjpeg_tpu/codec/scanopt.py. With Huffman coding the whole
+candidate sweep, greedy selection and stitching run in C++
 (mozjpeg_tpu/native/scansearch.cpp mj_scan_search, GIL released), each
 candidate scan with its own restart interval; Python writes the frame
-header around the stitched scans (mozjpeg jcmaster.c:773-962
-select_scans, jcparam.c:734-852). The search runs for grayscale and
-YCbCr frames only (jcparam.c:753-756).
+header around the stitched scans (encode_optimize_scans_native). With
+the arithmetic coder, which the native search does not carry, the same
+search runs in Python (encode_optimize_scans_arith): each candidate scan
+is arithmetic-coded from the resident coefficient planes, the greedy
+state machine picks the winners in the reference's trial order with its
+early exits (_run_selection), and the winners are stitched in display
+order (mozjpeg jcmaster.c:773-962 select_scans, jcparam.c:734-852, and
+jcparam.c:739-742 for the search under -arithmetic). The search runs for
+grayscale and YCbCr frames only (jcparam.c:753-756).
+
+Both frame headers name the components' quant slots (qt_slots) and
+write their tables in component order. The JAX package writes slots 0
+and 1 there whatever -qslots says, so for a non-default qslots with the
+search its bytes differ from the port's (ROADMAP.md, Faults).
 """
 from __future__ import annotations
+
+from typing import Dict, List
 
 import numpy as np
 
 from .. import native
-from . import marker, scans
+from . import arith, marker, scans
 from .config import CS_INFO, qt_slots, scan_restart_interval
+from .scans import ScanInfo
+
+AL_MAX_LUMA = scans.AL_MAX_LUMA                  # 3
+AL_MAX_CHROMA = scans.AL_MAX_CHROMA              # 2
+NUM_FREQ_SPLITS = len(scans.FREQUENCY_SPLITS)    # 5
 
 
 def encode_optimize_scans_native(width: int, height: int, geom, planes,
@@ -56,23 +74,269 @@ def encode_optimize_scans_native(width: int, height: int, geom, planes,
     if n < 0:
         raise RuntimeError("native scan search: output buffer overflow")
 
-    cs = "grayscale" if ncomps == 1 else "ycbcr"
-    slots = qt_slots(cfg, cs, ncomps)
-    comp_ids = CS_INFO[cs][2]
-    sof_samp = [(comps[ci].h, comps[ci].v) for ci in range(ncomps)]
-    if ncomps == 1 and cfg.gray_sample:
-        sof_samp[0] = tuple(cfg.gray_sample)
     w = marker.MarkerWriter()
+    _file_header(w, cfg, extra_markers)
+    _frame_header(w, marker.SOF2, width, height, geom, qtables, cfg, ncomps,
+                  precision)
+    w.raw(out[:n].tobytes())
+    w.eoi()
+    return w.bytes()
+
+
+def _file_header(w, cfg, extra_markers):
     w.soi()
     if cfg.write_jfif:
         w.jfif_app0(unit=cfg.density[0], xd=cfg.density[1],
                     yd=cfg.density[2])
     for code, payload in (extra_markers or ()):
         w.segment(code, payload)
+
+
+def _frame_header(w, sof_code, width, height, geom, qtables, cfg,
+                  ncomps: int, precision: int = 8):
+    """DQT (one marker, the tables in component order) and SOF, with the
+    declared gray sampling (rdswitch.c:610-642)."""
+    comps = geom[2]
+    cs = "grayscale" if ncomps == 1 else "ycbcr"
+    slots = qt_slots(cfg, cs, ncomps)
+    comp_ids = CS_INFO[cs][2]
+    sof_samp = [(comps[ci].h, comps[ci].v) for ci in range(ncomps)]
+    if ncomps == 1 and cfg.gray_sample:
+        sof_samp[0] = tuple(cfg.gray_sample)
     w.dqt_multi([(i, qtables[i]) for i in dict.fromkeys(slots)])
-    w.sof(marker.SOF2, precision, height, width,
+    w.sof(sof_code, precision, height, width,
           [(comp_ids[ci], sof_samp[ci][0], sof_samp[ci][1], slots[ci])
            for ci in range(ncomps)])
-    w.raw(out[:n].tobytes())
+
+
+# ---------------------------------------------------------------------------
+# The search in Python, for the arithmetic coder
+# ---------------------------------------------------------------------------
+
+def _scan_buffer_arith(scan: ScanInfo, geom, planes, dc_tbls, ac_tbls,
+                       restart: int, frame_header, emit_dri: bool) -> bytes:
+    """One arithmetic candidate scan: [frame header] + DAC + [DRI] + SOS
+    + data (jcmarker.c:404-446 emit_dac writes the scan's tables every
+    scan)."""
+    w = marker.MarkerWriter()
+    if frame_header:
+        w.raw(frame_header)
+    entries = arith.dac_entries(scan, dc_tbls, ac_tbls)
+    if entries:
+        w.dac(entries)
+    if emit_dri:
+        w.dri(restart)
+    comp_ids = CS_INFO["ycbcr"][2]
+    w.sos([(comp_ids[ci],
+            dc_tbls[ci] if scan.Ss == 0 and scan.Ah == 0 else 0,
+            ac_tbls[ci] if scan.Se else 0)
+           for ci in scan.comps], scan.Ss, scan.Se, scan.Ah, scan.Al)
+    w.raw(arith.encode_scan_arith(scan, geom, planes, dc_tbls, ac_tbls,
+                                  restart))
+    return w.bytes()
+
+
+class SearchLayout:
+    """Index arithmetic of the 64-scan (YCbCr) / 23-scan (gray) search
+    script (select_scans, jcmaster.c:773-962)."""
+
+    def __init__(self, ncomps: int):
+        self.ncomps = ncomps
+        self.num_scans_luma_dc = 1
+        self.num_scans_luma = (self.num_scans_luma_dc
+                               + (3 * AL_MAX_LUMA + 2)
+                               + (2 * NUM_FREQ_SPLITS + 1))      # 23
+        self.num_scans_chroma_dc = 3 if ncomps == 3 else 0
+        self.luma_split_start = (self.num_scans_luma_dc
+                                 + 3 * AL_MAX_LUMA + 2)          # 12
+        self.chroma_split_start = (self.num_scans_luma
+                                   + self.num_scans_chroma_dc
+                                   + (6 * AL_MAX_CHROMA + 4))    # 42
+        self.num_scans = self.num_scans_luma if ncomps == 1 else 64
+
+    def scan_al(self, sn: int, scan, best_al_luma: int,
+                best_al_chroma: int):
+        """The Al candidate sn is emitted with: frequency-split scans
+        inherit the winning successive-approximation depth
+        (jcmaster.c:482-494)."""
+        if self.luma_split_start <= sn < self.num_scans_luma:
+            return ScanInfo(scan.comps, scan.Ss, scan.Se, scan.Ah,
+                            best_al_luma)
+        if self.ncomps == 3 and self.chroma_split_start <= sn:
+            return ScanInfo(scan.comps, scan.Ss, scan.Se, scan.Ah,
+                            best_al_chroma)
+        return scan
+
+
+class SearchResult:
+    __slots__ = ("sizes", "used_scans", "best_Al_luma", "best_Al_chroma",
+                 "best_split_luma", "best_split_chroma",
+                 "interleave_chroma_dc")
+
+
+def _run_selection(layout: SearchLayout, script, get_size) -> SearchResult:
+    """The greedy selection state machine: candidates are visited in the
+    reference's trial order, early exits included; get_size(sn, scan)
+    returns the candidate's whole buffer size (DAC [+ DRI] + SOS + data,
+    the frame header excluded)."""
+    L = layout
+    num_scans = L.num_scans
+    luma_split_start = L.luma_split_start
+    num_scans_luma = L.num_scans_luma
+    num_scans_chroma_dc = L.num_scans_chroma_dc
+    chroma_split_start = L.chroma_split_start
+
+    sizes: Dict[int, int] = {}
+    used_scans: Dict[int, ScanInfo] = {}
+    best_al_luma = best_al_chroma = 0
+    best_cost = 0
+    best_split_luma = best_split_chroma = 0
+    interleave_chroma_dc = False
+
+    sn = 0
+    while sn < num_scans:
+        scan = L.scan_al(sn, script[sn], best_al_luma, best_al_chroma)
+        sizes[sn] = get_size(sn, scan)
+        used_scans[sn] = scan
+        nxt = sn + 1
+        if 1 < nxt <= luma_split_start:
+            if (nxt - 1) % 3 == 2:
+                al = (nxt - 1) // 3
+                cost = sizes[nxt - 2] + sizes[nxt - 1] \
+                    + sum(sizes[3 + 3 * i] for i in range(al))
+                if al == 0 or cost < best_cost:
+                    best_cost = cost
+                    best_al_luma = al
+                else:
+                    sn = luma_split_start - 1    # next: the split start
+        elif luma_split_start < nxt <= num_scans_luma:
+            if nxt == luma_split_start + 1:
+                best_split_luma = 0
+                best_cost = sizes[nxt - 1]
+            elif (nxt - luma_split_start) % 2 == 1:
+                idx = (nxt - luma_split_start) >> 1
+                cost = sizes[nxt - 2] + sizes[nxt - 1]
+                if cost < best_cost:
+                    best_cost = cost
+                    best_split_luma = idx
+                if ((idx == 2 and best_split_luma == 0)
+                        or (idx == 3 and best_split_luma != 2)
+                        or (idx == 4 and best_split_luma != 4)):
+                    sn = num_scans_luma - 1
+        elif num_scans > num_scans_luma:
+            base = num_scans_luma
+            if nxt == num_scans_luma + num_scans_chroma_dc:
+                interleave_chroma_dc = (sizes[base] <= sizes[base + 1]
+                                        + sizes[base + 2])
+            elif (num_scans_luma + num_scans_chroma_dc < nxt
+                  <= chroma_split_start):
+                base = num_scans_luma + num_scans_chroma_dc
+                if (nxt - base) % 6 == 4:
+                    al = (nxt - base) // 6
+                    cost = (sizes[nxt - 4] + sizes[nxt - 3]
+                            + sizes[nxt - 2] + sizes[nxt - 1]
+                            + sum(sizes[base + 4 + 6 * i]
+                                  + sizes[base + 5 + 6 * i]
+                                  for i in range(al)))
+                    if al == 0 or cost < best_cost:
+                        best_cost = cost
+                        best_al_chroma = al
+                    else:
+                        sn = chroma_split_start - 1
+            elif chroma_split_start < nxt <= num_scans:
+                if nxt == chroma_split_start + 2:
+                    best_split_chroma = 0
+                    best_cost = sizes[nxt - 2] + sizes[nxt - 1]
+                elif (nxt - chroma_split_start) % 4 == 2:
+                    idx = (nxt - chroma_split_start) >> 2
+                    cost = (sizes[nxt - 4] + sizes[nxt - 3]
+                            + sizes[nxt - 2] + sizes[nxt - 1])
+                    if cost < best_cost:
+                        best_cost = cost
+                        best_split_chroma = idx
+                    if ((idx == 2 and best_split_chroma == 0)
+                            or (idx == 3 and best_split_chroma != 2)
+                            or (idx == 4 and best_split_chroma != 4)):
+                        sn = num_scans - 1
+        sn += 1
+
+    r = SearchResult()
+    r.sizes = sizes
+    r.used_scans = used_scans
+    r.best_Al_luma = best_al_luma
+    r.best_Al_chroma = best_al_chroma
+    r.best_split_luma = best_split_luma
+    r.best_split_chroma = best_split_chroma
+    r.interleave_chroma_dc = interleave_chroma_dc
+    return r
+
+
+def display_order(layout: SearchLayout, r: SearchResult,
+                  dc_scan_opt_mode: int) -> List[int]:
+    """The winners' stitching order (copy_buffer, jcmaster.c:898-961)."""
+    L = layout
+    ncomps = L.ncomps
+    min_al = min(r.best_Al_luma, r.best_Al_chroma)
+    cbase = L.num_scans_luma + L.num_scans_chroma_dc
+    order: List[int] = [0]
+    if ncomps == 3 and dc_scan_opt_mode != 0:
+        base = L.num_scans_luma
+        if r.interleave_chroma_dc and dc_scan_opt_mode != 1:
+            order.append(base)
+        else:
+            order += [base + 1, base + 2]
+    if r.best_split_luma == 0:
+        order.append(L.luma_split_start)
+    else:
+        order += [L.luma_split_start + 2 * (r.best_split_luma - 1) + 1,
+                  L.luma_split_start + 2 * (r.best_split_luma - 1) + 2]
+    for al in range(r.best_Al_luma - 1, min_al - 1, -1):
+        order.append(3 + 3 * al)
+    if ncomps == 3:
+        if r.best_split_chroma == 0:
+            order += [L.chroma_split_start, L.chroma_split_start + 1]
+        else:
+            b = L.chroma_split_start + 4 * (r.best_split_chroma - 1)
+            order += [b + 2, b + 3, b + 4, b + 5]
+        for al in range(r.best_Al_chroma - 1, min_al - 1, -1):
+            order += [cbase + 6 * al + 4, cbase + 6 * al + 5]
+    for al in range(min_al - 1, -1, -1):
+        order.append(3 + 3 * al)
+        if ncomps == 3:
+            order += [cbase + 6 * al + 4, cbase + 6 * al + 5]
+    return order
+
+
+def encode_optimize_scans_arith(width: int, height: int, geom, planes,
+                                qtables, cfg, ncomps: int,
+                                extra_markers=None) -> bytes:
+    """The scan search with the arithmetic coder -> the whole JPEG. Each
+    candidate's buffer is kept as encoded, with a DRI where the restart
+    interval changes along the trial order (jcmaster.c:672-683,
+    jcmarker.c:778-780), and the winners are stitched verbatim."""
+    script = scans.search_progression(ncomps, cfg.dc_scan_opt_mode)
+    dc_tbls = {ci: (0 if ci == 0 else 1) for ci in range(ncomps)}
+    ac_tbls = dict(dc_tbls)
+    layout = SearchLayout(ncomps)
+    fh = marker.MarkerWriter()
+    _frame_header(fh, marker.SOF10, width, height, geom, qtables, cfg,
+                  ncomps)
+    frame_header = fh.bytes()
+    bufs: Dict[int, bytes] = {}
+    dri = [0]
+
+    def get_size(sn, scan):
+        r = scan_restart_interval(cfg, scan, geom)
+        bufs[sn] = _scan_buffer_arith(scan, geom, planes, dc_tbls, ac_tbls,
+                                      r, frame_header if sn == 0 else None,
+                                      emit_dri=r != dri[0])
+        dri[0] = r
+        return len(bufs[sn]) - (len(frame_header) if sn == 0 else 0)
+
+    res = _run_selection(layout, script, get_size)
+    w = marker.MarkerWriter()
+    _file_header(w, cfg, extra_markers)
+    for idx in display_order(layout, res, cfg.dc_scan_opt_mode):
+        w.raw(bufs[idx])
     w.eoi()
     return w.bytes()

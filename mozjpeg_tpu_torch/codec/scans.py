@@ -5,7 +5,7 @@ default script, libjpeg-turbo's 10-scan legacy script, the one-scan
 sequential script, and the jpegrescan search candidate list (64 scans
 YCbCr / 23 gray, mozjpeg jcparam.c:655-978). The native scan search
 builds the candidate list itself; the port reads it for the per-candidate
-restart intervals.
+restart intervals, and the arithmetic scan search runs it.
 """
 from __future__ import annotations
 

@@ -1,8 +1,12 @@
 """Tests that need the card: the AC trellis kernel against its plain
 version (ragged tiles, N = 1, all-zero, dense and rate-less inputs, three
-bands), the port's encode on the GPU against its CPU path, and its decode
-(decode, decode_many in RGB and YUV, a truncated progressive stream) on
-the GPU against its CPU path. They skip
+bands), the port's encode on the GPU against its CPU path (the batched
+families, and the per-image routes: arithmetic coding with and without
+the trellis, trellis_q_opt, other quant slots; serial encode() against
+the CPU's host engine), the arithmetic row trellis on the GPU against
+the CPU on a tie-heavy row, and its decode (decode, decode_many in RGB
+and YUV, a truncated progressive stream) on the GPU against its CPU
+path. They skip
 without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -105,7 +109,14 @@ def test_config_on_the_card_equals_cpu(cuda, channels, kw):
     """The configuration families of the batched encode surface: the
     card's bytes equal the CPU path's (which the CPU tests hold equal to
     the JAX package's)."""
-    rng = np.random.default_rng(6)
+    imgs = _images(channels)
+    cfg = mjt.EncoderConfig(quality=75, **kw)
+    assert (mjt.encode_many(imgs, cfg)
+            == mjt.encode_many(imgs, cfg, device="cpu"))
+
+
+def _images(channels=3, seed=6):
+    rng = np.random.default_rng(seed)
     imgs = []
     for h, w in ((64, 96), (64, 96), (45, 77)):
         base = rng.normal(128, 60, (h, w, 3))
@@ -114,9 +125,68 @@ def test_config_on_the_card_equals_cpu(cuda, channels, kw):
             base = np.concatenate([base, base[..., :1]], -1)
         img = np.clip(base, 0, 255).astype(np.uint8)
         imgs.append(img[..., 0].copy() if channels == 1 else img)
+    return imgs
+
+
+@pytest.mark.parametrize("channels,kw", [
+    (3, dict(arithmetic=True)),
+    (3, dict(arithmetic=True, restart_in_rows=1, colorspace="rgb")),
+    (1, dict(arithmetic=True, trellis_quant=False)),
+    (4, dict(arithmetic=True, progressive=False, restart_interval=2,
+             trellis_quant=False)),
+    (3, dict(trellis_q_opt=True, trellis_num_loops=2)),
+    (3, dict(qslots=(1, 0, 1), trellis_q_opt=True, optimize_scans=False)),
+], ids=["arith", "arith-rgb-rows1", "arith-notrellis-gray",
+        "arith-seq-rst2-cmyk", "qopt-loops2", "qslots-qopt"])
+def test_per_image_config_on_the_card_equals_cpu(cuda, channels, kw):
+    """The configurations the batched route does not carry run the
+    per-image route on the card (the arithmetic row trellis in PyTorch,
+    the AC kernel for q_opt and other slots); on the CPU the host engine
+    serves the YCbCr ones, as in the JAX package. Same bytes."""
+    imgs = _images(channels)
     cfg = mjt.EncoderConfig(quality=75, **kw)
     assert (mjt.encode_many(imgs, cfg)
             == mjt.encode_many(imgs, cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(arithmetic=True),
+                                dict(trellis_q_opt=True)],
+                         ids=["default", "arith", "qopt"])
+def test_serial_encode_on_the_card_equals_host_engine(cuda, kw):
+    for img in _images():
+        assert (mjt.encode(img, quality=75, **kw)
+                == mjt.encode(img, quality=75, device="cpu", **kw))
+
+
+def test_arith_rows_on_the_card_equal_cpu(cuda):
+    """A tie-heavy row (q = 1, raw on multiples of 8, lambda 1/64: equal
+    costs are common) with trained rates: the card's first-minimum
+    choices are the CPU's."""
+    from mozjpeg_tpu_torch.codec import encoder as tenc
+    rng = np.random.default_rng(12)
+    n = 192
+    raw = (rng.integers(-6, 7, (64, n)) * 8).astype(np.int32)
+    raw[rng.random(raw.shape) < 0.6] = 0
+    q = raw // 8
+    lam = np.full(n, 1 / 64, np.float32)
+    qz = np.ones(64, np.int32)
+    with tenc.ArithTrainer(tenc.EncoderConfig().resolved(), 0) as coder:
+        for _ in range(3):
+            blk = np.zeros((40, 64), np.int16)
+            blk[:, :12] = rng.integers(-6, 7, (40, 12))
+            coder.train(blk)
+        dc_rates, ac_rates = (r.copy() for r in coder.rates())
+    args = [raw, q.astype(np.int16), qz, lam]
+    for band in ((1, 63), (1, 8)):
+        out = [ttr.arith_ac_row(*(torch.as_tensor(a, device=d)
+                                  for a in args), ac_rates, *band)
+               for d in (cuda, "cpu")]
+        assert torch.equal(out[0].cpu(), out[1])
+    dcs = [ttr.arith_dc_imcu_row(
+        torch.as_tensor(raw[0].reshape(2, -1), device=d), 1, dc_rates, 9,
+        torch.as_tensor(lam.reshape(2, -1), device=d))
+        for d in (cuda, "cpu")]
+    assert torch.equal(dcs[0].cpu(), dcs[1])
 
 
 @pytest.fixture(scope="module")

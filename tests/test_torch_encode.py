@@ -96,10 +96,10 @@ def test_shared_config_and_tables_match(kw):
 
 
 @pytest.mark.parametrize("kw,image", [
-    (dict(arithmetic=True), None),
+    (dict(device_entropy=True), None),
     (dict(precision=12), None),
-    (dict(trellis_q_opt=True), None),
-    (dict(qslots=(0, 0, 0)), None),
+    (dict(sparse_download=True), None),
+    (dict(plane_pack=True), None),
     (dict(device_scanopt=True), None),
     (dict(coef_transport=True), np.zeros((16, 16), np.uint8)),
 ])

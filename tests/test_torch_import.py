@@ -62,6 +62,7 @@ def test_no_module_imports_jax_or_the_jax_package():
 _IMG = np.zeros((16, 16, 3), np.uint8)
 _CFG = mjt.EncoderConfig(quality=75)
 _ENTRIES = {
+    "encode": lambda jpeg, device: mjt.encode(_IMG, _CFG, device=device),
     "encode_many": lambda jpeg, device: mjt.encode_many(
         [_IMG], _CFG, device=device),
     "decode": lambda jpeg, device: mjt.decode(jpeg, device=device),
@@ -79,7 +80,8 @@ def jpeg():
     pytest.param("encode_many", None, id="None"),
     pytest.param("encode_many", "cuda", id="cuda"),
     *(pytest.param(e, d, id="%s-%s" % (e, d))
-      for e in ("decode", "decode_many") for d in (None, "cuda"))])
+      for e in ("encode", "decode", "decode_many")
+      for d in (None, "cuda"))])
 def test_gpu_entry_raises_without_cuda(monkeypatch, jpeg, entry, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
