@@ -63,7 +63,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (torch.profiler); and the row
      trellis on the card exactly against the CPU on a real iMCU row and
      a tie-heavy one;
-  9. the script's time, the kernels line, then {"ok": true, "device":
+  9. decode of the port's own streams on the card: the default 768x512
+     and 1021x683 JPEGs of phase 4, phase 8's arithmetic ones (with and
+     without the trellis) and phase 7's RGB, CMYK and YCCK ones; decode
+     and decode_many (RGB and YUV) equal the CPU path and reach 25 dB
+     PSNR against their RGB or CMYK sources; the ifast and float IDCTs on
+     the default JPEGs and the float IDCT on a corrupt one, and both on
+     int16 extremes with 16-bit tables, equal the CPU; decode_grayscale,
+     decode_cropped at an unaligned x and every BufferedImage pass of a
+     progressive JPEG equal the CPU; decode_many's median MP/s over 3
+     reps of eight 768x512 arithmetic and CMYK JPEGs beside eight Huffman
+     YCbCr ones, in turns; the device time and kernels of one float-IDCT
+     and one YCCK render (torch.profiler);
+ 10. the script's time, the kernels line, then {"ok": true, "device":
      ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
@@ -380,15 +392,17 @@ def family_config(kw):
 
 
 def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
-                   compare, t_phase, one_image=()):
+                   compare, t_phase, one_image=(), kept=None):
     """Each family on the card: SOI/EOI and the same bytes twice on one
     768x512 and one 1021x683 corpus image (only the first for the
     families in one_image), the card's bytes equal to the CPU path's on a
     256x192 and a 131x97 crop; the kernel against its plain version on a
     group's launches for the recorded families; encode_many MP/s of the
     corpus for the timed ones, with the kernel's launches counted from 0
-    just before their 3 reps. -> (MP/s per timed family, (ctx, record)
-    per recorded family, largest kernel-vs-plain error)."""
+    just before their 3 reps. With `kept` (dict), kept[name] gets each
+    family's (input images, JPEGs) of the full-size check. -> (MP/s per
+    timed family, (ctx, record) per recorded family, largest
+    kernel-vs-plain error)."""
     import torch
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import encoder
@@ -408,6 +422,8 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
             raise SystemExit("%s: output without SOI/EOI" % name)
         if again != outs:
             raise SystemExit("%s: outputs differ between runs" % name)
+        if kept is not None:
+            kept[name] = (big, outs)
         crops = [big[0][100:292, 200:456], big[-1][301:398, 17:148]]
         same = mjt.encode_many(crops, cfg) == mjt.encode_many(
             crops, cfg, device="cpu")
@@ -457,8 +473,9 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
     return rates, recs, max_err
 
 
-def config_matrix(kodak, odd, dev, default_mps, compare):
-    """Phase 7; returns the largest kernel-vs-plain error it saw."""
+def config_matrix(kodak, odd, dev, default_mps, compare, kept):
+    """Phase 7; returns the largest kernel-vs-plain error it saw, and
+    keeps each family's full-size images and JPEGs in `kept`."""
     import torch
     from mozjpeg_tpu_torch.codec import encoder, pipeline_t, trellis
     from mozjpeg_tpu_torch.ops import dct, dering, layout
@@ -466,7 +483,7 @@ def config_matrix(kodak, odd, dev, default_mps, compare):
     t_phase = time.perf_counter()
     rates, recs, max_err = check_families(
         FAMILIES, RECORDED, TIMED, kodak, odd, dev, default_mps, compare,
-        t_phase)
+        t_phase, kept=kept)
 
     slowest = sorted(rates, key=lambda k: statistics.median(rates[k]))[:3]
     for name in slowest:
@@ -537,8 +554,9 @@ def config_matrix(kodak, odd, dev, default_mps, compare):
     return max_err
 
 
-def per_image_routes(kodak, odd, dev, default_mps, compare):
-    """Phase 8; returns the largest kernel-vs-plain error it saw."""
+def per_image_routes(kodak, odd, dev, default_mps, compare, kept):
+    """Phase 8; returns the largest kernel-vs-plain error it saw, and
+    keeps each family's full-size images and JPEGs in `kept`."""
     import torch
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch import consts
@@ -578,7 +596,7 @@ def per_image_routes(kodak, odd, dev, default_mps, compare):
 
     rates, _, max_err = check_families(
         ROUTE_FAMILIES, ROUTE_RECORDED, ROUTE_TIMED, kodak, odd, dev,
-        default_mps, compare, t_phase, ROUTE_ONE_IMAGE)
+        default_mps, compare, t_phase, ROUTE_ONE_IMAGE, kept)
 
     # the arithmetic trellis of one 768x512 image, its stages synchronised
     acfg = family_config(dict(arithmetic=True))
@@ -662,6 +680,150 @@ def per_image_routes(kodak, odd, dev, default_mps, compare):
                              "differs from the CPU")
     log("per-image routes: %.1f s" % (time.perf_counter() - t_phase))
     return max_err
+
+
+def flip_scan_bytes(data):
+    """The stream with bytes inside each scan's entropy-coded data
+    flipped (a corrupt stream; markers and headers left alone)."""
+    from mozjpeg_tpu_torch.codec import marker
+    b = bytearray(data)
+    for scan in marker.parse(data).scans:
+        for f in (0.3, 0.5, 0.7):
+            i = scan.data_start + int(f * (scan.data_end - scan.data_start))
+            if b[i] not in (0xFF, 0x00) and b[i - 1] != 0xFF:
+                b[i] ^= 0x5A
+    return bytes(b)
+
+
+def decode_port_streams(kodak, huffman8, kept, dev):
+    """Phase 9: the port's decode of its own streams on the card against
+    its CPU path, exactly, and their PSNR against the sources; the
+    decode_many rates of arithmetic and CMYK streams beside Huffman
+    YCbCr ones; the device time of a float-IDCT and a YCCK render."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import decoder, marker
+    from mozjpeg_tpu_torch.ops import dct
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+    tac.trellis_ac.launches = 0
+
+    def check(label, card, cpu):
+        ok = same(card, cpu)
+        log("decode of the port's streams card vs cpu [%s]: equal=%s"
+            % (label, ok))
+        if not ok:
+            raise SystemExit("decode on the card differs from the CPU path "
+                             "(%s)" % label)
+
+    streams, by = [], {}    # (label, source as decoded, JPEG)
+    for name in ("default", "arithmetic", "arithmetic-notrellis", "rgb",
+                 "cmyk", "ycck"):
+        imgs, jpegs = kept[name]
+        by[name] = [("%s %dx%d" % (name, im.shape[1], im.shape[0]), im, d)
+                    for im, d in zip(imgs, jpegs)]
+        streams += by[name]
+    datas = [d for _, _, d in streams]
+    cards = [mjt.decode(d) for d in datas]
+    for (label, im, data), card in zip(streams, cards):
+        check("decode " + label, card, mjt.decode(data, device="cpu"))
+        ps = psnr(card, im)
+        log("decode PSNR [%s] vs its %s source: %.2f dB"
+            % (label, "CMYK" if im.shape[-1] == 4 else "RGB", ps))
+        if card.shape != im.shape or ps < 25.0:
+            raise SystemExit("decoded image far from its source (%s)"
+                             % label)
+    check("decode_many of all %d" % len(datas), mjt.decode_many(datas),
+          mjt.decode_many(datas, device="cpu"))
+    check("decode_many yuv of all %d" % len(datas),
+          mjt.decode_many(datas, output="yuv"),
+          mjt.decode_many(datas, output="yuv", device="cpu"))
+    for label, _, data in by["default"]:
+        for method in ("ifast", "float"):
+            check("decode %s %s" % (method, label),
+                  mjt.decode(data, dct_method=method),
+                  mjt.decode(data, dct_method=method, device="cpu"))
+    corrupt = flip_scan_bytes(datas[0])
+    check("decode float, corrupt " + streams[0][0],
+          mjt.decode(corrupt, dct_method="float"),
+          mjt.decode(corrupt, dct_method="float", device="cpu"))
+    rng = np.random.default_rng(13)
+    coef = rng.integers(-32768, 32768, (4, 96, 8, 8)).astype(np.int16)
+    coef.reshape(-1)[:4] = [-32768, 32767, -32768, 32767]
+    q = rng.integers(1, 65536, (4, 8, 8))
+    for name, fn, mult in (("ifast", dct.idct_ifast, dct.ifast_multipliers),
+                           ("float", dct.idct_float, dct.float_multipliers)):
+        tbl = np.stack([mult(t) for t in q])[:, None]
+        check("idct_%s on int16 extremes with 16-bit tables" % name,
+              fn(torch.as_tensor(coef, device=dev),
+                 torch.as_tensor(tbl, device=dev)).cpu().numpy(),
+              fn(torch.as_tensor(coef), torch.as_tensor(tbl)).numpy())
+    for label, _, data in (by["default"][0], by["arithmetic"][0],
+                           by["rgb"][1]):
+        check("decode_grayscale " + label, mjt.decode_grayscale(data),
+              mjt.decode_grayscale(data, device="cpu"))
+    for label, im, data in (by["default"][1], by["cmyk"][0],
+                            by["ycck"][1]):
+        w = im.shape[1] // 2 + 1
+        card = mjt.decode_cropped(data, 37, w)
+        cpu = mjt.decode_cropped(data, 37, w, device="cpu")
+        check("decode_cropped x=37 w=%d (aligned x %d, w %d) %s"
+              % (w, card[1], card[2], label), card[0], cpu[0])
+        if card[1:] != cpu[1:]:
+            raise SystemExit("decode_cropped alignment differs")
+    label, _, data = by["default"][0]
+    bi_card, bi_cpu = mjt.BufferedImage(data), \
+        mjt.BufferedImage(data, device="cpu")
+    check("BufferedImage, all %d passes, %s" % (bi_card.num_scans, label),
+          list(bi_card), list(bi_cpu))
+    log("decode of the port's streams: checks %.1f s, trellis_ac "
+        "launches=%d (decode reaches no hand kernel)"
+        % (time.perf_counter() - t_phase, tac.trellis_ac.launches))
+    if tac.trellis_ac.launches:
+        raise SystemExit("decode launched the trellis kernel")
+
+    # decode_many rates: Huffman YCbCr, arithmetic and CMYK lists of the
+    # same eight 768x512 photos, 3 reps each, in turns
+    lists = {
+        "huffman ycbcr": huffman8,
+        "arithmetic": mjt.encode_many(kodak[:8], family_config(dict(
+            arithmetic=True, trellis_quant=False))),
+        "cmyk": mjt.encode_many(family_images(kodak[:8], 4, 300),
+                                family_config({})),
+    }
+    mp = sum(im.shape[0] * im.shape[1] for im in kodak[:8]) / 1e6
+    walls = {k: [] for k in lists}
+    for k, ds in lists.items():
+        mjt.decode_many(ds)                       # warm-up
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for k, ds in lists.items():
+            t0 = time.perf_counter()
+            mjt.decode_many(ds)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    for k in lists:
+        rates = [mp / w for w in walls[k]]
+        log("decode_many MP/s [8x768x512 %s]: median %.3f (reps %s)"
+            % (k, statistics.median(rates),
+               ", ".join("%.3f" % v for v in rates)))
+
+    # one render on the card: the float IDCT of a default stream, and a
+    # YCCK stream
+    for label, data, method in (("float IDCT, default 768x512",
+                                 datas[0], "float"),
+                                ("YCCK 768x512", by["ycck"][0][2],
+                                 "islow")):
+        jp = marker.parse(data)
+        planes = decoder._entropy(jp, data)
+        dev_ms, nk, wall_ms = profiled(lambda: decoder._render_t(
+            jp, planes, None, True, method, True, dev))
+        log("decode render [%s]: %.4f ms of device kernels "
+            "(torch.profiler, %d kernels incl. uploads), %.3f ms "
+            "synchronised wall under the profiler" % (label, dev_ms, nk,
+                                                      wall_ms))
+    log("decode of the port's streams: %.1f s"
+        % (time.perf_counter() - t_phase))
 
 
 def main():
@@ -867,14 +1029,21 @@ def main():
            d_by, 100 * d_bound / d_ms))
 
     # ---- 7. the config matrix ----
+    kept = {}
     max_err = max(max_err, config_matrix(kodak, odd, dev, statistics.median(
-        mps), compare))
+        mps), compare, kept))
 
     # ---- 8. the per-image routes ----
     max_err = max(max_err, per_image_routes(kodak, odd, dev,
-                                            statistics.median(mps), compare))
+                                            statistics.median(mps), compare,
+                                            kept))
 
-    # ---- 9. result lines ----
+    # ---- 9. decode of the port's own streams ----
+    kept["default"] = ([images[0], images[len(kodak)]],
+                       [outs[0], outs[len(kodak)]])
+    decode_port_streams(kodak, outs[:8], kept, dev)
+
+    # ---- 10. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,

@@ -13,8 +13,10 @@ into the port's own library.
     pixels = mjt.decode_many(jpegs)
 """
 from .codec.config import DCTMethod, EncoderConfig, Profile
-from .codec.decoder import decode, decode_many
+from .codec.decoder import (BufferedImage, decode, decode_cropped,
+                            decode_grayscale, decode_many)
 from .codec.encoder import encode, encode_many
 
-__all__ = ["DCTMethod", "EncoderConfig", "Profile", "decode", "decode_many",
+__all__ = ["BufferedImage", "DCTMethod", "EncoderConfig", "Profile",
+           "decode", "decode_cropped", "decode_grayscale", "decode_many",
            "encode", "encode_many"]

@@ -1,16 +1,21 @@
-"""Arithmetic-coded scans: the encode half.
+"""Arithmetic-coded scans, encode and decode.
 
-Port of the encode half of mozjpeg_tpu/codec/arith.py: Python glue over
-the native QM coder (mozjpeg_tpu/native/arith.cpp, built into the port's
-library). The conditioning is mozjpeg's default, L = 0 and U = 1 for DC
-and Kx = 5 for AC (jcparam.c:414-419), written in every scan's DAC
-marker. Decoding arithmetic streams is ROADMAP.md queue 1 item 6.9.
+Port of mozjpeg_tpu/codec/arith.py: Python glue over the native QM coder
+(mozjpeg_tpu/native/arith.cpp, built into the port's library). The
+encoder's conditioning is mozjpeg's default, L = 0 and U = 1 for DC and
+Kx = 5 for AC (jcparam.c:414-419), written in every scan's DAC marker;
+the decoder takes each scan's conditioning from the DAC segments seen
+before it (the same defaults where none was sent, jdarith.c).
 """
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 
 from .. import native
+from . import marker
+from .pipeline import geometry
 
 DC_L = np.zeros(4, np.uint8)
 DC_U = np.ones(4, np.uint8)
@@ -102,3 +107,82 @@ def encode_scan_arith(scan, geom, planes, dc_tbls, ac_tbls,
     if n < 0:
         raise RuntimeError("arithmetic encode: output buffer overflow")
     return bytes(out[:n])
+
+
+def _scan_cond(cond):
+    """A scan's conditioning arrays (L, U, Kx per table) from its DAC
+    snapshot {(cls, idx): value}, with the defaults where nothing was
+    sent; out-of-range values raise ValueError as jdarith.c's
+    JERR_DAC_VALUE does."""
+    dl, du, ak = DC_L.copy(), DC_U.copy(), AC_K.copy()
+    for (tc, th), v in cond.items():
+        if tc == 0:
+            dl[th], du[th] = v & 15, v >> 4
+            if du[th] < dl[th] or du[th] > 15:
+                raise ValueError("bogus DAC DC conditioning 0x%02X" % v)
+        else:
+            ak[th] = v
+            if not 1 <= v <= 63:
+                raise ValueError("bogus DAC AC conditioning %d" % v)
+    return dl, du, ak
+
+
+def decode_coefficients_arith(jp: marker.ParsedJpeg,
+                              data: bytes) -> List[np.ndarray]:
+    """Entropy-decode an arithmetic-coded stream's scans -> per component
+    (bh_pad, bw_pad, 64) int16 zigzag planes (MCU-padded dims). Sets
+    jp.coef_bits / jp.coef_bits_prev (the progression status that block
+    smoothing reads, jdarith.c:663-680) and jp.last_good_imcu_row, which
+    is always the last iMCU row: the arithmetic decoder reads past the
+    end of the data as zeros (jdarith.c:136-141), so every scan it starts
+    completes."""
+    marker.validate_decodable(jp)
+    lib = native.lib()
+    mcus_x, mcus_y, comps = geometry(
+        jp.width, jp.height, [(c.h, c.v) for c in jp.components])
+    planes = [np.zeros((g.bh_pad, g.bw_pad, 64), np.int16) for g in comps]
+    buf = np.frombuffer(data, np.uint8)
+    ncomps = len(jp.components)
+    cb_cur = np.full((ncomps, 64), -1, dtype=np.int32)
+    cb_prev = np.full((ncomps, 64), -1, dtype=np.int32)
+    for si, scan in enumerate(jp.scans):
+        if jp.progressive:
+            for ci in scan.comp_indices:
+                lo, hi = min(scan.Ss, 1), max(scan.Se, 9)
+                cb_prev[ci, lo:hi + 1] = (cb_cur[ci, lo:hi + 1]
+                                          if si > 0 else 0)
+                cb_cur[ci, scan.Ss:scan.Se + 1] = scan.Al
+        seg = np.ascontiguousarray(buf[scan.data_start:scan.data_end])
+        ln = scan.data_end - scan.data_start
+        restart = jp.scan_restart[si]
+        ns = len(scan.comp_indices)
+        interleaved = ns > 1
+        # the planes are contiguous int16, so the structs point into them
+        arr, _ = _planes_arr(scan.comp_indices, planes, comps, scan.dc_tbls,
+                             scan.ac_tbls, interleaved)
+        smx, smy = (mcus_x, mcus_y) if interleaved else (arr[0].bw,
+                                                         arr[0].bh)
+        dl, du, ak = _scan_cond(jp.scan_arith_cond[si])
+        if not jp.progressive:
+            r = lib.mj_arith_decode_seq(_u8(seg), ln, arr, ns, smx, smy,
+                                        restart, _u8(dl), _u8(du), _u8(ak))
+        elif scan.Ss == 0 and scan.Ah == 0:
+            r = lib.mj_arith_decode_dc_first(_u8(seg), ln, arr, ns, smx,
+                                             smy, restart, scan.Al, _u8(dl),
+                                             _u8(du))
+        elif scan.Ss == 0:
+            r = lib.mj_arith_decode_dc_refine(_u8(seg), ln, arr, ns, smx,
+                                              smy, restart, scan.Al)
+        elif scan.Ah == 0:
+            r = lib.mj_arith_decode_ac_first(_u8(seg), ln, arr, scan.Ss,
+                                             scan.Se, scan.Al, restart,
+                                             _u8(ak))
+        else:
+            r = lib.mj_arith_decode_ac_refine(_u8(seg), ln, arr, scan.Ss,
+                                              scan.Se, scan.Al, restart)
+        if r < 0:
+            raise ValueError("corrupt arithmetic scan %d" % si)
+    jp.coef_bits = cb_cur if jp.progressive else None
+    jp.coef_bits_prev = cb_prev if jp.progressive else None
+    jp.last_good_imcu_row = mcus_y - 1
+    return planes

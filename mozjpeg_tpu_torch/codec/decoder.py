@@ -1,33 +1,39 @@
-"""Decode: marker parse -> native Huffman decode on the host -> dequant +
-islow IDCT, fancy upsampling and YCbCr -> RGB on a device.
+"""Decode: marker parse -> native entropy decode on the host -> dequant +
+IDCT, upsampling and colour conversion on a device.
 
-Port of mozjpeg_tpu/codec/decoder.py, pixel-identical to
-mozjpeg_tpu.decode and mozjpeg_tpu.decode_many (whose outputs are pinned
-to djpeg). The host half is the shared C++ entropy decoder (entropy.cpp,
-through the port's own library); the pixel half is PyTorch on the device
-the caller names:
+Port of mozjpeg_tpu/codec/decoder.py, pixel-identical to the JAX
+package's decode entry points (whose outputs are pinned to djpeg). The
+host half is the shared C++ entropy decoders (entropy.cpp for Huffman,
+arith.cpp for arithmetic coding through codec/arith.py, in the port's own
+library); the pixel half is PyTorch on the device the caller names:
 
   decode       parse, entropy decode, then `render` (the device branch of
                the JAX package's render: block smoothing on the host,
-               then each plane and the colour conversion on the device);
+               then every component's IDCT (islow, ifast or float), the
+               upsampling and the colour conversion on the device: YCbCr
+               -> RGB, YCCK -> CMYK, and the null conversion of RGB and
+               CMYK streams);
   decode_many  the JAX package's route for a locally attached device
                (merged_local): every stream is parsed, entropy-decoded on
-               a thread pool, and the images of one geometry are rendered
-               together, GROUP at a time (render_ycc_batch: upload the
-               int16 zigzag planes and per-image quant tables, render,
-               download uint8 RGB). Images with active block smoothing or
-               Cb/Cr planes that differ in geometry or quant table go
-               through `render` one at a time. output="yuv" returns the
-               per-component sample planes (decode_raw_planes_parsed).
+               a thread pool, and the YCbCr or gray images of one
+               geometry are rendered together, GROUP at a time
+               (render_ycc_batch: upload the int16 zigzag planes and
+               per-image quant tables, render, download uint8 RGB). Other
+               colour spaces, images with active block smoothing and Cb/Cr
+               planes that differ in geometry or quant table go through
+               `render` one at a time. output="yuv" returns the
+               per-component sample planes (decode_raw_planes_parsed);
+  decode_grayscale, decode_cropped, BufferedImage
+               djpeg -grayscale, jpeg_crop_scanline and the buffered-image
+               passes, on the same parts.
 
-The slice is Huffman-coded 8-bit sequential and progressive streams,
-YCbCr with three components or grayscale, any sampling, with restart
-intervals, truncated and corrupt streams, fancy or replicating
-upsampling and block smoothing. Other streams and options raise
-NotImplementedError naming the ROADMAP.md item that brings them, as do
-the JAX package's other decode entry points (decode_grayscale,
-decode_scaled, decode_cropped, BufferedImage); none falls back to the CPU
-or to another route.
+The slice is 8-bit Huffman or arithmetic-coded, sequential and
+progressive streams of one to four (or more) components, gray, YCbCr,
+RGB, CMYK and YCCK, any sampling, with restart intervals, truncated and
+corrupt streams, fancy or replicating upsampling and block smoothing.
+Lossless, 12- and 16-bit streams, decode_scaled and RGB565 output raise
+NotImplementedError naming the ROADMAP.md item that brings them; nothing
+falls back to the CPU or to another route.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 from ..entropy.huffman import derive_decode_table
 from ..native import CompPlane, i32p, i64p, lib, u8p
 from ..ops import color, dct, layout, sample
-from . import marker, smooth
+from . import arith, marker, smooth
 from .encoder import _device
 from .stages import stage
 
@@ -90,9 +96,10 @@ def _comp_qtable(jp: marker.ParsedJpeg, ci: int) -> np.ndarray:
         c.quant_tbl, jp.qtables.get(c.quant_tbl))
 
 
-def decode_coefficients(jp: marker.ParsedJpeg, data: bytes):
-    """Entropy-decode all scans -> list of (bh_pad, bw_pad, 64) int16
-    zigzag planes (MCU-padded dims).
+def decode_coefficients(jp: marker.ParsedJpeg, data: bytes, planes=None):
+    """Entropy-decode all Huffman-coded scans -> list of (bh_pad, bw_pad,
+    64) int16 zigzag planes (MCU-padded dims). planes: continue into these
+    arrays (BufferedImage's incremental passes) instead of fresh zeros.
 
     Side effects on jp (read by block smoothing): jp.coef_bits /
     jp.coef_bits_prev, the progression status (jdphuff.c:126-144);
@@ -104,8 +111,9 @@ def decode_coefficients(jp: marker.ParsedJpeg, data: bytes):
     max_h, max_v = jp.max_h, jp.max_v
     mcus_x = -(-jp.width // (8 * max_h))
     mcus_y = -(-jp.height // (8 * max_v))
-    planes = [np.zeros((mcus_y * c.v, mcus_x * c.h, 64), dtype=np.int16)
-              for c in jp.components]
+    if planes is None:
+        planes = [np.zeros((mcus_y * c.v, mcus_x * c.h, 64),
+                           dtype=np.int16) for c in jp.components]
     buf = np.frombuffer(data, dtype=np.uint8)
 
     ncomps = len(jp.components)
@@ -286,23 +294,26 @@ def _jpeg_colorspace(jp: marker.ParsedJpeg) -> str:
 def _check_slice(jp: marker.ParsedJpeg):
     """Refuse what this slice does not carry, naming the ROADMAP.md item
     (queue 1) that brings it; malformed streams raise ValueError first,
-    as in the JAX package."""
+    as in the JAX package (a 2-component frame among them)."""
     if jp.lossless:
         _not_ported("lossless (SOF3) decode", "6.10")
     marker.validate_decodable(jp)
-    if jp.arithmetic:
-        _not_ported("arithmetic-coded decode", "6.9")
     if jp.precision != 8:
         _not_ported("%d-bit decode" % jp.precision, "6.2")
-    cs = _jpeg_colorspace(jp)
-    if cs not in ("ycbcr", "grayscale") or len(jp.components) > 3:
-        _not_ported("decode of %d-component %s streams"
-                    % (len(jp.components), cs.upper()), "6.1")
+    _jpeg_colorspace(jp)
+
+
+def _entropy(jp: marker.ParsedJpeg, data: bytes) -> List[np.ndarray]:
+    """The coefficient planes of a Huffman or an arithmetic-coded
+    stream."""
+    if jp.arithmetic:
+        return arith.decode_coefficients_arith(jp, data)
+    return decode_coefficients(jp, data)
 
 
 def _upsample_mode(jp, fancy=True, comp=1):
     """(mode, hexp, vexp) per jdsample.c:448-530 at full size, for the
-    given component."""
+    given component (each component upsamples on its own)."""
     c1 = jp.components[comp]
     hexp = jp.max_h // c1.h
     vexp = jp.max_v // c1.v
@@ -342,15 +353,17 @@ def _smooth_latches(jp):
     return cur, prev
 
 
-def _maybe_smooth(jp, planes, block_smoothing: bool):
-    """Per-component (bh, bw, 64) planes: int16 views of the decoded
-    planes, or int32 smoothed copies (the estimates need not fit int16)."""
+def _maybe_smooth(jp, planes, block_smoothing: bool,
+                  ncomps: Optional[int] = None):
+    """Per-component (bh, bw, 64) planes of the first `ncomps` components
+    (all by default): int16 views of the decoded planes, or int32
+    smoothed copies (the estimates need not fit int16)."""
     use = _smoothing_active(jp, block_smoothing)
     if use:
         cur, prev = _smooth_latches(jp)
         mcus_y = -(-jp.height // (8 * jp.max_v))
     out = []
-    for ci, c in enumerate(jp.components):
+    for ci, c in enumerate(jp.components[:ncomps]):
         bh, bw, _, _ = _comp_dims(jp, c)
         if use:
             out.append(smooth.smooth_component(
@@ -361,63 +374,128 @@ def _maybe_smooth(jp, planes, block_smoothing: bool):
     return out
 
 
-def render_planes(zz: torch.Tensor, qt: torch.Tensor, ch: int,
-                  cw: int) -> torch.Tensor:
+def _dct_table(jp, ci: int, dct_method: str) -> np.ndarray:
+    """Component ci's table for the IDCT: the quant table (islow), or the
+    ifast or float multipliers built from it (jddctmgr.c)."""
+    qt = _comp_qtable(jp, ci)
+    if dct_method == "ifast":
+        return dct.ifast_multipliers(qt)
+    if dct_method == "float":
+        return dct.float_multipliers(qt)
+    return qt.astype(np.int32)
+
+
+def render_planes(zz: torch.Tensor, qt: torch.Tensor, ch: int, cw: int,
+                  dct_method: str = "islow") -> torch.Tensor:
     """(B, bh, bw, 64) zigzag coefficients + (B, 8, 8) natural-order
-    quant tables -> (B, ch, cw) uint8 samples (the JAX _render_plane,
-    vmapped). Each image's table broadcasts over its blocks as
-    (B, 1, 1, 8, 8)."""
+    tables (_dct_table) -> (B, ch, cw) uint8 samples (the JAX
+    _render_plane, vmapped). Each image's table broadcasts over its
+    blocks as (B, 1, 1, 8, 8). Any dct_method but ifast and float is
+    islow, as there."""
     blocks = layout.from_zigzag(zz)
-    pix = dct.idct_islow(blocks, qt[:, None, None], dct.PASS1_BITS, 8)
+    qt = qt[:, None, None]
+    if dct_method == "ifast":
+        pix = dct.idct_ifast(blocks, qt)
+    elif dct_method == "float":
+        pix = dct.idct_float(blocks, qt)
+    else:
+        pix = dct.idct_islow(blocks, qt, dct.PASS1_BITS, 8)
     return layout.unblockify(pix)[:, :ch, :cw]
+
+
+def _up(pl, mode: str, hexp: int, vexp: int):
+    if mode == "h2v2":
+        return sample.upsample_h2v2_fancy(pl)
+    if mode == "h2v1":
+        return sample.upsample_h2v1_fancy(pl)
+    if mode == "h1v2":
+        return sample.upsample_h1v2_fancy(pl)
+    if mode == "int":
+        # replicate (jdsample.c int_upsample); also the -nosmooth box filter
+        return sample.upsample_replicate(pl, hexp, vexp)
+    return pl
 
 
 def upsample_color(y, cb, cr, mode: str, height: int, width: int,
                    hexp: int = 1, vexp: int = 1) -> torch.Tensor:
     """(..., H, W) uint8 Y, Cb, Cr sample planes -> (..., height, width,
     3) uint8 RGB (the JAX _upsample_color)."""
-    def up(pl):
-        if mode == "h2v2":
-            return sample.upsample_h2v2_fancy(pl)
-        if mode == "h2v1":
-            return sample.upsample_h2v1_fancy(pl)
-        if mode == "h1v2":
-            return sample.upsample_h1v2_fancy(pl)
-        if mode == "int":
-            # replicate (jdsample.c int_upsample); also the -nosmooth box
-            # filter
-            return sample.upsample_replicate(pl, hexp, vexp)
-        return pl
-
     ycc = torch.stack([y[..., :height, :width],
-                       up(cb)[..., :height, :width],
-                       up(cr)[..., :height, :width]], dim=-1)
+                       _up(cb, mode, hexp, vexp)[..., :height, :width],
+                       _up(cr, mode, hexp, vexp)[..., :height, :width]],
+                      dim=-1)
     return color.ycc_to_rgb(ycc)
+
+
+def upsample_ycck(y, cb, cr, k, mode: str, height: int, width: int,
+                  hexp: int = 1, vexp: int = 1, kmode: str = "none",
+                  khexp: int = 1, kvexp: int = 1) -> torch.Tensor:
+    """(H, W) uint8 Y, Cb, Cr, K sample planes -> (height, width, 4) uint8
+    CMYK (the JAX _upsample_ycck); K upsamples on its own mode."""
+    ycck = torch.stack([y[..., :height, :width],
+                        _up(cb, mode, hexp, vexp)[..., :height, :width],
+                        _up(cr, mode, hexp, vexp)[..., :height, :width],
+                        _up(k, kmode, khexp, kvexp)[..., :height, :width]],
+                       dim=-1)
+    return color.ycck_to_cmyk(ycck)
 
 
 def _to_device(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def render(jp: marker.ParsedJpeg, planes: List[np.ndarray],
-           fancy_upsample: bool = True, block_smoothing: bool = True,
-           device=None) -> np.ndarray:
-    """Coefficient planes -> RGB (H, W, 3) or gray (H, W) uint8 on
-    `device` (the device branch of the JAX package's render)."""
-    dev = _device(device)
-    smoothed = _maybe_smooth(jp, planes, block_smoothing)
-    gray = _jpeg_colorspace(jp) == "grayscale"
-    samples = []
-    for ci in range(1 if gray else 3):
-        _, _, ch, cw = _comp_dims(jp, jp.components[ci])
-        qt = _comp_qtable(jp, ci).astype(np.int32)
-        samples.append(render_planes(_to_device(smoothed[ci][None], dev),
-                                     _to_device(qt[None], dev), ch, cw)[0])
-    if gray:
-        return samples[0][:jp.height, :jp.width].cpu().numpy()
+def _render_comp(jp, plane, ci: int, dct_method: str, dev) -> torch.Tensor:
+    """One component's (bh, bw, 64) coefficients -> its (ch, cw) uint8
+    samples on dev."""
+    _, _, ch, cw = _comp_dims(jp, jp.components[ci])
+    return render_planes(_to_device(plane[None], dev),
+                         _to_device(_dct_table(jp, ci, dct_method)[None],
+                                    dev), ch, cw, dct_method)[0]
+
+
+def _convert(jp, samples, cs: str, fancy_upsample: bool,
+             width: int) -> torch.Tensor:
+    """Per-component sample planes -> pixels `width` wide (the image's,
+    or a crop's): gray (H, W), RGB (H, W, 3), or CMYK (H, W, 4); RGB and
+    CMYK are the null conversion of the stored components."""
+    h = jp.height
+    if cs == "grayscale":
+        return samples[0][:h, :width]
+    if cs in ("rgb", "cmyk"):
+        out = [p[:h, :width] for p in samples]
+        if any(o.shape != out[0].shape for o in out):
+            # the JAX package stacks the planes unupsampled (np.stack)
+            raise ValueError("all input arrays must have the same shape")
+        return torch.stack(out, dim=-1)
     mode, hexp, vexp = _upsample_mode(jp, fancy_upsample)
-    return upsample_color(*samples, mode, jp.height, jp.width, hexp,
-                          vexp).cpu().numpy()
+    if cs == "ycck":
+        y, cb, cr, k = samples
+        kmode, khexp, kvexp = _upsample_mode(jp, fancy_upsample, comp=3)
+        return upsample_ycck(y, cb, cr, k, mode, h, width, hexp, vexp,
+                             kmode, khexp, kvexp)
+    return upsample_color(*samples[:3], mode, h, width, hexp, vexp)
+
+
+def _render_t(jp, planes, colorspace, fancy_upsample, dct_method,
+              block_smoothing, dev) -> torch.Tensor:
+    smoothed = _maybe_smooth(jp, planes, block_smoothing)
+    samples = [_render_comp(jp, smoothed[ci], ci, dct_method, dev)
+               for ci in range(len(jp.components))]
+    return _convert(jp, samples, colorspace or _jpeg_colorspace(jp),
+                    fancy_upsample, jp.width)
+
+
+def render(jp: marker.ParsedJpeg, planes: List[np.ndarray],
+           colorspace: Optional[str] = None, fancy_upsample: bool = True,
+           dct_method: str = "islow", block_smoothing: bool = True,
+           device=None) -> np.ndarray:
+    """Coefficient planes -> pixels on `device`: RGB (H, W, 3), gray
+    (H, W), or CMYK (H, W, 4) for 4-component streams (the device branch
+    of the JAX package's render: block smoothing on the host, then every
+    component's IDCT, the upsampling and the colour conversion on the
+    device)."""
+    return _render_t(jp, planes, colorspace, fancy_upsample, dct_method,
+                     block_smoothing, _device(device)).cpu().numpy()
 
 
 def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
@@ -444,28 +522,47 @@ def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
 
 
 def decode(data: bytes, fancy_upsample: bool = True,
-           block_smoothing: bool = True, device=None,
-           dct_method: str = "islow") -> np.ndarray:
-    """Decode a JPEG byte stream to RGB (H, W, 3) or grayscale (H, W)
-    uint8, pixel-identical to mozjpeg_tpu.decode. device: None or "cuda"
-    (the default, the GPU; raises without one) or "cpu".
+           dct_method: str = "islow", block_smoothing: bool = True,
+           device=None) -> np.ndarray:
+    """Decode a JPEG byte stream to RGB (H, W, 3), grayscale (H, W) or
+    CMYK (H, W, 4) uint8, pixel-identical to mozjpeg_tpu.decode, whose
+    positional order it keeps. device: None or "cuda" (the default, the
+    GPU; raises without one) or "cpu".
 
     fancy_upsample=False is djpeg -nosmooth's replicating upsample (pass
-    block_smoothing=False too for all of -nosmooth). Truncated progressive
+    block_smoothing=False too for all of -nosmooth); dct_method "ifast"
+    and "float" are djpeg -dct fast and -dct float. Truncated progressive
     streams render like djpeg: missing data leaves coefficients at their
     last decoded state and block smoothing estimates the rest."""
     dev = _device(device)
-    if dct_method != "islow":
-        _not_ported("the %s IDCT" % dct_method, "6.3")
     jp = marker.parse(data)
     _check_slice(jp)
-    planes = decode_coefficients(jp, data)
-    return render(jp, planes, fancy_upsample, block_smoothing, dev)
+    planes = _entropy(jp, data)
+    return render(jp, planes, None, fancy_upsample, dct_method,
+                  block_smoothing, dev)
 
 
-def decode_grayscale(data: bytes, *args, **kwargs):
-    """Gray output of a colour stream (mozjpeg_tpu decode_grayscale)."""
-    _not_ported("grayscale output of colour streams", "6.4")
+def decode_grayscale(data: bytes, fancy_upsample: bool = True,
+                     block_smoothing: bool = True,
+                     device=None) -> np.ndarray:
+    """djpeg -grayscale (mozjpeg_tpu decode_grayscale): YCbCr and gray
+    sources render component 0 alone (jdcolor.c's null conversion; the
+    chroma is not even transformed), RGB sources take the fixed-point Y
+    of rgb_gray_convert; other colour spaces raise ValueError."""
+    dev = _device(device)
+    jp = marker.parse(data)
+    _check_slice(jp)
+    planes = _entropy(jp, data)
+    cs = _jpeg_colorspace(jp)
+    if cs == "rgb":
+        return color.rgb_to_gray(_render_t(
+            jp, planes, None, fancy_upsample, "islow", block_smoothing,
+            dev)).cpu().numpy()
+    if cs not in ("grayscale", "ycbcr"):
+        raise ValueError("cannot convert %s to grayscale" % cs)
+    y = _maybe_smooth(jp, planes, block_smoothing, 1)[0]
+    return _render_comp(jp, y, 0, "islow", dev)[:jp.height, :jp.width] \
+        .cpu().numpy()
 
 
 def decode_scaled(data: bytes, num: int, den: int, *args, **kwargs):
@@ -473,17 +570,131 @@ def decode_scaled(data: bytes, num: int, den: int, *args, **kwargs):
     _not_ported("scaled decode", "6.5")
 
 
-def decode_cropped(data: bytes, x: int, w: int, *args, **kwargs):
-    """Cropped decode (mozjpeg_tpu decode_cropped)."""
-    _not_ported("cropped decode", "6.6")
+def decode_cropped(data: bytes, x: int, w: int, fancy_upsample: bool = True,
+                   block_smoothing: bool = True,
+                   colorspace: Optional[str] = None, device=None):
+    """Partial-width decode (mozjpeg_tpu decode_cropped, jpeg_crop_scanline
+    jdapistd.c:186-300) -> (pixels, aligned_x, aligned_w). x aligns down
+    to an iMCU column, the width grows left to make up for it, and the
+    upsampling runs over the region with the image-edge semantics at both
+    of its borders; callers slice rows themselves."""
+    dev = _device(device)
+    jp = marker.parse(data)
+    _check_slice(jp)
+    planes = _entropy(jp, data)
+    ncomps = len(jp.components)
+    align = 8 if ncomps == 1 else 8 * jp.max_h
+    if w == 0 or x + w > jp.width:
+        raise ValueError("bad crop width")
+    if w == jp.width:
+        return render(jp, planes, colorspace, fancy_upsample, "islow",
+                      block_smoothing, dev), 0, jp.width
+    ax = (x // align) * align
+    w2 = w + x - ax
+    smoothed = _maybe_smooth(jp, planes, block_smoothing)
+    slices = []
+    for ci, c in enumerate(jp.components):
+        hsf = 1 if ncomps == 1 else c.h
+        start = ax * hsf // align * 8
+        dw = -(-w2 * c.h // jp.max_h) if ncomps > 1 else w2
+        slices.append(_render_comp(jp, smoothed[ci], ci, "islow",
+                                   dev)[:, start:start + dw])
+    pix = _convert(jp, slices, colorspace or _jpeg_colorspace(jp),
+                   fancy_upsample, w2)
+    return pix.cpu().numpy(), ax, w2
+
+
+def _truncated(data: bytes, nscans: int) -> marker.ParsedJpeg:
+    """The stream parsed with its scans after the first nscans dropped."""
+    jp = marker.parse(data)
+    for attr in ("scans", "scan_htables", "scan_restart", "scan_qtables",
+                 "scan_arith_cond"):
+        setattr(jp, attr, getattr(jp, attr)[:nscans])
+    return jp
 
 
 class BufferedImage:
-    """Buffered-image decode, one render per scan (mozjpeg_tpu
-    BufferedImage)."""
+    """Buffered-image decode (mozjpeg_tpu BufferedImage,
+    jpeg_start_output / jpeg_finish_output): the image as of each
+    completed input scan. Pass k shows the coefficients after scans 1..k,
+    with block smoothing estimating the ones not yet received, as a
+    progressive viewer does. device: None or "cuda" (the default, the
+    GPU; raises without one) or "cpu"."""
 
-    def __init__(self, data: bytes, *args, **kwargs):
-        _not_ported("buffered-image decode", "6.8")
+    def __init__(self, data: bytes, fancy_upsample: bool = True,
+                 block_smoothing: bool = True, dct_method: str = "islow",
+                 device=None):
+        self._dev = _device(device)
+        self._data = data
+        self._jp = marker.parse(data)
+        _check_slice(self._jp)
+        self._fancy = fancy_upsample
+        self._smooth = block_smoothing
+        self._dct = dct_method
+
+    @property
+    def num_scans(self) -> int:
+        return len(self._jp.scans)
+
+    @property
+    def progressive(self) -> bool:
+        return self._jp.progressive
+
+    def _render(self, jp, planes) -> np.ndarray:
+        return render(jp, planes, None, self._fancy, self._dct,
+                      self._smooth, self._dev)
+
+    def render_pass(self, nscans: int) -> np.ndarray:
+        """The image after the first nscans scans (1-based), entropy-
+        decoded afresh."""
+        if not 1 <= nscans <= len(self._jp.scans):
+            raise ValueError("pass out of range")
+        jp = _truncated(self._data, nscans)
+        return self._render(jp, _entropy(jp, self._data))
+
+    def __iter__(self):
+        """Every pass in order. Each scan is entropy-decoded once into
+        persistent coefficient planes (the jpeg_consume_input model);
+        arithmetic streams decode scans 1..k afresh for each pass, as in
+        the JAX package (its adaptive coder state is not kept between
+        scans)."""
+        jp0 = marker.parse(self._data)
+        n = len(jp0.scans)
+        if jp0.arithmetic:
+            for k in range(1, n + 1):
+                yield self.render_pass(k)
+            return
+        planes = None
+        ncomps = len(jp0.components)
+        cb_cur = np.full((ncomps, 64), -1, dtype=np.int32)
+        cb_prev = np.full((ncomps, 64), -1, dtype=np.int32)
+        warnings = 0
+        for k in range(1, n + 1):
+            jpk = marker.parse(self._data)
+            one = slice(k - 1, k)
+            jpk.scans, jpk.scan_htables, jpk.scan_restart, \
+                jpk.scan_qtables = (jp0.scans[one], jp0.scan_htables[one],
+                                    jp0.scan_restart[one],
+                                    jp0.scan_qtables[one])
+            planes = decode_coefficients(jpk, self._data, planes=planes)
+            warnings += jpk.warnings
+            if jp0.progressive:
+                # the progression status over scans 1..k
+                # (jdphuff.c:126-144)
+                scan = jp0.scans[k - 1]
+                for ci in scan.comp_indices:
+                    lo, hi = min(scan.Ss, 1), max(scan.Se, 9)
+                    cb_prev[ci, lo:hi + 1] = (cb_cur[ci, lo:hi + 1]
+                                              if k > 1 else 0)
+                    cb_cur[ci, scan.Ss:scan.Se + 1] = scan.Al
+            jpk.scans, jpk.scan_htables, jpk.scan_restart, \
+                jpk.scan_qtables = (jp0.scans[:k], jp0.scan_htables[:k],
+                                    jp0.scan_restart[:k],
+                                    jp0.scan_qtables[:k])
+            jpk.coef_bits = cb_cur if jp0.progressive else None
+            jpk.coef_bits_prev = cb_prev if jp0.progressive else None
+            jpk.warnings = warnings
+            yield self._render(jpk, planes)
 
 
 class GroupKey(NamedTuple):
@@ -500,12 +711,15 @@ class GroupKey(NamedTuple):
 
 def group_key(jp, planes, fancy_upsample: bool = True,
               block_smoothing: bool = True) -> Optional[GroupKey]:
-    """The batch an image joins, or None for the per-image render: active
-    block smoothing, or Cb/Cr planes that differ in geometry or quant
-    table (decoder.py:1595-1629)."""
-    if _smoothing_active(jp, block_smoothing):
+    """The batch an image joins, or None for the per-image render: a
+    colour space other than YCbCr and gray, active block smoothing, or
+    Cb/Cr planes that differ in geometry or quant table
+    (decoder.py:1595-1629)."""
+    cs = _jpeg_colorspace(jp)
+    if cs not in ("ycbcr", "grayscale") or _smoothing_active(
+            jp, block_smoothing):
         return None
-    gray = _jpeg_colorspace(jp) == "grayscale"
+    gray = cs == "grayscale"
     mode, hexp, vexp = ((None, 1, 1) if gray
                         else _upsample_mode(jp, fancy_upsample))
     dims = [_comp_dims(jp, c) for c in jp.components[:1 if gray else 3]]
@@ -569,11 +783,13 @@ def decode_many(datas, fancy_upsample: bool = True,
                 block_smoothing: bool = True, output: str = "rgb",
                 device=None) -> List:
     """Decode a list of JPEGs, pixel-identical to mozjpeg_tpu.decode_many.
-    The host entropy decode runs on a thread pool; as soon as GROUP
-    images of one geometry are ready they render in one batch on the
-    device while the pool goes on. output="rgb" gives (H, W, 3) or gray
-    (H, W) uint8 per image; output="yuv" the per-component sample planes
-    at jpeg_read_raw_data dims. device: None or "cuda" (the default, the
+    The host entropy decode (Huffman or arithmetic) runs on a thread
+    pool; as soon as GROUP YCbCr or gray images of one geometry are ready
+    they render in one batch on the device while the pool goes on; the
+    others (RGB, CMYK, YCCK, active block smoothing) render one at a time
+    on the device. output="rgb" gives (H, W, 3), gray (H, W) or CMYK
+    (H, W, 4) uint8 per image; output="yuv" the per-component sample
+    planes at jpeg_read_raw_data dims. device: None or "cuda" (the default, the
     GPU; raises without one) or "cpu"."""
     if output not in ("rgb", "yuv", "rgb565"):
         raise ValueError("output must be rgb, yuv or rgb565")
@@ -587,8 +803,7 @@ def decode_many(datas, fancy_upsample: bool = True,
     planes_list: List = [None] * len(datas)
     nthreads = min(8, max(2, os.cpu_count() or 4))
     with ThreadPoolExecutor(max_workers=nthreads) as pool:
-        futs = [pool.submit(decode_coefficients, jp, d)
-                for jp, d in zip(jps, datas)]
+        futs = [pool.submit(_entropy, jp, d) for jp, d in zip(jps, datas)]
         pending: dict = {}
         for i, f in enumerate(futs):
             planes_list[i] = f.result()
@@ -599,8 +814,9 @@ def decode_many(datas, fancy_upsample: bool = True,
             key = group_key(jps[i], planes_list[i], fancy_upsample,
                             block_smoothing)
             if key is None:
-                out[i] = render(jps[i], planes_list[i], fancy_upsample,
-                                block_smoothing, dev)
+                out[i] = render(jps[i], planes_list[i], None,
+                                fancy_upsample, "islow", block_smoothing,
+                                dev)
                 continue
             pending.setdefault(key, []).append(i)
             if len(pending[key]) == GROUP:

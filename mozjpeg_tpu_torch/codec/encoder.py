@@ -35,6 +35,7 @@ NotImplementedError naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional
@@ -148,9 +149,33 @@ def _check_slice(image, cfg):
         no("the device entropy and scan-search engines", "7")
     if cfg.sparse_download or cfg.plane_pack or cfg.coef_transport:
         no("the transfer codecs", "8")
+
+
+def _over_batch_limit(image) -> bool:
+    """Whether the image is larger than the batched route takes
+    (MJ_BATCH_MAX_MP megapixels, the JAX package's knob and default)."""
     max_mp = float(os.environ.get("MJ_BATCH_MAX_MP", "48.0"))
-    if image.shape[0] * image.shape[1] > max_mp * 1e6:
-        no("images over MJ_BATCH_MAX_MP megapixels (row sharding)", "9")
+    return image.shape[0] * image.shape[1] > max_mp * 1e6
+
+
+def _check_rows(image, config, overrides, dev):
+    """Refuse what the JAX package row-shards across devices
+    (_route_rows): an RGB image over the batch limit, in the rows profile
+    (the default with restart_in_rows), with two or more devices. On one
+    device such images take the per-image route instead."""
+    cfg = config if config is not None else EncoderConfig()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    rr = cfg.restart_in_rows
+    if (dev.type == "cuda" and torch.cuda.device_count() > 1
+            and image.ndim == 3 and rr
+            and isinstance(cfg.quality, (int, float))
+            and cfg == EncoderConfig(quality=cfg.quality,
+                                     restart_in_rows=rr)):
+        raise NotImplementedError(
+            "mozjpeg_tpu_torch: row sharding of images over "
+            "MJ_BATCH_MAX_MP megapixels across several GPUs is not ported "
+            "yet (ROADMAP.md queue 1 item 9)")
 
 
 def _device(device) -> torch.device:
@@ -234,14 +259,20 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
     for idxs in by_shape.values():
         img0 = np.asarray(images[idxs[0]])
         ctx = resolve_group(img0, config, **overrides)
-        if dev.type == "cpu" and not batchable(ctx) and \
+        # images over the batch limit take the JAX package's slow_idx
+        # route: the host engine on the CPU where it serves, else one at
+        # a time through the per-image route
+        big = _over_batch_limit(img0)
+        if big:
+            _check_rows(img0, config, overrides, dev)
+        if dev.type == "cpu" and (big or not batchable(ctx)) and \
                 _host_engine_serves(ctx):
             host += [(i, ctx) for i in idxs]
             continue
         mp = img0.shape[0] * img0.shape[1] / 1e6
-        ge = max(1, min(GROUP, int(BUDGET_MP / max(mp, 1e-6))))
+        ge = 1 if big else max(1, min(GROUP, int(BUDGET_MP / max(mp, 1e-6))))
         for k in range(0, len(idxs), ge):
-            chunks.append((idxs[k:k + ge], ctx))
+            chunks.append((idxs[k:k + ge], ctx, big or not batchable(ctx)))
     if host:
         # each call threads its own stages over the host's cores
         with ThreadPoolExecutor(max_workers=2) as pool:
@@ -252,9 +283,10 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
     nthreads = max(2, (os.cpu_count() or 4) - 1)
     with ThreadPoolExecutor(max_workers=nthreads) as pool:
         pending = []
-        for idxs, ctx in chunks:
+        for idxs, ctx, per_image in chunks:
             imgs = [np.asarray(images[i]) for i in idxs]
-            pending.append((idxs, encode_group(imgs, ctx, dev, pool)))
+            pending.append((idxs, encode_group(imgs, ctx, dev, pool,
+                                               per_image=per_image)))
         for idxs, futs in pending:
             for i, f in zip(idxs, futs):
                 out[i] = f.result()
@@ -262,10 +294,11 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
 
 
 def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
-                 record=None):
+                 record=None, per_image: Optional[bool] = None):
     """One same-shape group -> per image futures of the JPEG bytes.
-    A configuration that does not batch (see batchable) runs the JAX
-    package's per-image route on the whole group: its trellis regathers
+    A configuration that does not batch (see batchable), or per_image=True
+    (an image over the batch limit), runs the JAX package's per-image
+    route on the whole group: its trellis regathers
     the statistics of later loops with the restart segmentation, the
     arithmetic trellis runs image by image and block row by block row
     (arith_trellis), and trellis_q_opt refits each image's own tables
@@ -280,7 +313,8 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
         finals = arith_trellis(p1, ctx, b, times)
     else:
         finals = _batch_rest(images, p1, ctx, dev, times, record,
-                             loop_ris=not batchable(ctx))
+                             loop_ris=(not batchable(ctx)
+                                       if per_image is None else per_image))
     qtables = None
     if cfg.trellis_quant and cfg.trellis_q_opt:
         with stage(times, "q_opt", dev):

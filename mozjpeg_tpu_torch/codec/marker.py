@@ -185,6 +185,11 @@ class ParsedJpeg:
         dataclasses.field(default_factory=list)
     restart_interval: int = 0
     adobe_transform: Optional[int] = None
+    # DAC arithmetic conditioning (cls, idx) -> value, snapshotted per scan
+    arith_cond: Dict[Tuple[int, int], int] = \
+        dataclasses.field(default_factory=dict)
+    scan_arith_cond: List[Dict[Tuple[int, int], int]] = \
+        dataclasses.field(default_factory=list)
     # filled by decode_coefficients (progression status for block
     # smoothing of partial progressive streams, jdphuff.c:126-144)
     coef_bits: Optional[np.ndarray] = None
@@ -350,13 +355,14 @@ def _parse(data: bytes) -> ParsedJpeg:
                     cid=seg[o], h=seg[o + 1] >> 4, v=seg[o + 1] & 15,
                     quant_tbl=seg[o + 2]))
         elif m == DAC:
-            # arithmetic conditioning (jdmarker.c get_dac): only
-            # checked, since arithmetic decode is not ported
+            # arithmetic conditioning (jdmarker.c get_dac); the values are
+            # range-checked per scan by arith.decode_coefficients_arith
             i = 0
             while i + 1 < len(seg):
                 tc, th = seg[i] >> 4, seg[i] & 15
                 if tc > 1 or th > 3:
                     raise ValueError("bogus DAC index %d" % seg[i])
+                jp.arith_cond[(tc, th)] = seg[i + 1]
                 i += 2
         elif m == DRI:
             jp.restart_interval = (seg[0] << 8) | seg[1]
@@ -398,6 +404,7 @@ def _parse(data: bytes) -> ParsedJpeg:
                                        dc_tbls, ac_tbls))
             jp.scan_htables.append(dict(htables))
             jp.scan_restart.append(jp.restart_interval)
+            jp.scan_arith_cond.append(dict(jp.arith_cond))
             jp.scan_qtables.append({k: v.copy()
                                     for k, v in jp.qtables.items()})
             pos = data_end

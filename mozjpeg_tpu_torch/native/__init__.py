@@ -12,7 +12,8 @@ mj_host_arith_ac_row, mj_host_arith_dc_row) and the arithmetic coder
 (arith.cpp: the scan encoders mj_arith_encode_{seq,dc_first,dc_refine,
 ac_first,ac_refine}, and the trellis's training context mj_arith_ctx_new,
 mj_arith_ctx_free, mj_arith_ctx_restart, mj_arith_get_rates,
-mj_arith_train_rows); see build.py for the sources.
+mj_arith_train_rows, and the scan decoders mj_arith_decode_{seq,dc_first,
+dc_refine,ac_first,ac_refine}); see build.py for the sources.
 """
 from __future__ import annotations
 
@@ -166,6 +167,20 @@ def _bind(so):
     for fn in (so.mj_arith_encode_seq, so.mj_arith_encode_dc_first,
                so.mj_arith_encode_dc_refine, so.mj_arith_encode_ac_first,
                so.mj_arith_encode_ac_refine):
+        fn.restype = lng
+    so.mj_arith_decode_seq.argtypes = [u8p, lng, cpp, cint, cint, cint, cint,
+                                       u8p, u8p, u8p]
+    so.mj_arith_decode_dc_first.argtypes = [u8p, lng, cpp, cint, cint, cint,
+                                            cint, cint, u8p, u8p]
+    so.mj_arith_decode_dc_refine.argtypes = [u8p, lng, cpp, cint, cint, cint,
+                                             cint, cint]
+    so.mj_arith_decode_ac_first.argtypes = [u8p, lng, cpp, cint, cint, cint,
+                                            cint, u8p]
+    so.mj_arith_decode_ac_refine.argtypes = [u8p, lng, cpp, cint, cint, cint,
+                                             cint]
+    for fn in (so.mj_arith_decode_seq, so.mj_arith_decode_dc_first,
+               so.mj_arith_decode_dc_refine, so.mj_arith_decode_ac_first,
+               so.mj_arith_decode_ac_refine):
         fn.restype = lng
     vp = ctypes.c_void_p
     so.mj_arith_ctx_new.restype = vp

@@ -1,6 +1,7 @@
 """Exact fixed-point colour conversions, batched over whole planes.
 
-Port of mozjpeg_tpu/ops/color.py (rgb_to_ycc, cmyk_to_ycck, ycc_to_rgb):
+Port of mozjpeg_tpu/ops/color.py (rgb_to_ycc, rgb_to_gray, cmyk_to_ycck,
+ycc_to_rgb, ycck_to_cmyk):
 the table semantics of mozjpeg jccolor.c (encode) and jdcolor.c
 build_ycc_rgb_table (decode) inlined as int32 multiplies (SCALEBITS=16).
 The tables are linear in the sample value, so the inlined products give
@@ -56,6 +57,13 @@ def rgb_to_ycc(rgb: torch.Tensor) -> torch.Tensor:
     return torch.stack(_ycc(r, g, b), dim=-1).to(torch.uint8)
 
 
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (...) uint8 luma, the fixed-point Y of
+    jdcolor.c rgb_gray_convert."""
+    r, g, b = (rgb[..., i].to(torch.int32) for i in range(3))
+    return _ycc(r, g, b)[0].to(torch.uint8)
+
+
 def cmyk_to_ycck(cmyk: torch.Tensor) -> torch.Tensor:
     """(..., 4) uint8 CMYK -> (..., 4) uint8 YCCK (jccolor.c:396-437
     cmyk_ycck_convert): CMY inverts to RGB and takes the YCC transform;
@@ -81,3 +89,12 @@ def ycc_to_rgb(ycc: torch.Tensor, precision: int = 8) -> torch.Tensor:
     rgb = torch.clamp(torch.stack([r, g, b], dim=-1), 0, maxv)
     # samples wider than 8 bits stay int32 (torch has no full uint16)
     return rgb.to(torch.uint8) if precision <= 8 else rgb
+
+
+def ycck_to_cmyk(ycck: torch.Tensor) -> torch.Tensor:
+    """(..., 4) uint8 YCCK -> (..., 4) uint8 CMYK (jdcolor.c
+    ycck_cmyk_convert): YCC -> RGB, clamped, inverted back to CMY; K
+    passes through."""
+    cmy = 255 - ycc_to_rgb(ycck[..., :3]).to(torch.int32)
+    return torch.cat([cmy, ycck[..., 3:].to(torch.int32)],
+                     dim=-1).to(torch.uint8)

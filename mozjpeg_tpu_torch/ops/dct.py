@@ -2,9 +2,11 @@
 
 Port of mozjpeg_tpu/ops/dct.py: the Loeffler-Ligtenberg-Moshovitz
 fixed-point islow DCTs of mozjpeg jfdctint.c / jidctint.c (CONST_BITS=13,
-PASS1_BITS=2, 32-bit arithmetic), and the encoder's AAN ifast
-(jfdctfst.c) and float (jfdctflt.c) forward DCTs with their quantizers
-and raw rescales, as whole-tensor ops over every block at once.
+PASS1_BITS=2, 32-bit arithmetic), the encoder's AAN ifast (jfdctfst.c)
+and float (jfdctflt.c) forward DCTs with their quantizers and raw
+rescales, and the decoder's AAN ifast (jidctfst.c) and float
+(jidctflt.c) inverse DCTs with their multiplier tables, as whole-tensor
+ops over every block at once.
 
 Exactness: everything stays int32, as in the reference's `int`
 workspace. Products of extreme coefficients (corrupt streams) overflow
@@ -384,3 +386,133 @@ def idct_islow(coeffs: torch.Tensor, qtbl: torch.Tensor,
     d = [y[..., :, i] for i in range(8)]               # pass 2 over rows
     o = _idct_butterfly(d, CONST_BITS + pass1_bits + 3)
     return _range_limit(torch.stack(o, dim=-1), precision)
+
+
+# ---------------------------------------------------------------------------
+# The decoder's AAN IDCTs at 8 bits: ifast (jidctfst.c, int32 products
+# that wrap, MULTIPLY a plain >> 8) and float (jidctflt.c, every f32
+# product rounded before it feeds an add, as eager PyTorch does op by op).
+# ---------------------------------------------------------------------------
+
+_F_1_082 = 277    # FIX(1.082392200) at CONST_BITS=8
+_F_1_414 = 362
+_F_1_847 = 473
+_F_2_613 = 669
+
+
+def ifast_multipliers(qtbl) -> np.ndarray:
+    """The ifast decoder's multiplier table DESCALE(quantval * aanscale,
+    12) (jddctmgr.c) -> (8, 8) int32."""
+    q = np.asarray(qtbl).astype(np.int64).reshape(8, 8)
+    return ((q * AANSCALES.astype(np.int64) + (1 << 11)) >> 12) \
+        .astype(np.int32)
+
+
+def _idct_ifast_1d(d):
+    t10 = d[0] + d[4]
+    t11 = d[0] - d[4]
+    t13 = d[2] + d[6]
+    t12 = _mul8(d[2] - d[6], _F_1_414) - t13
+    t0 = t10 + t13
+    t3 = t10 - t13
+    t1 = t11 + t12
+    t2 = t11 - t12
+    z13 = d[5] + d[3]
+    z10 = d[5] - d[3]
+    z11 = d[1] + d[7]
+    z12 = d[1] - d[7]
+    t7 = z11 + z13
+    t11 = _mul8(z11 - z13, _F_1_414)
+    z5 = _mul8(z10 + z12, _F_1_847)
+    t10 = _mul8(z12, _F_1_082) - z5
+    t12 = _mul8(z10, -_F_2_613) + z5
+    t6 = t12 - t7
+    t5 = t11 - t6
+    t4 = t10 + t5
+    return [t0 + t7, t1 + t6, t2 + t5, t3 - t4, t3 + t4, t2 - t5,
+            t1 - t6, t0 - t7]
+
+
+def idct_ifast(coeffs: torch.Tensor, ifmtbl: torch.Tensor) -> torch.Tensor:
+    """AAN integer IDCT: (..., 8, 8) natural-order coefficients times the
+    ifast multiplier table -> (..., 8, 8) uint8 samples. The final descale
+    is a plain >> 5 (PASS1_BITS + 3, jidctfst.c IDESCALE without rounding),
+    then the wraparound range limit."""
+    x = coeffs.to(torch.int32) * ifmtbl.to(torch.int32)
+    y = torch.stack(_idct_ifast_1d([x[..., i, :] for i in range(8)]),
+                    dim=-2)                            # columns
+    o = torch.stack(_idct_ifast_1d([y[..., :, i] for i in range(8)]),
+                    dim=-1)                            # rows
+    return _range_limit(o >> 5)
+
+
+def float_multipliers(qtbl) -> np.ndarray:
+    """The float decoder's table (float)(quantval * aan_r * aan_c), in
+    double then stored as float (jddctmgr.c) -> (8, 8) float32."""
+    q = np.asarray(qtbl, dtype=np.float64).reshape(8, 8)
+    aan = np.asarray(_AAN_F, dtype=np.float64)
+    return (q * aan[:, None] * aan[None, :]).astype(np.float32)
+
+
+_C_1_414 = _f32(1.414213562)
+_C_1_847 = _f32(1.847759065)
+_C_1_082 = _f32(1.082392200)
+_C_2_613 = _f32(2.613125930)
+
+
+def _idct_float_1d(d, center=None):
+    d0 = d[0] if center is None else d[0] + center
+    t10 = d0 + d[4]
+    t11 = d0 - d[4]
+    t13 = d[2] + d[6]
+    t12 = (d[2] - d[6]) * _C_1_414 - t13
+    t0 = t10 + t13
+    t3 = t10 - t13
+    t1 = t11 + t12
+    t2 = t11 - t12
+    z13 = d[5] + d[3]
+    z10 = d[5] - d[3]
+    z11 = d[1] + d[7]
+    z12 = d[1] - d[7]
+    t7 = z11 + z13
+    t11 = (z11 - z13) * _C_1_414
+    z5 = (z10 + z12) * _C_1_847
+    t10 = z5 - z12 * _C_1_082
+    t12 = z5 - z10 * _C_2_613
+    t6 = t12 - t7
+    t5 = t11 - t6
+    t4 = t10 - t5
+    # rows 3 and 4 take t4 with the opposite sign to the ifast kernel
+    # (jidctflt.c negates tmp10/tmp12 against jidctfst.c)
+    return [t0 + t7, t1 + t6, t2 + t5, t3 + t4, t3 - t4, t2 - t5,
+            t1 - t6, t0 - t7]
+
+
+_I32_MAX_F = 2147483648.0      # 2^31, the first f32 above int32's range
+
+
+def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """C's (int) truncation, saturating out of range as XLA's conversion
+    does (the JAX program's semantics). A bare .to(int32) of an
+    out-of-range float is undefined and differs between the CPU and the
+    card; corrupt streams with large quant tables reach it."""
+    v = torch.clamp(x, -_I32_MAX_F, 2147483520.0).to(torch.int32)
+    return torch.where(x >= _I32_MAX_F, torch.full_like(v, 2 ** 31 - 1), v)
+
+
+def idct_float(coeffs: torch.Tensor, fmtbl: torch.Tensor) -> torch.Tensor:
+    """Float AAN IDCT: (..., 8, 8) natural-order coefficients dequantized
+    by fmtbl * 0.125, two f32 passes with the centre + 0.5 folded into the
+    second pass's DC, (int) truncation, then jidctflt.c's range limit
+    (sample_range_limit without the IDCT's centre offset: the identity on
+    0..255, then 255, then 0 over the wrapped index) -> (..., 8, 8)
+    uint8."""
+    qm = fmtbl.to(torch.float32) * 0.125
+    x = coeffs.to(torch.float32) * qm
+    y = torch.stack(_idct_float_1d([x[..., i, :] for i in range(8)]),
+                    dim=-2)
+    o = torch.stack(_idct_float_1d([y[..., :, i] for i in range(8)],
+                                   128.5), dim=-1)
+    idx = _f32_to_i32(o) & 1023
+    lim = torch.where(idx <= 255, idx, torch.where(idx < 640, 255, 0))
+    return lim.to(torch.uint8)

@@ -5,8 +5,10 @@ families, and the per-image routes: arithmetic coding with and without
 the trellis, trellis_q_opt, other quant slots; serial encode() against
 the CPU's host engine), the arithmetic row trellis on the GPU against
 the CPU on a tie-heavy row, and its decode (decode, decode_many in RGB
-and YUV, a truncated progressive stream) on the GPU against its CPU
-path. They skip
+and YUV, a truncated progressive stream; arithmetic, RGB, CMYK and YCCK
+streams with the islow, ifast and float IDCTs, a corrupt stream with
+16-bit quant tables, decode_grayscale, decode_cropped and BufferedImage)
+on the GPU against its CPU path. They skip
 without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 import mozjpeg_tpu_torch as mjt
+from mozjpeg_tpu_torch.codec import marker
 from mozjpeg_tpu_torch.codec import trellis as ttr
 from mozjpeg_tpu_torch.ops import trellis_ac as tac
 from test_torch_trellis_order import BANDS
@@ -220,3 +223,87 @@ def test_decode_many_on_the_card_equals_cpu(cuda, port_jpegs, output):
     datas = port_jpegs * 3               # more than one group of a shape
     assert _same(mjt.decode_many(datas, output=output),
                  mjt.decode_many(datas, output=output, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def more_jpegs():
+    """Port-encoded arithmetic (progressive, and sequential with
+    restarts), RGB, CMYK and YCCK streams, a truncated arithmetic copy,
+    and a corrupt stream with 16-bit quant tables (the float IDCT's
+    saturating conversion)."""
+    rng = np.random.default_rng(10)
+    img = np.clip(rng.normal(128, 50, (48, 64, 3)), 0, 255).astype(np.uint8)
+    k_img = np.concatenate([img, img[..., :1]], -1)
+    out = {}
+    for name, im, kw in (
+            ("arith", img, dict(arithmetic=True)),
+            ("arith_seq", img, dict(arithmetic=True, progressive=False,
+                                    restart_interval=2)),
+            ("rgb", img, dict(colorspace="rgb")),
+            ("cmyk", k_img, dict()),
+            ("ycck", k_img, dict(colorspace="ycck")),
+            ("wide", img, dict(quality=5, force_baseline=False,
+                               progressive=False))):
+        kw.setdefault("quality", 75)
+        out[name] = mjt.encode(im, mjt.EncoderConfig(**kw), device="cpu")
+    out["arith_trunc"] = out["arith"][:len(out["arith"]) * 2 // 3] \
+        + b"\xff\xd9"
+    b = bytearray(out["wide"])
+    for scan in marker.parse(out["wide"]).scans:
+        for f in (0.3, 0.5, 0.7):
+            i = scan.data_start + int(f * (scan.data_end - scan.data_start))
+            if b[i] not in (0xFF, 0x00) and b[i - 1] != 0xFF:
+                b[i] ^= 0x5A
+    out["wide_corrupt"] = bytes(b)
+    return out
+
+
+@pytest.mark.parametrize("method", ["islow", "ifast", "float"])
+def test_more_streams_decode_on_the_card_equals_cpu(cuda, more_jpegs, method):
+    for data in more_jpegs.values():
+        assert _same(mjt.decode(data, dct_method=method),
+                     mjt.decode(data, dct_method=method, device="cpu"))
+
+
+@pytest.mark.parametrize("output", ["rgb", "yuv"])
+def test_more_streams_decode_many_on_the_card_equals_cpu(cuda, more_jpegs,
+                                                   output):
+    datas = list(more_jpegs.values()) * 2
+    assert _same(mjt.decode_many(datas, output=output),
+                 mjt.decode_many(datas, output=output, device="cpu"))
+
+
+def test_more_streams_entry_points_on_the_card_equal_cpu(cuda, more_jpegs):
+    for name in ("arith", "rgb"):
+        data = more_jpegs[name]
+        assert _same(mjt.decode_grayscale(data),
+                     mjt.decode_grayscale(data, device="cpu"))
+    for name in ("arith_trunc", "ycck", "cmyk"):
+        data = more_jpegs[name]
+        card = mjt.decode_cropped(data, 5, 30)
+        cpu = mjt.decode_cropped(data, 5, 30, device="cpu")
+        assert card[1:] == cpu[1:] and _same(card[0], cpu[0])
+    data = more_jpegs["arith"]
+    assert _same(list(mjt.BufferedImage(data)),
+                 list(mjt.BufferedImage(data, device="cpu")))
+
+
+@pytest.mark.parametrize("method", ["ifast", "float"])
+def test_more_streams_idct_extremes_on_the_card_equal_cpu(cuda, method):
+    """int16 extremes with 16-bit tables: ifast's int32 products wrap and
+    float's sums leave int32's range before the saturating cast, on the
+    card as on the CPU."""
+    from mozjpeg_tpu_torch.ops import dct
+    rng = np.random.default_rng(11)
+    coef = rng.integers(-32768, 32768, (4, 50, 8, 8)).astype(np.int16)
+    coef.reshape(-1)[:4] = [-32768, 32767, -32768, 32767]
+    q = rng.integers(1, 65536, (4, 8, 8))
+    q[0] = 65535
+    mult = dct.ifast_multipliers if method == "ifast" \
+        else dct.float_multipliers
+    tbl = np.stack([mult(t) for t in q])[:, None]
+    fn = dct.idct_ifast if method == "ifast" else dct.idct_float
+    card = fn(torch.as_tensor(coef, device=cuda),
+              torch.as_tensor(tbl, device=cuda)).cpu()
+    cpu = fn(torch.as_tensor(coef), torch.as_tensor(tbl))
+    assert torch.equal(card, cpu)

@@ -2,8 +2,10 @@
 decode_coefficients (planes, progression status, warnings), decode
 (against both JAX renders: the native host one and the device one),
 decode_many on a mixed list (against the JAX default route and its
-local-attachment merged route), replicating upsampling, YUV output, and
-NotImplementedError for every stream and option outside the slice.
+local-attachment merged route), replicating upsampling, YUV output, the
+arithmetic, RGB, CMYK and YCCK streams and the other decode entry
+points against the JAX package, and NotImplementedError for every
+stream and option outside the slice.
 
 The streams come from the JAX package's host encoder (mozjpeg_tpu.encode),
 which needs no device compile."""
@@ -244,9 +246,31 @@ def _with_sof(data: bytes, code=None, precision=None, extra_comp=False,
     return out
 
 
+def _same_result(port, jax):
+    """The port's call gives the JAX package's output, or raises the same
+    ValueError (the same message) where it raises one."""
+    try:
+        want = jax()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            port()
+        assert str(got.value) == str(e)
+        return
+    _equal_outputs(port(), want)
+
+
+PORTED = ("arithmetic", "rgb", "cmyk", "ycck")
+
+
 @pytest.mark.parametrize("case", ["arithmetic", "lossless", "12-bit",
                                   "16-bit", "rgb", "cmyk", "ycck"])
 def test_out_of_slice_streams_raise(streams, case):
+    """Lossless, 12-bit and 16-bit streams raise NotImplementedError
+    naming their ROADMAP.md item. The arithmetic, RGB, CMYK and YCCK
+    streams, now ported, equal the JAX package instead: the RGB
+    and CMYK streams here carry subsampled chroma, which the JAX
+    package's null conversion refuses with a ValueError, and so does the
+    port; their YUV output and the YCCK stream decode."""
     base = streams["q75_420_64x48"]
     data = {
         "arithmetic": lambda: _enc(_photo(16, 16, 8), arithmetic=True),
@@ -260,25 +284,39 @@ def test_out_of_slice_streams_raise(streams, case):
     want_cs = {"rgb": "rgb", "cmyk": "cmyk", "ycck": "ycck"}.get(case)
     if want_cs:
         assert jdec._jpeg_colorspace(jmarker.parse(data)) == want_cs
-    for call in (lambda: mjt.decode(data, device="cpu"),
-                 lambda: mjt.decode_many([base, data], device="cpu"),
-                 lambda: mjt.decode_many([data], output="yuv",
-                                         device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    for port, jax in (
+            (lambda: mjt.decode(data, device="cpu"),
+             lambda: mj.decode(data)),
+            (lambda: mjt.decode_many([base, data], device="cpu"),
+             lambda: mj.decode_many([base, data])),
+            (lambda: mjt.decode_many([data], output="yuv", device="cpu"),
+             lambda: mj.decode_many([data], output="yuv"))):
+        if case in PORTED:
+            _same_result(port, jax)
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                port()
 
 
 def test_out_of_slice_options_raise(streams):
+    """decode_scaled and RGB565 output still raise NotImplementedError
+    naming their ROADMAP.md items; the ifast IDCT, decode_grayscale,
+    decode_cropped and BufferedImage, now ported, equal the JAX package
+    on the same stream."""
     data = streams["q75_420_64x48"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mjt.decode(data, device="cpu", dct_method="ifast")
+    _equal_outputs(mjt.decode(data, device="cpu", dct_method="ifast"),
+                   mj.decode(data, dct_method="ifast"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mjt.decode_many([data], output="rgb565", device="cpu")
     with pytest.raises(ValueError):
         mjt.decode_many([data], output="bgr", device="cpu")
-    for call in (lambda: tdec.decode_grayscale(data),
-                 lambda: tdec.decode_scaled(data, 1, 2),
-                 lambda: tdec.decode_cropped(data, 0, 16),
-                 lambda: tdec.BufferedImage(data)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdec.decode_scaled(data, 1, 2)
+    _equal_outputs(tdec.decode_grayscale(data, device="cpu"),
+                   jdec.decode_grayscale(data))
+    got, want = (tdec.decode_cropped(data, 0, 16, device="cpu"),
+                 jdec.decode_cropped(data, 0, 16))
+    assert got[1:] == want[1:]
+    _equal_outputs(got[0], want[0])
+    _equal_outputs(list(tdec.BufferedImage(data, device="cpu")),
+                   list(jdec.BufferedImage(data)))

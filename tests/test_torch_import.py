@@ -42,6 +42,12 @@ def _py_files():
 
 
 def test_no_module_imports_jax_or_the_jax_package():
+    scanned = {os.path.relpath(p, REPO) for p in _py_files()}
+    # the modules each slice brought are among those scanned
+    for rel in ("codec/arith.py", "codec/decoder.py", "codec/encoder.py",
+                "codec/marker.py", "native/__init__.py", "ops/color.py",
+                "ops/dct.py", "ops/trellis_ac.py"):
+        assert os.path.join("mozjpeg_tpu_torch", rel) in scanned
     bad = []
     for path in _py_files():
         rel = os.path.relpath(path, REPO)
@@ -68,6 +74,12 @@ _ENTRIES = {
     "decode": lambda jpeg, device: mjt.decode(jpeg, device=device),
     "decode_many": lambda jpeg, device: mjt.decode_many([jpeg],
                                                         device=device),
+    "decode_grayscale": lambda jpeg, device: mjt.decode_grayscale(
+        jpeg, device=device),
+    "decode_cropped": lambda jpeg, device: mjt.decode_cropped(
+        jpeg, 0, 8, device=device),
+    "BufferedImage": lambda jpeg, device: mjt.BufferedImage(
+        jpeg, device=device),
 }
 
 
@@ -80,7 +92,8 @@ def jpeg():
     pytest.param("encode_many", None, id="None"),
     pytest.param("encode_many", "cuda", id="cuda"),
     *(pytest.param(e, d, id="%s-%s" % (e, d))
-      for e in ("encode", "decode", "decode_many")
+      for e in ("encode", "decode", "decode_many", "decode_grayscale",
+                "decode_cropped", "BufferedImage")
       for d in (None, "cuda"))])
 def test_gpu_entry_raises_without_cuda(monkeypatch, jpeg, entry, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
