@@ -75,7 +75,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      reps of eight 768x512 arithmetic and CMYK JPEGs beside eight Huffman
      YCbCr ones, in turns; the device time and kernels of one float-IDCT
      and one YCCK render (torch.profiler);
- 10. the script's time, the kernels line, then {"ok": true, "device":
+ 10. the djpeg surface on the card (the default 768x512 and 1021x683
+     JPEGs, phase 8's arithmetic one and phase 7's RGB, CMYK and YCCK
+     ones): decode_scaled at every M/8, M = 1..16, equal to the CPU path
+     and at 8/8 to decode; decode_rgb565 with and without the dither and
+     decode_many(output="rgb565") equal to the CPU; the port's djpeg,
+     in-process, with six flag sets (-scale 1/2 -bmp, -scale 13/8,
+     -rgb565 -bmp, -colors 256 -gif, -onepass -dither ordered -colors 27
+     -targa, -grayscale -os2) and jpegyuv writing the CPU path's bytes;
+     no trellis_ac launch over those checks; the median MP/s (of output
+     and of input) of decode_scaled at 1/8, 1/2 and 2/1 beside decode on
+     eight 768x512 photos, one at a time, 3 reps in turns; the device
+     time and kernels of one 1/2 and one 16/8 render (torch.profiler);
+ 11. the script's time, the kernels line, then {"ok": true, "device":
      ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
@@ -826,6 +838,144 @@ def decode_port_streams(kodak, huffman8, kept, dev):
         % (time.perf_counter() - t_phase))
 
 
+# phase 10: djpeg flag sets run in-process on the card and on the CPU
+DJPEG_FLAGS = (["-scale", "1/2", "-bmp"], ["-scale", "13/8"],
+               ["-rgb565", "-bmp"], ["-colors", "256", "-gif"],
+               ["-onepass", "-dither", "ordered", "-colors", "27",
+                "-targa"], ["-grayscale", "-os2"])
+
+
+def djpeg_surface(kept, huffman8, dev):
+    """Phase 10: the djpeg surface on the card against the CPU path,
+    exactly: decode_scaled at every M/8 (and decode at 8/8), RGB565 with
+    and without the dither and through decode_many, the port's djpeg and
+    jpegyuv in-process; then decode_scaled's MP/s beside decode's on the
+    same eight photos, in turns, and the device time of two scaled
+    renders. Launches no hand kernel."""
+    import tempfile
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.cli import djpeg, jpegyuv
+    from mozjpeg_tpu_torch.codec import decoder, marker
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+    tac.trellis_ac.launches = 0
+
+    def check(label, card, cpu):
+        ok = same(card, cpu)
+        log("djpeg surface card vs cpu [%s]: equal=%s" % (label, ok))
+        if not ok:
+            raise SystemExit("the card differs from the CPU path (%s)"
+                             % label)
+
+    streams = []       # (label, JPEG)
+    for name, idx in (("default", 0), ("default", 1), ("arithmetic", 0),
+                      ("rgb", 0), ("cmyk", 0), ("ycck", 1)):
+        im, data = kept[name][0][idx], kept[name][1][idx]
+        streams.append(("%s %dx%d" % (name, im.shape[1], im.shape[0]), data))
+    for label, data in streams:
+        bad = [m for m in range(1, 17)
+               if not same(mjt.decode_scaled(data, m, 8),
+                           mjt.decode_scaled(data, m, 8, device="cpu"))]
+        log("djpeg surface card vs cpu [decode_scaled M/8, M = 1..16, %s]: "
+            "equal=%s%s" % (label, not bad, " (differ at M %s)" % bad
+                            if bad else ""))
+        if bad:
+            raise SystemExit("decode_scaled on the card differs from the "
+                             "CPU path (%s)" % label)
+        check("decode_scaled 8/8 vs decode, " + label,
+              mjt.decode_scaled(data, 8, 8), mjt.decode(data))
+    label, data = streams[0]
+    check("decode_scaled 3/8 without fancy upsampling, " + label,
+          mjt.decode_scaled(data, 3, 8, False),
+          mjt.decode_scaled(data, 3, 8, False, device="cpu"))
+    for label, data in streams[:3]:
+        for dither in (True, False):
+            check("decode_rgb565 dither=%s, %s" % (dither, label),
+                  mjt.decode_rgb565(data, dither=dither),
+                  mjt.decode_rgb565(data, dither=dither, device="cpu"))
+    datas = [d for _, d in streams[:3]]
+    check("decode_many rgb565 of %d" % len(datas),
+          mjt.decode_many(datas, output="rgb565"),
+          mjt.decode_many(datas, output="rgb565", device="cpu"))
+
+    label, data = streams[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.jpg")
+        with open(src, "wb") as f:
+            f.write(data)
+        for flags in DJPEG_FLAGS:
+            outs = []
+            for device in (None, "cpu"):
+                out = os.path.join(tmp, "out")
+                rc = djpeg.main(flags + ["-outfile", out, src], device=device)
+                with open(out, "rb") as f:
+                    outs.append((rc, f.read()))
+                os.remove(out)
+            ok = outs[0] == outs[1] and outs[0][0] == 0
+            log("djpeg surface card vs cpu [djpeg %s, %s]: exit %d, %d "
+                "bytes, equal=%s" % (" ".join(flags), label, outs[0][0],
+                                     len(outs[0][1]), ok))
+            if not ok:
+                raise SystemExit("djpeg on the card differs from the CPU "
+                                 "path (%s)" % " ".join(flags))
+        yuvs = []
+        for device in (None, "cpu"):
+            out = os.path.join(tmp, "out.yuv")
+            rc = jpegyuv.main([src, out], device=device)
+            with open(out, "rb") as f:
+                yuvs.append((rc, f.read()))
+        ok = yuvs[0] == yuvs[1] and yuvs[0][0] == 0
+        log("djpeg surface card vs cpu [jpegyuv, %s]: %d bytes, equal=%s"
+            % (label, len(yuvs[0][1]), ok))
+        if not ok:
+            raise SystemExit("jpegyuv on the card differs from the CPU path")
+    log("djpeg surface: checks %.1f s, trellis_ac launches=%d (decode "
+        "reaches no hand kernel)"
+        % (time.perf_counter() - t_phase, tac.trellis_ac.launches))
+    if tac.trellis_ac.launches:
+        raise SystemExit("the djpeg surface launched the trellis kernel")
+
+    # MP/s of output and of input: decode_scaled at 1/8, 1/2 and 2/1
+    # beside decode, one photo after another, 3 reps in turns
+    variants = {"decode": lambda d: mjt.decode(d)}
+    for m in (1, 4, 16):
+        variants["decode_scaled %d/8" % m] = \
+            lambda d, m=m: mjt.decode_scaled(d, m, 8)
+    in_mp = sum(jp.width * jp.height
+                for jp in map(marker.parse, huffman8)) / 1e6
+    out_mp = {k: sum(int(np.prod(fn(d).shape[:2])) for d in huffman8) / 1e6
+              for k, fn in variants.items()}              # and warm-up
+    torch.cuda.synchronize()
+    walls = {k: [] for k in variants}
+    for _ in range(3):
+        for k, fn in variants.items():
+            t0 = time.perf_counter()
+            for d in huffman8:
+                fn(d)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    for k in variants:
+        w = statistics.median(walls[k])
+        log("djpeg surface MP/s [%s, 8x768x512 huffman ycbcr, one at a "
+            "time]: median %.3f of output, %.3f of input (reps %s s)"
+            % (k, out_mp[k] / w, in_mp / w,
+               ", ".join("%.4f" % v for v in walls[k])))
+
+    # one scaled render on the card: 1/2 and 2/1 of a 768x512 photo
+    data = huffman8[0]
+    jp = marker.parse(data)
+    planes = decoder._entropy(jp, data)
+    for m in (4, 16):
+        dev_ms, nk, wall_ms = profiled(lambda: decoder.render_scaled_t(
+            jp, planes, m, True, True, None, dev))
+        log("djpeg surface render [decode_scaled %d/8, 768x512]: %.4f ms of "
+            "device kernels (torch.profiler, %d kernels incl. uploads), "
+            "%.3f ms synchronised wall under the profiler"
+            % (m, dev_ms, nk, wall_ms))
+    log("djpeg surface: %.1f s" % (time.perf_counter() - t_phase))
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1043,7 +1193,10 @@ def main():
                        [outs[0], outs[len(kodak)]])
     decode_port_streams(kodak, outs[:8], kept, dev)
 
-    # ---- 10. result lines ----
+    # ---- 10. the djpeg surface ----
+    djpeg_surface(kept, outs[:8], dev)
+
+    # ---- 11. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,

@@ -25,19 +25,30 @@ library); the pixel half is PyTorch on the device the caller names:
                per-component sample planes (decode_raw_planes_parsed);
   decode_grayscale, decode_cropped, BufferedImage
                djpeg -grayscale, jpeg_crop_scanline and the buffered-image
-               passes, on the same parts.
+               passes, on the same parts;
+  decode_scaled  djpeg -scale M/8, M = 1..16: the scaled IDCTs of
+               ops/idct_scaled.py, then jdsample.c's upsampler choice, on
+               the device;
+  decode_rgb565, decode_many(output="rgb565")
+               the dithered RGB565 pack of jdcol565.c, on the device;
+  decode_raw_planes
+               jpeg_read_raw_data (jpegyuv);
+  quantize_colors, read_color_map, quantize_to_map
+               djpeg -colors and -map: the shared C++ quantizers
+               (quant.cpp) on the host.
 
 The slice is 8-bit Huffman or arithmetic-coded, sequential and
 progressive streams of one to four (or more) components, gray, YCbCr,
 RGB, CMYK and YCCK, any sampling, with restart intervals, truncated and
 corrupt streams, fancy or replicating upsampling and block smoothing.
-Lossless, 12- and 16-bit streams, decode_scaled and RGB565 output raise
-NotImplementedError naming the ROADMAP.md item that brings them; nothing
-falls back to the CPU or to another route.
+Lossless, 12- and 16-bit streams raise NotImplementedError naming the
+ROADMAP.md item that brings them; nothing falls back to the CPU or to
+another route.
 """
 from __future__ import annotations
 
 import os
+import re
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -46,7 +57,7 @@ import torch
 
 from ..entropy.huffman import derive_decode_table
 from ..native import CompPlane, i32p, i64p, lib, u8p
-from ..ops import color, dct, layout, sample
+from ..ops import color, dct, idct_scaled, layout, sample
 from . import arith, marker, smooth
 from .encoder import _device
 from .stages import stage
@@ -521,6 +532,19 @@ def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
     return out
 
 
+def decode_raw_planes(data: bytes, device=None):
+    """jpeg_read_raw_data (jdapistd.c, raw_data_out; mozjpeg_tpu
+    decode_raw_planes): -> (planes, width, height, samp), planes[i] the
+    (ph, pw) uint8 samples of component i at sampling-grid-padded dims,
+    samp the (h, v) factors; no upsampling or colour conversion."""
+    dev = _device(device)
+    jp = marker.parse(data)
+    _check_slice(jp)
+    planes = decode_raw_planes_parsed(jp, _entropy(jp, data), dev)
+    return (planes, jp.width, jp.height,
+            [(c.h, c.v) for c in jp.components])
+
+
 def decode(data: bytes, fancy_upsample: bool = True,
            dct_method: str = "islow", block_smoothing: bool = True,
            device=None) -> np.ndarray:
@@ -565,9 +589,279 @@ def decode_grayscale(data: bytes, fancy_upsample: bool = True,
         .cpu().numpy()
 
 
-def decode_scaled(data: bytes, num: int, den: int, *args, **kwargs):
-    """Scaled decode (mozjpeg_tpu decode_scaled, ops/idct_scaled.py)."""
-    _not_ported("scaled decode", "6.5")
+def render_plane_scaled(zz: torch.Tensor, qt: torch.Tensor, ch: int,
+                        cw: int, size: int) -> torch.Tensor:
+    """(..., bh, bw, 64) zigzag coefficients + a broadcastable (8, 8)
+    natural-order quant table -> (..., ch, cw) uint8 samples from the
+    size x size scaled IDCT, size 1..16 (the JAX _render_plane_scaled:
+    jidctred.c at 1, 2 and 4, islow at 8, jidctint.c elsewhere)."""
+    blocks = layout.from_zigzag(zz.to(torch.int32))
+    if size == 8:
+        pix = dct.idct_islow(blocks, qt)
+    elif size == 4:
+        pix = idct_scaled.idct_4x4(blocks, qt)
+    elif size == 2:
+        pix = idct_scaled.idct_2x2(blocks, qt)
+    elif size == 1:
+        pix = idct_scaled.idct_1x1(blocks, qt)
+    elif size in idct_scaled._REDUCED:
+        pix = idct_scaled.idct_reduced(blocks, qt, size)
+    else:
+        pix = idct_scaled.idct_expanded(blocks, qt, size)
+    return layout.unblockify(pix)[..., :ch, :cw]
+
+
+# the JAX package's scaled upsampler names -> _up's
+_SCALED_MODES = {"fancy_h2v2": "h2v2", "fancy_h2v1": "h2v1",
+                 "fancy_h1v2": "h1v2", "int": "int"}
+
+
+def upsample_plane_scaled(pl: torch.Tensor, mode: str, hexp: int,
+                          vexp: int) -> torch.Tensor:
+    """One component's samples through the upsampler decode_scaled chose
+    ("fancy_h2v2", "fancy_h2v1", "fancy_h1v2", "int" or "none"; the JAX
+    _upsample_plane_scaled)."""
+    return _up(pl, _SCALED_MODES.get(mode, "none"), hexp, vexp)
+
+
+def _scaled_upsampler(jp, c, ssize: int, min_size: int, fancy: bool,
+                      down_w: int):
+    """(mode, hexp, vexp) of jdsample.c:448-530 for a component whose
+    IDCT runs at ssize when the output is at min_size/8."""
+    max_h, max_v = jp.max_h, jp.max_v
+    h_in = c.h * ssize // min_size
+    v_in = c.v * ssize // min_size
+    if h_in == max_h and v_in == max_v:
+        return "none", 1, 1
+    if h_in * 2 == max_h and v_in == max_v:
+        return ("fancy_h2v1" if fancy and down_w > 2 else "int"), 2, 1
+    if h_in == max_h and v_in * 2 == max_v and fancy:
+        return "fancy_h1v2", 1, 1
+    if h_in * 2 == max_h and v_in * 2 == max_v:
+        return ("fancy_h2v2" if fancy and down_w > 2 else "int"), 2, 2
+    if max_h % h_in == 0 and max_v % v_in == 0:
+        return "int", max_h // h_in, max_v // v_in
+    raise NotImplementedError("fractional upsampling")
+
+
+def decode_scaled(data: bytes, num: int, den: int,
+                  fancy_upsample: bool = True, block_smoothing: bool = True,
+                  colorspace: Optional[str] = None,
+                  device=None) -> np.ndarray:
+    """Scaled decode (djpeg -scale num/den; mozjpeg_tpu decode_scaled):
+    the output is min_size/8 of the image, min_size the least M in 1..16
+    with num/den <= M/8; above 2/1 raises ValueError. Each component's
+    IDCT runs at min_size, doubled while the sampling allows and below 8
+    (jdmaster.c:289-296), then jdsample.c's upsampler for what is left
+    (fancy upsampling off at 1/8, and at h2 only on planes over 2 samples
+    wide); the IDCTs, the upsampling and the colour conversion run on
+    `device` (None or "cuda", the default, the GPU; or "cpu")."""
+    dev = _device(device)
+    jp = marker.parse(data)
+    min_size = next((sz for sz in range(1, 17) if num * 8 <= den * sz),
+                    None)
+    if min_size is None:
+        raise ValueError("scale %d/%d > 2 not supported" % (num, den))
+    _check_slice(jp)
+    return render_scaled_t(jp, _entropy(jp, data), min_size, fancy_upsample,
+                           block_smoothing, colorspace, dev).cpu().numpy()
+
+
+def render_scaled_t(jp, planes, min_size: int, fancy_upsample: bool,
+                    block_smoothing: bool, colorspace: Optional[str],
+                    dev) -> torch.Tensor:
+    """decode_scaled's device half: coefficient planes -> the pixels at
+    min_size/8 on dev (smoothing on the host, upload, the scaled IDCTs,
+    upsampling and colour conversion on dev)."""
+    out_w = -(-jp.width * min_size // 8)
+    out_h = -(-jp.height * min_size // 8)
+    max_h, max_v = jp.max_h, jp.max_v
+    smoothed = _maybe_smooth(jp, planes, block_smoothing)
+    fancy = fancy_upsample and min_size > 1   # jdsample.c:444
+    samples = []
+    for ci, c in enumerate(jp.components):
+        ssize = min_size
+        while (ssize < 8
+               and (max_h * min_size) % (c.h * ssize * 2) == 0
+               and (max_v * min_size) % (c.v * ssize * 2) == 0):
+            ssize *= 2
+        down_w = -(-jp.width * c.h * ssize // (max_h * 8))
+        down_h = -(-jp.height * c.v * ssize // (max_v * 8))
+        pl = render_plane_scaled(
+            _to_device(smoothed[ci], dev),
+            _to_device(_comp_qtable(jp, ci).astype(np.int32), dev),
+            down_h, down_w, ssize)
+        mode, hexp, vexp = _scaled_upsampler(jp, c, ssize, min_size, fancy,
+                                             down_w)
+        samples.append(upsample_plane_scaled(pl, mode, hexp, vexp))
+    cs = colorspace or _jpeg_colorspace(jp)
+    if cs == "grayscale":
+        out = samples[0][:out_h, :out_w]
+    elif cs in ("rgb", "cmyk"):
+        out = [p[:out_h, :out_w] for p in samples]
+        if any(o.shape != out[0].shape for o in out):
+            # the JAX package stacks the planes as they are (np.stack)
+            raise ValueError("all input arrays must have the same shape")
+        out = torch.stack(out, dim=-1)
+    elif cs == "ycck":
+        out = upsample_ycck(*samples[:4], "none", out_h, out_w)
+    else:
+        out = upsample_color(*samples[:3], "none", out_h, out_w)
+    return out
+
+
+# byte c % 4 of jdcolor.c:617-625's dither_matrix[r % 4]
+_DITHER_565 = np.array([
+    [0x0A, 0x02, 0x08, 0x00],
+    [0x06, 0x0E, 0x04, 0x0C],
+    [0x09, 0x01, 0x0B, 0x03],
+    [0x05, 0x0D, 0x07, 0x0F]], np.int32)
+
+
+def _pack_565(r, g, b) -> torch.Tensor:
+    r, g, b = (torch.clamp(v, 0, 255) for v in (r, g, b))
+    return ((r << 8) & 0xF800) | ((g << 3) & 0x7E0) | (b >> 3)
+
+
+def decode_rgb565(data: bytes, fancy_upsample: bool = True,
+                  dither: bool = True, device=None) -> np.ndarray:
+    """Decode to packed little-endian RGB565, (H, W) uint16 (jdcol565.c
+    ycc_rgb565[D]_convert with the 4x4 ordered dither of
+    jdcolor.c:617-625; mozjpeg_tpu decode_rgb565). The dither adds d to R
+    and B and d >> 1 to G, d indexed by row % 4 and column % 4; a gray
+    stream packs one dithered value into all three fields
+    (gray_rgb565D). YCbCr and gray streams only, else ValueError. The
+    IDCT, upsampling, YCbCr -> RGB and the pack run in int32 on `device`;
+    the cast to uint16 is on the host."""
+    dev = _device(device)
+    jp = marker.parse(data)
+    _check_slice(jp)
+    planes = _entropy(jp, data)
+    cs = _jpeg_colorspace(jp)
+    if cs not in ("ycbcr", "grayscale"):
+        raise ValueError("RGB565 output requires YCbCr or grayscale")
+    smoothed = _maybe_smooth(jp, planes, True)
+    comps = [_render_comp(jp, smoothed[ci], ci, "islow", dev)
+             for ci in range(len(jp.components))]
+    h, w = jp.height, jp.width
+    y = comps[0][:h, :w].to(torch.int32)
+    d = (torch.as_tensor(_DITHER_565, device=dev)
+         .repeat(-(-h // 4), -(-w // 4))[:h, :w] if dither else 0)
+    if cs == "grayscale":
+        g = y + d
+        out = _pack_565(g, g, g)
+    else:
+        mode, hexp, vexp = _upsample_mode(jp, fancy_upsample)
+        cb, cr = (_up(p, mode, hexp, vexp)[:h, :w].to(torch.int32) - 128
+                  for p in comps[1:3])
+        r = y + ((color.FIX_1_40200 * cr + color.ONE_HALF)
+                 >> color.SCALEBITS)
+        b = y + ((color.FIX_1_77200 * cb + color.ONE_HALF)
+                 >> color.SCALEBITS)
+        g = y + ((-color.FIX_0_34414 * cb - color.FIX_0_71414 * cr
+                  + color.ONE_HALF) >> color.SCALEBITS)
+        out = _pack_565(r + d, g + (d >> 1), b + d)
+    return out.cpu().numpy().astype(np.uint16)
+
+
+def quantize_colors(rgb: np.ndarray, ncolors: int, dither: str = "fs",
+                    two_pass: bool = True):
+    """djpeg -colors N on the host (mozjpeg_tpu quantize_colors) ->
+    (indices (H, W) uint8, colormap (n, 3) uint8). two_pass is jquant2
+    (median cut, FS dither or none; ordered falls back to FS as in the
+    reference; below 8 colours raises ValueError); otherwise jquant1's
+    fixed orthogonal palette with none, ordered or FS dithering, on gray
+    (H, W) input too."""
+    if two_pass and ncolors < 8:
+        # jinit_2pass_quantizer's lower bound (jquant2.c)
+        raise ValueError("cannot quantize to fewer than 8 colors")
+    nat = lib()
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    gray = rgb.ndim == 2
+    if gray and two_pass:
+        rgb = np.ascontiguousarray(np.stack([rgb] * 3, axis=-1))
+        gray = False
+    h, w = rgb.shape[:2]
+    idx = np.empty((h, w), np.uint8)
+    cmap = np.empty(3 * 256, np.uint8)
+    if two_pass:
+        n = nat.mj_quantize_colors(
+            _ptr(rgb, u8p), w, h, ncolors,
+            0 if dither in ("none", None) else 1, _ptr(idx, u8p),
+            _ptr(cmap, u8p))
+    else:
+        dmode = {"none": 0, None: 0, "ordered": 1, "fs": 2}[dither]
+        n = nat.mj_quantize_onepass(
+            _ptr(rgb, u8p), w, h, ncolors, dmode, 1 if gray else 0,
+            _ptr(idx, u8p), _ptr(cmap, u8p))
+    if n < 0:
+        raise ValueError("quantize_colors failed (need 1..256 colors)")
+    return idx, np.stack([cmap[:256], cmap[256:512], cmap[512:]],
+                         axis=-1)[:n]
+
+
+def read_color_map(data: bytes) -> np.ndarray:
+    """djpeg -map FILE (rdcolmap.c): the palette of a GIF's global
+    colormap or of the pixels of a maxval-255 PPM (P3 or P6), without
+    repeats, in order of first appearance -> (n, 3) uint8; at most 256
+    colours, and anything else raises ValueError."""
+    if not data:
+        raise ValueError("bad colormap file")
+    out: list = []
+    seen = set()
+
+    def add(r, g, b):
+        if (r, g, b) not in seen:
+            if len(out) >= 256:
+                raise ValueError("too many colors in map file")
+            seen.add((r, g, b))
+            out.append((r, g, b))
+
+    if data[0] == 0x47:                       # GIF
+        if len(data) < 13 or data[:3] != b"GIF":
+            raise ValueError("bad colormap file")
+        flags = data[10]
+        if not flags & 0x80:
+            raise ValueError("bad colormap file")
+        n = 2 << (flags & 7)
+        pal = data[13:13 + 3 * n]
+        for i in range(n):
+            add(pal[3 * i], pal[3 * i + 1], pal[3 * i + 2])
+    elif data[0] == 0x50:                     # PPM
+        m = re.match(rb"P([36])\s+(?:#[^\n]*\n\s*)*(\d+)\s+(\d+)\s+"
+                     rb"(\d+)\s", data)
+        if not m:
+            raise ValueError("bad colormap file")
+        fmt, w, h, maxval = (int(m.group(i)) for i in range(1, 5))
+        if maxval != 255:
+            raise ValueError("bad colormap file")
+        if fmt == 6:
+            px = np.frombuffer(data[m.end():m.end() + w * h * 3], np.uint8)
+        else:
+            px = np.array(data[m.end():].split()[:w * h * 3], np.uint8)
+        for r, g, b in px.reshape(-1, 3):
+            add(int(r), int(g), int(b))
+    else:
+        raise ValueError("bad colormap file")
+    return np.array(out, np.uint8)
+
+
+def quantize_to_map(rgb: np.ndarray, cmap: np.ndarray, dither: str = "fs"):
+    """djpeg -map on the host (mozjpeg_tpu quantize_to_map): jquant2's
+    pass 2 with a supplied palette (ordered dithering falls back to FS,
+    as in the reference) -> (indices (H, W) uint8, colormap)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim == 2:
+        rgb = np.ascontiguousarray(np.stack([rgb] * 3, axis=-1))
+    h, w = rgb.shape[:2]
+    idx = np.empty((h, w), np.uint8)
+    cm = np.ascontiguousarray(cmap, np.uint8)
+    r = lib().mj_quantize_to_map(
+        _ptr(rgb, u8p), w, h, _ptr(cm, u8p), len(cm),
+        0 if dither in ("none", None) else 1, _ptr(idx, u8p))
+    if r < 0:
+        raise ValueError("quantize_to_map failed")
+    return idx, cm
 
 
 def decode_cropped(data: bytes, x: int, w: int, fancy_upsample: bool = True,
@@ -789,13 +1083,15 @@ def decode_many(datas, fancy_upsample: bool = True,
     others (RGB, CMYK, YCCK, active block smoothing) render one at a time
     on the device. output="rgb" gives (H, W, 3), gray (H, W) or CMYK
     (H, W, 4) uint8 per image; output="yuv" the per-component sample
-    planes at jpeg_read_raw_data dims. device: None or "cuda" (the default, the
-    GPU; raises without one) or "cpu"."""
+    planes at jpeg_read_raw_data dims; output="rgb565" decode_rgb565's
+    (H, W) uint16, one image at a time. device: None or "cuda" (the
+    default, the GPU; raises without one) or "cpu"."""
     if output not in ("rgb", "yuv", "rgb565"):
         raise ValueError("output must be rgb, yuv or rgb565")
     dev = _device(device)
     if output == "rgb565":
-        _not_ported("RGB565 output", "6.7")
+        # per image, as in the JAX package
+        return [decode_rgb565(d, fancy_upsample, device=dev) for d in datas]
     jps = [marker.parse(d) for d in datas]
     for jp in jps:
         _check_slice(jp)

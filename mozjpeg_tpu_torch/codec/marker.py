@@ -6,9 +6,10 @@ marker per table, or all in one as mozjpeg's non-FASTEST profile does,
 jcmarker.c:190-246), SOF, DHT (likewise single or merged), DAC, DRI, SOS
 and EOI, with field layouts as mozjpeg jcmarker.c writes them. The parser
 (the decode path) follows mozjpeg jdmarker.c for the markers a
-conformant decoder needs, plus the Adobe
-APP14 transform that names the colourspace; other APPn and COM segments
-are skipped.
+conformant decoder needs, plus the Adobe APP14 transform that names the
+colourspace, the JFIF APP0 density and the ICC profile of the APP2
+chunks (djpeg's BMP density and -icc); other APPn and COM segments are
+skipped.
 """
 from __future__ import annotations
 
@@ -185,6 +186,8 @@ class ParsedJpeg:
         dataclasses.field(default_factory=list)
     restart_interval: int = 0
     adobe_transform: Optional[int] = None
+    density: tuple = (0, 1, 1)           # JFIF (unit, X, Y)
+    icc_profile: Optional[bytes] = None  # the APP2 chunks, joined
     # DAC arithmetic conditioning (cls, idx) -> value, snapshotted per scan
     arith_cond: Dict[Tuple[int, int], int] = \
         dataclasses.field(default_factory=dict)
@@ -286,6 +289,8 @@ def parse(data: bytes) -> ParsedJpeg:
 def _parse(data: bytes) -> ParsedJpeg:
     jp = ParsedJpeg()
     htables: Dict[Tuple[int, int], HuffTable] = {}
+    icc_parts: Dict[int, bytes] = {}
+    icc_total = 0
     n = len(data)
     if n < 2 or data[0] != 0xFF or data[1] != SOI:
         raise ValueError("not a JPEG (no SOI)")
@@ -409,11 +414,18 @@ def _parse(data: bytes) -> ParsedJpeg:
                                     for k, v in jp.qtables.items()})
             pos = data_end
             continue
+        elif m == APP0 and seg[:5] == b"JFIF\x00" and len(seg) >= 12:
+            jp.density = (seg[7], (seg[8] << 8) | seg[9],
+                          (seg[10] << 8) | seg[11])
         elif m == APP14 and seg[:5] == b"Adobe":
             jp.adobe_transform = seg[11] if len(seg) > 11 else 0
-        elif m == APP2 and seg[:12] == b"ICC_PROFILE\x00" and len(seg) < 14:
+        elif m == APP2 and seg[:12] == b"ICC_PROFILE\x00":
             # a profile chunk too short for its index and count bytes is
-            # a truncated segment, as for the JAX parser
-            raise ValueError("corrupt JPEG: truncated marker segment")
+            # a truncated segment (IndexError), as for the JAX parser
+            icc_parts[seg[12]] = bytes(seg[14:])
+            icc_total = seg[13]
         pos += 2 + ln
+    if icc_total and len(icc_parts) == icc_total:
+        jp.icc_profile = b"".join(icc_parts[i]
+                                  for i in range(1, icc_total + 1))
     return jp

@@ -13,7 +13,10 @@ mj_host_arith_ac_row, mj_host_arith_dc_row) and the arithmetic coder
 ac_first,ac_refine}, and the trellis's training context mj_arith_ctx_new,
 mj_arith_ctx_free, mj_arith_ctx_restart, mj_arith_get_rates,
 mj_arith_train_rows, and the scan decoders mj_arith_decode_{seq,dc_first,
-dc_refine,ac_first,ac_refine}); see build.py for the sources.
+dc_refine,ac_first,ac_refine}), the colour quantizers (quant.cpp:
+mj_quantize_colors, mj_quantize_onepass, mj_quantize_to_map) and the
+image codecs (imageio.cpp: mj_gif_lzw_encode, mj_gif_lzw_decode,
+mj_tga_rle_decode); see build.py for the sources.
 """
 from __future__ import annotations
 
@@ -193,4 +196,19 @@ def _bind(so):
     so.mj_arith_get_rates.argtypes = [vp, f32p, f32p]
     so.mj_arith_train_rows.restype = None
     so.mj_arith_train_rows.argtypes = [vp, i16p, cint, cint, cint, cint]
+
+    # the colour quantizers (quant.cpp) and image codecs (imageio.cpp)
+    so.mj_quantize_colors.restype = cint
+    so.mj_quantize_colors.argtypes = [u8p, cint, cint, cint, cint, u8p, u8p]
+    so.mj_quantize_onepass.restype = cint
+    so.mj_quantize_onepass.argtypes = [u8p, cint, cint, cint, cint, cint,
+                                       u8p, u8p]
+    so.mj_quantize_to_map.restype = cint
+    so.mj_quantize_to_map.argtypes = [u8p, cint, cint, u8p, cint, cint, u8p]
+    so.mj_gif_lzw_decode.restype = lng
+    so.mj_gif_lzw_decode.argtypes = [u8p, lng, cint, u8p, lng]
+    so.mj_gif_lzw_encode.restype = lng
+    so.mj_gif_lzw_encode.argtypes = [u8p, lng, cint, cint, u8p, lng]
+    so.mj_tga_rle_decode.restype = lng
+    so.mj_tga_rle_decode.argtypes = [u8p, lng, cint, u8p, lng]
     return so

@@ -12,6 +12,10 @@ Only the sources the encode and decode paths call are built:
                   trellis, and the arithmetic trellis's row steps
   arith.cpp       the arithmetic scan encoders and the coder context the
                   arithmetic trellis trains (rates, restarts, training)
+  quant.cpp       the colour quantizers of djpeg -colors and -map (one-
+                  and two-pass, and to a supplied colormap)
+  imageio.cpp     the GIF LZW codec and the Targa RLE decoder of the
+                  image writers and readers (utils/gif.py, utils/targa.py)
 
 The flags are a copy of mozjpeg_tpu/native/build.py's: -ffp-contract=off
 keeps every f32 product rounded before it feeds an add, and
@@ -29,7 +33,7 @@ SRC_DIR = os.path.join(os.path.dirname(PKG_DIR), "mozjpeg_tpu", "native")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 SOURCES = ("entropy.cpp", "scansearch.cpp", "prep.cpp", "hostenc.cpp",
-           "arith.cpp")
+           "arith.cpp", "quant.cpp", "imageio.cpp")
 LIB_NAME = "libmjport.so"
 
 BASE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",

@@ -4,7 +4,7 @@ Port of mozjpeg_tpu/ops/layout.py (pad_plane, blockify_t, to_zigzag_t,
 from_zigzag_t): blocks live as (8, 8, N) / (64, N) tensors with the block
 index last, N in raster block order (image-major for a batch). The
 decoder's from_zigzag and unblockify keep the block-major layout of
-decoded planes, (..., bh, bw, 64) and (..., bh, bw, 8, 8).
+decoded planes, (..., bh, bw, 64) and (..., bh, bw, S, S).
 """
 from __future__ import annotations
 
@@ -66,6 +66,7 @@ def from_zigzag(zz: torch.Tensor) -> torch.Tensor:
 
 
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:
-    """(..., bh, bw, 8, 8) -> (..., bh*8, bw*8)."""
-    *lead, bh, bw, _, _ = blocks.shape
-    return blocks.movedim(-2, -3).reshape(*lead, bh * 8, bw * 8)
+    """(..., bh, bw, S, S) -> (..., bh*S, bw*S): blocks of any IDCT size
+    back into a plane."""
+    *lead, bh, bw, sh, sw = blocks.shape
+    return blocks.movedim(-2, -3).reshape(*lead, bh * sh, bw * sw)

@@ -7,8 +7,10 @@ the CPU's host engine), the arithmetic row trellis on the GPU against
 the CPU on a tie-heavy row, and its decode (decode, decode_many in RGB
 and YUV, a truncated progressive stream; arithmetic, RGB, CMYK and YCCK
 streams with the islow, ifast and float IDCTs, a corrupt stream with
-16-bit quant tables, decode_grayscale, decode_cropped and BufferedImage)
-on the GPU against its CPU path. They skip
+16-bit quant tables, decode_grayscale, decode_cropped and BufferedImage;
+decode_scaled at every M/8, the scaled IDCTs on int16 extremes,
+decode_rgb565 and decode_many(output="rgb565")) on the GPU against its
+CPU path. They skip
 without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -307,3 +309,39 @@ def test_more_streams_idct_extremes_on_the_card_equal_cpu(cuda, method):
               torch.as_tensor(tbl, device=cuda)).cpu()
     cpu = fn(torch.as_tensor(coef), torch.as_tensor(tbl))
     assert torch.equal(card, cpu)
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_decode_scaled_on_the_card_equals_cpu(cuda, port_jpegs, more_jpegs,
+                                              m):
+    for data in port_jpegs + [more_jpegs[n] for n in ("arith", "rgb",
+                                                       "cmyk", "ycck")]:
+        for fancy in (True, False):
+            assert _same(mjt.decode_scaled(data, m, 8, fancy),
+                         mjt.decode_scaled(data, m, 8, fancy, device="cpu"))
+
+
+@pytest.mark.parametrize("size", range(1, 17))
+def test_scaled_idct_extremes_on_the_card_equal_cpu(cuda, size):
+    """int16 extremes with 16-bit tables: the int32 products wrap on the
+    card as on the CPU."""
+    from mozjpeg_tpu_torch.codec import decoder
+    rng = np.random.default_rng(12)
+    zz = rng.integers(-32768, 32768, (6, 7, 64)).astype(np.int16)
+    zz.reshape(-1)[:4] = [-32768, 32767, -32768, 32767]
+    q = rng.integers(1, 65536, (8, 8)).astype(np.int32)
+    card, cpu = (decoder.render_plane_scaled(
+        torch.as_tensor(zz, device=d), torch.as_tensor(q, device=d),
+        6 * size - 1, 7 * size, size).cpu() for d in (cuda, "cpu"))
+    assert torch.equal(card, cpu)
+
+
+def test_decode_rgb565_on_the_card_equals_cpu(cuda, port_jpegs):
+    for data in port_jpegs:
+        for fancy in (True, False):
+            for dither in (True, False):
+                assert _same(mjt.decode_rgb565(data, fancy, dither),
+                             mjt.decode_rgb565(data, fancy, dither,
+                                               device="cpu"))
+    assert _same(mjt.decode_many(port_jpegs, output="rgb565"),
+                 mjt.decode_many(port_jpegs, output="rgb565", device="cpu"))

@@ -299,19 +299,19 @@ def test_out_of_slice_streams_raise(streams, case):
 
 
 def test_out_of_slice_options_raise(streams):
-    """decode_scaled and RGB565 output still raise NotImplementedError
-    naming their ROADMAP.md items; the ifast IDCT, decode_grayscale,
-    decode_cropped and BufferedImage, now ported, equal the JAX package
-    on the same stream."""
+    """Every decode option the earlier slices refused is ported now and
+    equals the JAX package on the same stream: the ifast IDCT,
+    RGB565 output, decode_scaled, decode_grayscale, decode_cropped and
+    BufferedImage; an unknown output still raises ValueError."""
     data = streams["q75_420_64x48"]
     _equal_outputs(mjt.decode(data, device="cpu", dct_method="ifast"),
                    mj.decode(data, dct_method="ifast"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mjt.decode_many([data], output="rgb565", device="cpu")
+    _equal_outputs(mjt.decode_many([data], output="rgb565", device="cpu"),
+                   mj.decode_many([data], output="rgb565"))
     with pytest.raises(ValueError):
         mjt.decode_many([data], output="bgr", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.decode_scaled(data, 1, 2)
+    _equal_outputs(tdec.decode_scaled(data, 1, 2, device="cpu"),
+                   jdec.decode_scaled(data, 1, 2))
     _equal_outputs(tdec.decode_grayscale(data, device="cpu"),
                    jdec.decode_grayscale(data))
     got, want = (tdec.decode_cropped(data, 0, 16, device="cpu"),

@@ -23,6 +23,8 @@ def _forbidden(name: str) -> bool:
 
 def test_import_leaves_jax_and_jax_package_unloaded():
     code = ("import sys, mozjpeg_tpu_torch\n"
+            "import mozjpeg_tpu_torch.cli.djpeg, "
+            "mozjpeg_tpu_torch.cli.jpegyuv\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'mozjpeg_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'mozjpeg_tpu.')))\n"
@@ -44,9 +46,11 @@ def _py_files():
 def test_no_module_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(p, REPO) for p in _py_files()}
     # the modules each slice brought are among those scanned
-    for rel in ("codec/arith.py", "codec/decoder.py", "codec/encoder.py",
-                "codec/marker.py", "native/__init__.py", "ops/color.py",
-                "ops/dct.py", "ops/trellis_ac.py"):
+    for rel in ("cli/djpeg.py", "cli/jpegyuv.py", "codec/arith.py",
+                "codec/decoder.py", "codec/encoder.py", "codec/marker.py",
+                "native/__init__.py", "ops/color.py", "ops/dct.py",
+                "ops/idct_scaled.py", "ops/trellis_ac.py", "utils/bmp.py",
+                "utils/gif.py", "utils/ppm.py", "utils/targa.py"):
         assert os.path.join("mozjpeg_tpu_torch", rel) in scanned
     bad = []
     for path in _py_files():
@@ -80,6 +84,10 @@ _ENTRIES = {
         jpeg, 0, 8, device=device),
     "BufferedImage": lambda jpeg, device: mjt.BufferedImage(
         jpeg, device=device),
+    "decode_scaled": lambda jpeg, device: mjt.decode_scaled(
+        jpeg, 1, 2, device=device),
+    "decode_rgb565": lambda jpeg, device: mjt.decode_rgb565(
+        jpeg, device=device),
 }
 
 
@@ -93,7 +101,8 @@ def jpeg():
     pytest.param("encode_many", "cuda", id="cuda"),
     *(pytest.param(e, d, id="%s-%s" % (e, d))
       for e in ("encode", "decode", "decode_many", "decode_grayscale",
-                "decode_cropped", "BufferedImage")
+                "decode_cropped", "BufferedImage", "decode_scaled",
+                "decode_rgb565")
       for d in (None, "cuda"))])
 def test_gpu_entry_raises_without_cuda(monkeypatch, jpeg, entry, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
