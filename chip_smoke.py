@@ -87,12 +87,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and of input) of decode_scaled at 1/8, 1/2 and 2/1 beside decode on
      eight 768x512 photos, one at a time, 3 reps in turns; the device
      time and kernels of one 1/2 and one 16/8 render (torch.profiler);
- 11. the script's time, the kernels line, then {"ok": true, "device":
-     ...} as the last line.
+ 11. precision: eight seeded 768x512 12-bit photos (phase 4's generator
+     shifted left 4, seeded low bits) through encode_many with
+     EncoderConfig(quality=75, precision=12) on the card, twice with the
+     same bytes, and the card's bytes equal to the CPU path's on a
+     192x128 and a 131x97 crop; the AC kernel's <14, 16383> instantiation
+     exactly against its plain version on every launch of the group and
+     on the shared generator's dense, all-zero, tie, ragged (B = 3,
+     n_img = 1,001) and N = 1 inputs at maxq 16383; its time per group,
+     held and with the host's launch gaps, beside its plain version, its
+     bounds and the measured nonzero AC coefficients per block (and the
+     dense input's); encode_many MP/s of the 12-bit default beside the
+     8-bit default on phase 4's first eight photos, 3 reps in turns, and
+     the stage times of one 12-bit group (synchronised);
+     decode_many of the 12-bit JPEGs equal to the CPU path, PSNR against
+     the sources at 12 bits, and MP/s beside the 8-bit Huffman YCbCr
+     JPEGs of phase 4, in turns; lossless round trips at 8, 12 and 16
+     bits (encode_lossless, then decode and decode_many on the card's
+     entry points) equal to the CPU path and to the input;
+ 12. the script's time, the kernels line (both instantiations of the AC
+     kernel), then {"ok": true, "device": ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
-phase 8) and read just after it; the kernels line carries phase 4's. It
-needs no network and imports no JAX.
+phase 8, phase 11's 12-bit main path) and read just after it; the
+kernels line carries phase 4's count of the <10, 1023> instantiation and
+phase 11's of the <14, 16383> one. It needs no network and imports no
+JAX.
 """
 import json
 import os
@@ -160,14 +180,14 @@ def cuda_ms(fn, reps, hold=True):
     return t0.elapsed_time(t1) / reps
 
 
-def example_trellis(kind, b, n_img, dev, seed):
+def example_trellis(kind, b, n_img, dev, seed, precision=8):
     """trellis_ac arguments on `dev` from the shared seeded generator,
-    band (1, 63)."""
+    band (1, 63), for the instantiation of `precision`."""
     import torch
     from mozjpeg_tpu_torch.codec import trellis
     return tuple(torch.as_tensor(a, device=dev) for a in
-                 trellis.ac_example_inputs(kind, b, n_img, seed)) \
-        + (1, 63, n_img)
+                 trellis.ac_example_inputs(kind, b, n_img, seed, precision)) \
+        + (1, 63, n_img) + trellis.kmax_maxq(precision)
 
 
 def bound(nbytes, ops):
@@ -185,12 +205,13 @@ def trellis_bound(args):
     (the tail) and each (i, k) pair 2 (the distortion products)."""
     import torch
     from mozjpeg_tpu_torch.ops.symbols import nbits
-    raw, qtbl, ltbl, luts, lam, ss, se, _ = args
+    raw, qtbl, ltbl, luts, lam, ss, se = args[:7]
+    maxq = args[9] if len(args) > 9 else 1023
     n = raw.shape[1]
     nbytes = (raw.numel() * 4 + lam.numel() * 4 + luts.numel() * 4
               + 64 * 8 + n * 64 * 4 + n * 8 * 4)
     q8 = (qtbl << 3)[:, None]
-    qval = torch.clamp_max((raw.abs() + (q8 >> 1)) // q8, 1023)
+    qval = torch.clamp_max((raw.abs() + (q8 >> 1)) // q8, maxq)
     pos = torch.arange(64, device=raw.device)[:, None]
     in_band = (pos >= ss) & (pos <= se)
     jvalid = ((qval != 0) & in_band) | (pos == ss - 1)
@@ -465,7 +486,7 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
             # warm: this family's kernels and shapes just ran above
             imgs = family_images(corpus, ch, 400)
             torch.cuda.synchronize()
-            tac.trellis_ac.launches = 0
+            tac.reset_launches()
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -587,7 +608,7 @@ def per_image_routes(kodak, odd, dev, default_mps, compare, kept):
         ms = {}
         for way, dv in (("card", None), ("cpu host engine", "cpu")):
             walls = []
-            tac.trellis_ac.launches = 0
+            tac.reset_launches()
             for _ in range(5):
                 t0 = time.perf_counter()
                 mjt.encode(img, cfg, device=dv)
@@ -718,7 +739,7 @@ def decode_port_streams(kodak, huffman8, kept, dev):
     from mozjpeg_tpu_torch.ops import dct
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     t_phase = time.perf_counter()
-    tac.trellis_ac.launches = 0
+    tac.reset_launches()
 
     def check(label, card, cpu):
         ok = same(card, cpu)
@@ -859,7 +880,7 @@ def djpeg_surface(kept, huffman8, dev):
     from mozjpeg_tpu_torch.codec import decoder, marker
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     t_phase = time.perf_counter()
-    tac.trellis_ac.launches = 0
+    tac.reset_launches()
 
     def check(label, card, cpu):
         ok = same(card, cpu)
@@ -974,6 +995,184 @@ def djpeg_surface(kept, huffman8, dev):
             "%.3f ms synchronised wall under the profiler"
             % (m, dev_ms, nk, wall_ms))
     log("djpeg surface: %.1f s" % (time.perf_counter() - t_phase))
+
+
+def precision_phase(kodak8, jpegs8, dev, compare):
+    """Phase 11: the 12-bit default on the card (the AC kernel's
+    <14, 16383> instantiation), 12-bit decode and lossless at 8, 12 and
+    16 bits. -> the kernels-line entry of the 12-bit instantiation."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import encoder, trellis
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+    cfg8 = mjt.EncoderConfig(quality=75)
+    cfg12 = mjt.EncoderConfig(quality=75, precision=12)
+    rng = np.random.default_rng(1200)
+    corpus = []
+    for i in range(8):
+        hi = photo(512, 768, 1200 + i).astype(np.uint16) << 4
+        corpus.append(hi | rng.integers(0, 16, hi.shape, dtype=np.uint16))
+    mp = sum(im.shape[0] * im.shape[1] for im in corpus) / 1e6
+
+    # every kernel launch of one 12-bit group against the plain version
+    ctx = encoder.resolve_group(corpus[0], cfg12)
+    rec = {}
+    with ThreadPoolExecutor(8) as pool:
+        for f in encoder.encode_group(corpus, ctx, dev, pool, record=rec):
+            f.result()
+    recorded = rec["trellis_ac"]
+    if len(recorded) != 3 or any(a[8:] != (14, 16383) for a in recorded):
+        raise SystemExit("expected 3 trellis_ac<14, 16383> calls per "
+                         "12-bit group")
+    max_err = 0.0
+    for name, args in zip(("Y", "Cb", "Cr"), recorded):
+        max_err = max(max_err, compare(args, "12-bit group %s" % name))
+    dense = example_trellis("dense", 8, 6144, dev, 17, 12)
+    for args, label in (
+            (dense, "12-bit dense"),
+            (example_trellis("zero", 2, 4096, dev, 15, 12), "12-bit zero"),
+            (example_trellis("tie", 2, 4096, dev, 14, 12), "12-bit tie"),
+            (example_trellis("sparse", 3, 1001, dev, 16, 12),
+             "12-bit ragged B=3"),
+            (example_trellis("sparse", 1, 1, dev, 18, 12), "12-bit N=1")):
+        max_err = max(max_err, compare(args, label))
+
+    # the 12-bit main path, counts from 0
+    mjt.encode_many(corpus, cfg12)                      # warm-up
+    torch.cuda.synchronize()
+    tac.reset_launches()
+    outs = mjt.encode_many(corpus, cfg12)
+    torch.cuda.synchronize()
+    launches = dict(tac.trellis_ac.launches_by_kmax)
+    log("12-bit main path: 8x768x512, trellis_ac launches %s"
+        % json.dumps({"<%d>" % k: v for k, v in launches.items()}))
+    if launches[14] <= 0 or launches[10] != 0:
+        raise SystemExit("the 12-bit path did not run trellis_ac<14, 16383>"
+                         " alone")
+    if mjt.encode_many(corpus, cfg12) != outs:
+        raise SystemExit("12-bit outputs differ between runs")
+    if not all(o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"
+               for o in outs):
+        raise SystemExit("12-bit output without SOI/EOI")
+    for crop in (corpus[0][:128, :192], corpus[1][:97, :131]):
+        card = mjt.encode_many([crop], cfg12)
+        cpu = mjt.encode_many([crop], cfg12, device="cpu")
+        log("12-bit card vs cpu bytes [%dx%d crop]: equal=%s (%d bytes)"
+            % (crop.shape[1], crop.shape[0], card == cpu, len(cpu[0])))
+        if card != cpu:
+            raise SystemExit("12-bit card output differs from the CPU path")
+
+    # encode_many MP/s beside the 8-bit default, in turns
+    walls = {"8-bit default": [], "12-bit default": []}
+    for _ in range(3):
+        for label, imgs, cfg in (("8-bit default", kodak8, cfg8),
+                                 ("12-bit default", corpus, cfg12)):
+            t0 = time.perf_counter()
+            mjt.encode_many(imgs, cfg)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+    for label, w in walls.items():
+        log("precision encode_many MP/s [%s, 8x768x512]: median %.3f (reps "
+            "%s s)" % (label, mp / statistics.median(w),
+                       ", ".join("%.4f" % v for v in w)))
+
+    times = {}
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        encoder.encode_group(corpus, ctx, dev, pool, times=times)
+        group_s = time.perf_counter() - t0
+    log("12-bit stages of one 8x768x512 group (ms): %s; total %.1f"
+        % (json.dumps({k: round(v * 1e3, 3) for k, v in times.items()}),
+           group_s * 1e3))
+
+    # the <14, 16383> kernel per group, its plain version and bounds
+    def group_kernel():
+        for a in recorded:
+            tac.trellis_ac(*a)
+
+    k_ms, k_un = cuda_ms(group_kernel, 10), cuda_ms(group_kernel, 10,
+                                                     hold=False)
+    d_ms = cuda_ms(lambda: tac.trellis_ac(*dense), 5)
+    p_ms = cuda_ms(lambda: [tac.trellis_ac_plain(*a) for a in recorded], 1)
+    nbytes, ops, nnz, nblk = 0, 0.0, 0, 0
+    for a in recorded:
+        b_, o_ = trellis_bound(a)
+        nbytes += b_
+        ops += o_
+        q8 = (a[1] << 3)[:, None]
+        nnz += int(((a[0][1:].abs() + (q8[1:] >> 1)) // q8[1:] != 0).sum())
+        nblk += a[0].shape[1]
+    bound_ms, bound_by = bound(nbytes, ops)
+    d_bytes, d_ops = trellis_bound(dense)
+    d_bound, d_by = bound(d_bytes, d_ops)
+    log("trellis_ac<14, 16383> per 12-bit group (3 launches, %.2f nonzero "
+        "AC coefficients per block): kernel %.4f ms (%.4f ms with the "
+        "host's launch gaps), plain %.3f ms, bound %.4f ms (%.3g ops, %d "
+        "bytes, by %s), %.1f%% of the bound; dense input (N=%d) %.4f ms, "
+        "bound %.4f ms (by %s)"
+        % (nnz / nblk, k_ms, k_un, p_ms, bound_ms, ops, nbytes, bound_by,
+           100 * bound_ms / k_ms, dense[0].shape[1], d_ms, d_bound, d_by))
+
+    # 12-bit decode on the card against the CPU, MP/s beside 8-bit
+    decs = mjt.decode_many(outs)
+    cpus = mjt.decode_many(outs[:2], device="cpu")
+    for i in range(2):
+        ok = same(decs[i], cpus[i])
+        log("12-bit decode_many card vs cpu [image %d]: equal=%s (%s)"
+            % (i, ok, decs[i].dtype))
+        if not ok:
+            raise SystemExit("12-bit decode on the card differs from the "
+                             "CPU path")
+    # the default's deringing keeps the 8-bit threshold (127 above the
+    # centre) at 12 bits, as the JAX package does, and reshapes most
+    # bright blocks, so the distance to the source is checked without it
+    def psnr12(a, b):
+        return psnr(a, b) + 20 * np.log10(4095 / 255.0)
+
+    nodr = mjt.decode_many(mjt.encode_many(
+        corpus[:2], mjt.EncoderConfig(quality=75, precision=12,
+                                      overshoot_deringing=False)))
+    ps = [psnr12(d, im) for d, im in zip(nodr, corpus)]
+    log("12-bit decode PSNR vs source (dB, peak 4095): default %s; "
+        "without deringing %s"
+        % (", ".join("%.2f" % psnr12(d, im) for d, im in zip(decs, corpus)),
+           ", ".join("%.2f" % p for p in ps)))
+    if min(ps) < 20.0:
+        raise SystemExit("12-bit decoded image far from its source")
+    walls = {"8-bit huffman ycbcr": [], "12-bit": []}
+    for _ in range(3):
+        for label, datas in (("8-bit huffman ycbcr", jpegs8),
+                             ("12-bit", outs)):
+            t0 = time.perf_counter()
+            mjt.decode_many(datas)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+    for label, w in walls.items():
+        log("precision decode_many MP/s [%s, 8x768x512]: median %.3f (reps "
+            "%s s)" % (label, mp / statistics.median(w),
+                       ", ".join("%.4f" % v for v in w)))
+
+    # lossless round trips through the public entry points
+    for prec, img, pred in ((8, kodak8[0], 1), (12, corpus[0], 4),
+                            (16, (corpus[1] << 4) | (corpus[2] & 15), 7)):
+        data = mjt.encode_lossless(img, pred, 0, prec)
+        card = [mjt.decode(data), mjt.decode_many([data])[0]]
+        cpu = mjt.decode(data, device="cpu")
+        ok = all(same(c, cpu) for c in card) and same(cpu, img)
+        log("lossless %d-bit round trip [768x512, predictor %d]: %d bytes, "
+            "equal=%s" % (prec, pred, len(data), ok))
+        if not ok:
+            raise SystemExit("lossless round trip differs")
+    log("precision: %.1f s" % (time.perf_counter() - t_phase))
+    return {"name": "trellis_ac<14, 16383>", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": launches[14], "max_abs_err": max_err,
+            "exact": max_err == 0.0, "ms": k_ms, "kernel_ms": k_ms,
+            "ms_with_launch_gaps": k_un, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "nonzero_ac_per_block": nnz / nblk, "dense_ms": d_ms,
+            "dense_bound_ms": d_bound}
 
 
 def main():
@@ -1094,13 +1293,13 @@ def main():
     mp = sum(im.shape[0] * im.shape[1] for im in images) / 1e6
     mjt.encode_many(images, cfg)                       # warm-up
     torch.cuda.synchronize()
-    tac.trellis_ac.launches = 0
+    tac.reset_launches()
     t0 = time.perf_counter()
     outs = mjt.encode_many(images, cfg)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    launches = tac.trellis_ac.launches
-    log("main path: %d images, %.3f MP, trellis_ac launches=%d"
+    launches = tac.trellis_ac.launches_by_kmax[10]
+    log("main path: %d images, %.3f MP, trellis_ac<10, 1023> launches=%d"
         % (len(images), mp, launches))
     if launches <= 0:
         raise SystemExit("the main path never launched the trellis kernel")
@@ -1196,16 +1395,20 @@ def main():
     # ---- 10. the djpeg surface ----
     djpeg_surface(kept, outs[:8], dev)
 
-    # ---- 11. result lines ----
+    # ---- 11. precision ----
+    k12 = precision_phase(kodak[:8], outs[:8], dev, compare)
+
+    # ---- 12. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
-        "name": "trellis_ac", "route": "cuda", "source": KERNEL_SOURCE,
+        "name": "trellis_ac<10, 1023>", "route": "cuda",
+        "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max_err, "exact": max_err == 0.0,
         "ms": k_ms, "kernel_ms": k_ms, "ms_with_launch_gaps": k_un,
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
-        "dense_bound_ms": d_bound}]}))
+        "dense_bound_ms": d_bound}, k12]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

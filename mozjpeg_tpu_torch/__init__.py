@@ -12,6 +12,8 @@ into the port's own library.
     jpeg = mjt.encode(image, quality=75)
     pixels = mjt.decode_many(jpegs)
     half = mjt.decode_scaled(jpeg, 1, 2)
+    deep = mjt.encode(uint16_image, quality=75, precision=12)
+    exact = mjt.encode_lossless(uint16_image, predictor=1, precision=16)
 
     python -m mozjpeg_tpu_torch.cli.djpeg -scale 1/2 -bmp in.jpg > o.bmp
 """
@@ -20,9 +22,11 @@ from .codec.decoder import (BufferedImage, decode, decode_cropped,
                             decode_grayscale, decode_many, decode_rgb565,
                             decode_scaled)
 from .codec.encoder import encode, encode_many
+from .codec.lossless import encode_lossless
 
 __version__ = "0.1.0"
 
 __all__ = ["BufferedImage", "DCTMethod", "EncoderConfig", "Profile",
            "decode", "decode_cropped", "decode_grayscale", "decode_many",
-           "decode_rgb565", "decode_scaled", "encode", "encode_many"]
+           "decode_rgb565", "decode_scaled", "encode", "encode_lossless",
+           "encode_many"]

@@ -1,7 +1,9 @@
 """djpeg-compatible command line (the flag surface of mozjpeg's djpeg.c),
 a port of mozjpeg_tpu/cli/djpeg.py: the same flags, output rules and exit
 codes (0; 1 on an error; 2 when the stream raised corrupt-data warnings),
-on the port's decoder. It runs on the GPU; there is no CPU fallback.
+on the port's decoder, at the stream's precision (a 12-bit stream writes
+a PPM with maxval 4095; lossless streams decode on the host). It runs on
+the GPU; there is no CPU fallback.
 
 Usage: python -m mozjpeg_tpu_torch.cli.djpeg [switches] [inputfile]
 """

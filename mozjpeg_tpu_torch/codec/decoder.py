@@ -37,12 +37,17 @@ library); the pixel half is PyTorch on the device the caller names:
                djpeg -colors and -map: the shared C++ quantizers
                (quant.cpp) on the host.
 
-The slice is 8-bit Huffman or arithmetic-coded, sequential and
-progressive streams of one to four (or more) components, gray, YCbCr,
-RGB, CMYK and YCCK, any sampling, with restart intervals, truncated and
-corrupt streams, fancy or replicating upsampling and block smoothing.
-Lossless, 12- and 16-bit streams raise NotImplementedError naming the
-ROADMAP.md item that brings them; nothing falls back to the CPU or to
+The slice is Huffman or arithmetic-coded, sequential and progressive
+streams of one to four (or more) components, gray, YCbCr, RGB, CMYK and
+YCCK, any sampling, with restart intervals, truncated and corrupt
+streams, fancy or replicating upsampling and block smoothing, at 8 bits
+and above: 12-bit (and 16-bit) samples render with PASS1_BITS 1 and
+their range limit in int32 on the device and come back as uint16 numpy
+arrays, made on the host (torch's uint16 supports few operations);
+decode_many renders them one at a time, as the JAX package does.
+Lossless (SOF3) streams decode on the host (codec/lossless.py) through
+decode, decode_grayscale and decode_many, as there; the other entry
+points refuse them with ValueError. Nothing falls back to the CPU or to
 another route.
 """
 from __future__ import annotations
@@ -58,18 +63,12 @@ import torch
 from ..entropy.huffman import derive_decode_table
 from ..native import CompPlane, i32p, i64p, lib, u8p
 from ..ops import color, dct, idct_scaled, layout, sample
-from . import arith, marker, smooth
+from . import arith, lossless, marker, smooth
 from .encoder import _device
 from .stages import stage
 
 GROUP = 8     # images per batched render (the JAX package's MJ_DECODE_GROUP
               # default), so that card memory stays bounded for any list
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        "mozjpeg_tpu_torch: %s is not ported yet (ROADMAP.md queue 1 item "
-        "%s)" % (what, item))
 
 
 def _ptr(a: np.ndarray, typ):
@@ -303,15 +302,22 @@ def _jpeg_colorspace(jp: marker.ParsedJpeg) -> str:
 
 
 def _check_slice(jp: marker.ParsedJpeg):
-    """Refuse what this slice does not carry, naming the ROADMAP.md item
-    (queue 1) that brings it; malformed streams raise ValueError first,
-    as in the JAX package (a 2-component frame among them)."""
-    if jp.lossless:
-        _not_ported("lossless (SOF3) decode", "6.10")
+    """Refuse malformed streams with ValueError, as the JAX package does
+    (a 2-component frame among them), and lossless streams in the entry
+    points that take DCT streams only (decode, decode_grayscale and
+    decode_many send them to codec/lossless.py first)."""
     marker.validate_decodable(jp)
-    if jp.precision != 8:
-        _not_ported("%d-bit decode" % jp.precision, "6.2")
+    if jp.lossless:
+        raise ValueError("a lossless (SOF3) stream decodes through decode, "
+                         "decode_grayscale or decode_many")
     _jpeg_colorspace(jp)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """Samples on a device -> a numpy array: uint8 as they are, the int32
+    samples of deeper precisions as uint16."""
+    a = t.cpu().numpy()
+    return a.astype(np.uint16) if a.dtype == np.int32 else a
 
 
 def _entropy(jp: marker.ParsedJpeg, data: bytes) -> List[np.ndarray]:
@@ -397,20 +403,22 @@ def _dct_table(jp, ci: int, dct_method: str) -> np.ndarray:
 
 
 def render_planes(zz: torch.Tensor, qt: torch.Tensor, ch: int, cw: int,
-                  dct_method: str = "islow") -> torch.Tensor:
+                  dct_method: str = "islow",
+                  precision: int = 8) -> torch.Tensor:
     """(B, bh, bw, 64) zigzag coefficients + (B, 8, 8) natural-order
-    tables (_dct_table) -> (B, ch, cw) uint8 samples (the JAX
-    _render_plane, vmapped). Each image's table broadcasts over its
-    blocks as (B, 1, 1, 8, 8). Any dct_method but ifast and float is
-    islow, as there."""
+    tables (_dct_table) -> (B, ch, cw) samples of the precision, uint8
+    or int32 (the JAX _render_plane, vmapped). Each image's table
+    broadcasts over its blocks as (B, 1, 1, 8, 8). Any dct_method but
+    ifast and float is islow, as there."""
     blocks = layout.from_zigzag(zz)
     qt = qt[:, None, None]
     if dct_method == "ifast":
-        pix = dct.idct_ifast(blocks, qt)
+        pix = dct.idct_ifast(blocks, qt, precision)
     elif dct_method == "float":
-        pix = dct.idct_float(blocks, qt)
+        pix = dct.idct_float(blocks, qt, precision)
     else:
-        pix = dct.idct_islow(blocks, qt, dct.PASS1_BITS, 8)
+        pix = dct.idct_islow(blocks, qt, dct.pass1_bits(precision),
+                             precision)
     return layout.unblockify(pix)[:, :ch, :cw]
 
 
@@ -428,27 +436,30 @@ def _up(pl, mode: str, hexp: int, vexp: int):
 
 
 def upsample_color(y, cb, cr, mode: str, height: int, width: int,
-                   hexp: int = 1, vexp: int = 1) -> torch.Tensor:
-    """(..., H, W) uint8 Y, Cb, Cr sample planes -> (..., height, width,
-    3) uint8 RGB (the JAX _upsample_color)."""
+                   hexp: int = 1, vexp: int = 1,
+                   precision: int = 8) -> torch.Tensor:
+    """(..., H, W) Y, Cb, Cr sample planes -> (..., height, width, 3) RGB
+    samples of the precision (the JAX _upsample_color)."""
     ycc = torch.stack([y[..., :height, :width],
                        _up(cb, mode, hexp, vexp)[..., :height, :width],
                        _up(cr, mode, hexp, vexp)[..., :height, :width]],
                       dim=-1)
-    return color.ycc_to_rgb(ycc)
+    return color.ycc_to_rgb(ycc, precision)
 
 
 def upsample_ycck(y, cb, cr, k, mode: str, height: int, width: int,
                   hexp: int = 1, vexp: int = 1, kmode: str = "none",
-                  khexp: int = 1, kvexp: int = 1) -> torch.Tensor:
-    """(H, W) uint8 Y, Cb, Cr, K sample planes -> (height, width, 4) uint8
-    CMYK (the JAX _upsample_ycck); K upsamples on its own mode."""
+                  khexp: int = 1, kvexp: int = 1,
+                  precision: int = 8) -> torch.Tensor:
+    """(H, W) Y, Cb, Cr, K sample planes -> (height, width, 4) CMYK
+    samples of the precision (the JAX _upsample_ycck); K upsamples on its
+    own mode."""
     ycck = torch.stack([y[..., :height, :width],
                         _up(cb, mode, hexp, vexp)[..., :height, :width],
                         _up(cr, mode, hexp, vexp)[..., :height, :width],
                         _up(k, kmode, khexp, kvexp)[..., :height, :width]],
                        dim=-1)
-    return color.ycck_to_cmyk(ycck)
+    return color.ycck_to_cmyk(ycck, precision)
 
 
 def _to_device(a: np.ndarray, dev) -> torch.Tensor:
@@ -456,12 +467,13 @@ def _to_device(a: np.ndarray, dev) -> torch.Tensor:
 
 
 def _render_comp(jp, plane, ci: int, dct_method: str, dev) -> torch.Tensor:
-    """One component's (bh, bw, 64) coefficients -> its (ch, cw) uint8
-    samples on dev."""
+    """One component's (bh, bw, 64) coefficients -> its (ch, cw) samples
+    of the stream's precision on dev."""
     _, _, ch, cw = _comp_dims(jp, jp.components[ci])
     return render_planes(_to_device(plane[None], dev),
                          _to_device(_dct_table(jp, ci, dct_method)[None],
-                                    dev), ch, cw, dct_method)[0]
+                                    dev), ch, cw, dct_method,
+                         jp.precision)[0]
 
 
 def _convert(jp, samples, cs: str, fancy_upsample: bool,
@@ -483,8 +495,9 @@ def _convert(jp, samples, cs: str, fancy_upsample: bool,
         y, cb, cr, k = samples
         kmode, khexp, kvexp = _upsample_mode(jp, fancy_upsample, comp=3)
         return upsample_ycck(y, cb, cr, k, mode, h, width, hexp, vexp,
-                             kmode, khexp, kvexp)
-    return upsample_color(*samples[:3], mode, h, width, hexp, vexp)
+                             kmode, khexp, kvexp, jp.precision)
+    return upsample_color(*samples[:3], mode, h, width, hexp, vexp,
+                          jp.precision)
 
 
 def _render_t(jp, planes, colorspace, fancy_upsample, dct_method,
@@ -501,19 +514,21 @@ def render(jp: marker.ParsedJpeg, planes: List[np.ndarray],
            dct_method: str = "islow", block_smoothing: bool = True,
            device=None) -> np.ndarray:
     """Coefficient planes -> pixels on `device`: RGB (H, W, 3), gray
-    (H, W), or CMYK (H, W, 4) for 4-component streams (the device branch
-    of the JAX package's render: block smoothing on the host, then every
-    component's IDCT, the upsampling and the colour conversion on the
-    device)."""
-    return _render_t(jp, planes, colorspace, fancy_upsample, dct_method,
-                     block_smoothing, _device(device)).cpu().numpy()
+    (H, W), or CMYK (H, W, 4) for 4-component streams, uint8 or (above
+    8 bits) uint16 (the device branch of the JAX package's render: block
+    smoothing on the host, then every component's IDCT, the upsampling
+    and the colour conversion on the device)."""
+    return _to_host(_render_t(jp, planes, colorspace, fancy_upsample,
+                              dct_method, block_smoothing, _device(device)))
 
 
 def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
                              device=None) -> List[np.ndarray]:
     """jpeg_read_raw_data render: per-component (ph, pw) uint8 sample
     planes at sampling-grid-padded dims, decoded samples out to the last
-    block's edge and zeros past it; no smoothing, upsampling or colour."""
+    block's edge and zeros past it; no smoothing, upsampling or colour.
+    Deeper samples are stored into the uint8 planes as the JAX package
+    stores them (their low 8 bits)."""
     dev = _device(device)
     pw0 = -(-jp.width // jp.max_h) * jp.max_h
     ph0 = -(-jp.height // jp.max_v) * jp.max_v
@@ -525,7 +540,8 @@ def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
         qt = _comp_qtable(jp, ci).astype(np.int32)
         pl = render_planes(_to_device(planes[ci][None, :bh, :bw], dev),
                            _to_device(qt[None], dev), min(ph, bh * 8),
-                           min(pw, bw * 8))[0].cpu().numpy()
+                           min(pw, bw * 8), "islow",
+                           jp.precision)[0].cpu().numpy()
         full = np.zeros((ph, pw), np.uint8)
         full[:pl.shape[0], :pl.shape[1]] = pl
         out.append(full)
@@ -549,9 +565,10 @@ def decode(data: bytes, fancy_upsample: bool = True,
            dct_method: str = "islow", block_smoothing: bool = True,
            device=None) -> np.ndarray:
     """Decode a JPEG byte stream to RGB (H, W, 3), grayscale (H, W) or
-    CMYK (H, W, 4) uint8, pixel-identical to mozjpeg_tpu.decode, whose
-    positional order it keeps. device: None or "cuda" (the default, the
-    GPU; raises without one) or "cpu".
+    CMYK (H, W, 4), uint8 at 8 bits and uint16 above, pixel-identical to
+    mozjpeg_tpu.decode, whose positional order it keeps. device: None or
+    "cuda" (the default, the GPU; raises without one) or "cpu". Lossless
+    (SOF3) streams decode on the host (lossless.decode_lossless).
 
     fancy_upsample=False is djpeg -nosmooth's replicating upsample (pass
     block_smoothing=False too for all of -nosmooth); dct_method "ifast"
@@ -560,6 +577,8 @@ def decode(data: bytes, fancy_upsample: bool = True,
     last decoded state and block smoothing estimates the rest."""
     dev = _device(device)
     jp = marker.parse(data)
+    if jp.lossless:
+        return lossless.decode_lossless(jp, data)
     _check_slice(jp)
     planes = _entropy(jp, data)
     return render(jp, planes, None, fancy_upsample, dct_method,
@@ -572,42 +591,54 @@ def decode_grayscale(data: bytes, fancy_upsample: bool = True,
     """djpeg -grayscale (mozjpeg_tpu decode_grayscale): YCbCr and gray
     sources render component 0 alone (jdcolor.c's null conversion; the
     chroma is not even transformed), RGB sources take the fixed-point Y
-    of rgb_gray_convert; other colour spaces raise ValueError."""
+    of rgb_gray_convert; other colour spaces raise ValueError. Lossless
+    streams give their first component (lossless.decode_lossless). As in
+    the JAX package, whose rgb_to_gray casts to uint8 at every
+    precision, an RGB stream above 8 bits gives the low 8 bits of its
+    luma."""
     dev = _device(device)
     jp = marker.parse(data)
+    if jp.lossless:
+        img = lossless.decode_lossless(jp, data)
+        return img if img.ndim == 2 else img[..., 0]
     _check_slice(jp)
     planes = _entropy(jp, data)
     cs = _jpeg_colorspace(jp)
     if cs == "rgb":
         return color.rgb_to_gray(_render_t(
             jp, planes, None, fancy_upsample, "islow", block_smoothing,
-            dev)).cpu().numpy()
+            dev), jp.precision).to(torch.uint8).cpu().numpy()
     if cs not in ("grayscale", "ycbcr"):
         raise ValueError("cannot convert %s to grayscale" % cs)
     y = _maybe_smooth(jp, planes, block_smoothing, 1)[0]
-    return _render_comp(jp, y, 0, "islow", dev)[:jp.height, :jp.width] \
-        .cpu().numpy()
+    return _to_host(_render_comp(jp, y, 0, "islow",
+                                 dev)[:jp.height, :jp.width])
 
 
 def render_plane_scaled(zz: torch.Tensor, qt: torch.Tensor, ch: int,
-                        cw: int, size: int) -> torch.Tensor:
+                        cw: int, size: int,
+                        precision: int = 8) -> torch.Tensor:
     """(..., bh, bw, 64) zigzag coefficients + a broadcastable (8, 8)
-    natural-order quant table -> (..., ch, cw) uint8 samples from the
-    size x size scaled IDCT, size 1..16 (the JAX _render_plane_scaled:
-    jidctred.c at 1, 2 and 4, islow at 8, jidctint.c elsewhere)."""
+    natural-order quant table -> (..., ch, cw) samples from the size x
+    size scaled IDCT, size 1..16 (the JAX _render_plane_scaled:
+    jidctred.c at 1, 2 and 4, islow at 8, jidctint.c elsewhere), at the
+    stream's precision as jidctint.c and jidctred.c run (PASS1_BITS and
+    the range limit of the precision; the JAX function keeps the 8-bit
+    ones at every precision, ROADMAP.md §3)."""
     blocks = layout.from_zigzag(zz.to(torch.int32))
     if size == 8:
-        pix = dct.idct_islow(blocks, qt)
+        pix = dct.idct_islow(blocks, qt, dct.pass1_bits(precision),
+                             precision)
     elif size == 4:
-        pix = idct_scaled.idct_4x4(blocks, qt)
+        pix = idct_scaled.idct_4x4(blocks, qt, precision)
     elif size == 2:
-        pix = idct_scaled.idct_2x2(blocks, qt)
+        pix = idct_scaled.idct_2x2(blocks, qt, precision)
     elif size == 1:
-        pix = idct_scaled.idct_1x1(blocks, qt)
+        pix = idct_scaled.idct_1x1(blocks, qt, precision)
     elif size in idct_scaled._REDUCED:
-        pix = idct_scaled.idct_reduced(blocks, qt, size)
+        pix = idct_scaled.idct_reduced(blocks, qt, size, precision)
     else:
-        pix = idct_scaled.idct_expanded(blocks, qt, size)
+        pix = idct_scaled.idct_expanded(blocks, qt, size, precision)
     return layout.unblockify(pix)[..., :ch, :cw]
 
 
@@ -663,8 +694,9 @@ def decode_scaled(data: bytes, num: int, den: int,
     if min_size is None:
         raise ValueError("scale %d/%d > 2 not supported" % (num, den))
     _check_slice(jp)
-    return render_scaled_t(jp, _entropy(jp, data), min_size, fancy_upsample,
-                           block_smoothing, colorspace, dev).cpu().numpy()
+    return _to_host(render_scaled_t(jp, _entropy(jp, data), min_size,
+                                    fancy_upsample, block_smoothing,
+                                    colorspace, dev))
 
 
 def render_scaled_t(jp, planes, min_size: int, fancy_upsample: bool,
@@ -690,7 +722,7 @@ def render_scaled_t(jp, planes, min_size: int, fancy_upsample: bool,
         pl = render_plane_scaled(
             _to_device(smoothed[ci], dev),
             _to_device(_comp_qtable(jp, ci).astype(np.int32), dev),
-            down_h, down_w, ssize)
+            down_h, down_w, ssize, jp.precision)
         mode, hexp, vexp = _scaled_upsampler(jp, c, ssize, min_size, fancy,
                                              down_w)
         samples.append(upsample_plane_scaled(pl, mode, hexp, vexp))
@@ -704,9 +736,11 @@ def render_scaled_t(jp, planes, min_size: int, fancy_upsample: bool,
             raise ValueError("all input arrays must have the same shape")
         out = torch.stack(out, dim=-1)
     elif cs == "ycck":
-        out = upsample_ycck(*samples[:4], "none", out_h, out_w)
+        out = upsample_ycck(*samples[:4], "none", out_h, out_w,
+                            precision=jp.precision)
     else:
-        out = upsample_color(*samples[:3], "none", out_h, out_w)
+        out = upsample_color(*samples[:3], "none", out_h, out_w,
+                             precision=jp.precision)
     return out
 
 
@@ -732,7 +766,9 @@ def decode_rgb565(data: bytes, fancy_upsample: bool = True,
     stream packs one dithered value into all three fields
     (gray_rgb565D). YCbCr and gray streams only, else ValueError. The
     IDCT, upsampling, YCbCr -> RGB and the pack run in int32 on `device`;
-    the cast to uint16 is on the host."""
+    the cast to uint16 is on the host. Above 8 bits the samples render at
+    the stream's precision and then take the 8-bit centre and clamp, as
+    in the JAX package."""
     dev = _device(device)
     jp = marker.parse(data)
     _check_slice(jp)
@@ -895,7 +931,7 @@ def decode_cropped(data: bytes, x: int, w: int, fancy_upsample: bool = True,
                                    dev)[:, start:start + dw])
     pix = _convert(jp, slices, colorspace or _jpeg_colorspace(jp),
                    fancy_upsample, w2)
-    return pix.cpu().numpy(), ax, w2
+    return _to_host(pix), ax, w2
 
 
 def _truncated(data: bytes, nscans: int) -> marker.ParsedJpeg:
@@ -1006,12 +1042,13 @@ class GroupKey(NamedTuple):
 def group_key(jp, planes, fancy_upsample: bool = True,
               block_smoothing: bool = True) -> Optional[GroupKey]:
     """The batch an image joins, or None for the per-image render: a
-    colour space other than YCbCr and gray, active block smoothing, or
-    Cb/Cr planes that differ in geometry or quant table
+    precision other than 8 (the JAX _fast_decode_key's rule), a colour
+    space other than YCbCr and gray, active block smoothing, or Cb/Cr
+    planes that differ in geometry or quant table
     (decoder.py:1595-1629)."""
     cs = _jpeg_colorspace(jp)
-    if cs not in ("ycbcr", "grayscale") or _smoothing_active(
-            jp, block_smoothing):
+    if (jp.precision != 8 or cs not in ("ycbcr", "grayscale")
+            or _smoothing_active(jp, block_smoothing)):
         return None
     gray = cs == "grayscale"
     mode, hexp, vexp = ((None, 1, 1) if gray
@@ -1080,12 +1117,15 @@ def decode_many(datas, fancy_upsample: bool = True,
     The host entropy decode (Huffman or arithmetic) runs on a thread
     pool; as soon as GROUP YCbCr or gray images of one geometry are ready
     they render in one batch on the device while the pool goes on; the
-    others (RGB, CMYK, YCCK, active block smoothing) render one at a time
-    on the device. output="rgb" gives (H, W, 3), gray (H, W) or CMYK
-    (H, W, 4) uint8 per image; output="yuv" the per-component sample
-    planes at jpeg_read_raw_data dims; output="rgb565" decode_rgb565's
-    (H, W) uint16, one image at a time. device: None or "cuda" (the
-    default, the GPU; raises without one) or "cpu"."""
+    others (RGB, CMYK, YCCK, active block smoothing, samples over 8 bits)
+    render one at a time on the device. output="rgb" gives (H, W, 3),
+    gray (H, W) or CMYK (H, W, 4), uint8 (uint16 above 8 bits), per
+    image; output="yuv" the per-component sample planes at
+    jpeg_read_raw_data dims; output="rgb565" decode_rgb565's (H, W)
+    uint16, one image at a time. Lossless streams decode on the host
+    (lossless.decode_lossless); they have no YUV output (ValueError).
+    device: None or "cuda" (the default, the GPU; raises without one) or
+    "cpu"."""
     if output not in ("rgb", "yuv", "rgb565"):
         raise ValueError("output must be rgb, yuv or rgb565")
     dev = _device(device)
@@ -1094,15 +1134,26 @@ def decode_many(datas, fancy_upsample: bool = True,
         return [decode_rgb565(d, fancy_upsample, device=dev) for d in datas]
     jps = [marker.parse(d) for d in datas]
     for jp in jps:
-        _check_slice(jp)
+        if not jp.lossless:
+            _check_slice(jp)
     out: List = [None] * len(datas)
     planes_list: List = [None] * len(datas)
     nthreads = min(8, max(2, os.cpu_count() or 4))
+
+    def entropy(jp, d):
+        return None if jp.lossless else _entropy(jp, d)
+
     with ThreadPoolExecutor(max_workers=nthreads) as pool:
-        futs = [pool.submit(_entropy, jp, d) for jp, d in zip(jps, datas)]
+        futs = [pool.submit(entropy, jp, d) for jp, d in zip(jps, datas)]
         pending: dict = {}
         for i, f in enumerate(futs):
             planes_list[i] = f.result()
+            if jps[i].lossless:
+                if output == "yuv":
+                    raise ValueError(
+                        "yuv output requires a lossy (DCT) stream")
+                out[i] = lossless.decode_lossless(jps[i], datas[i])
+                continue
             if output == "yuv":
                 out[i] = decode_raw_planes_parsed(jps[i], planes_list[i],
                                                   dev)

@@ -26,12 +26,15 @@ arithmetic trellis, trellis_q_opt, quant slots other than the
 colorspace's) run its per-image route on the same groups; on the CPU
 they, and encode()'s single images, take the host engine
 (codec/host_engine.py) where the JAX package does. The surface is the
-JAX package's whole 8-bit one: gray, YCbCr, RGB, CMYK and YCCK; any
+JAX package's whole lossy one: gray, YCbCr, RGB, CMYK and YCCK; any
 subsampling; islow, ifast and float DCTs; smoothing; restart intervals;
 sequential, progressive, custom and FASTEST scripts with optimized or
 standard Huffman tables or arithmetic coding; every trellis option;
-quant tables and slots, ICC and density. What it does not carry raises
-NotImplementedError naming the ROADMAP.md item that brings it.
+quant tables and slots, ICC and density; 8-bit samples (uint8) and
+12-bit ones (uint16, precision=12: the AC trellis kernel at 14 bit
+lengths, Huffman only, SOF1 when sequential). Lossless SOF3 is
+codec/lossless.py. What it does not carry raises NotImplementedError
+naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -141,10 +144,11 @@ def _check_slice(image, cfg):
             "mozjpeg_tpu_torch: %s is not ported yet (ROADMAP.md queue 1 "
             "item %s)" % (what, item))
 
-    if image.dtype != np.uint8:
-        no("input other than uint8 samples", "4.1")
-    if cfg.precision != 8:
-        no("12-bit precision", "4.1")
+    if image.dtype not in (np.uint8, np.uint16):
+        raise ValueError("expected uint8 or uint16 samples, got %s"
+                         % image.dtype)
+    if image.dtype == np.uint16 and cfg.precision == 8:
+        raise ValueError("uint16 samples need precision=12")
     if cfg.device_entropy or cfg.device_scanopt:
         no("the device entropy and scan-search engines", "7")
     if cfg.sparse_download or cfg.plane_pack or cfg.coef_transport:
@@ -243,8 +247,9 @@ def batchable(ctx: GroupCtx) -> bool:
 def encode_many(images, config: Optional[EncoderConfig] = None,
                 progress=None, trace=None, device=None,
                 **overrides) -> List[bytes]:
-    """Encode uint8 images, (H, W) gray or (H, W, C) with C = 3 (RGB) or
-    4 (CMYK), to JPEG bytes, byte-identical to mozjpeg_tpu.encode_many.
+    """Encode images, (H, W) gray or (H, W, C) with C = 3 (RGB) or 4
+    (CMYK), uint8 (or uint16 with precision=12), to JPEG bytes,
+    byte-identical to mozjpeg_tpu.encode_many.
     device: None or "cuda" (the default, the GPU; raises without one) or
     "cpu" (the kernels' plain versions). Same-shape images run in groups
     (encode_group); on the CPU the configurations the JAX package does
@@ -333,6 +338,7 @@ def _batch_p1(images, ctx: GroupCtx, dev, times=None):
     ris = trellis_ris(cfg, geom[2])
     dctm = cfg.dct_method.value
     if (cfg.host_prep and cfg.smoothing_factor == 0 and ctx.cs == "ycbcr"
+            and cfg.precision == 8
             and tuple(ctx.samp[0]) in ((2, 2), (2, 1), (1, 1))):
         # host C++ colour conversion + downsampling halves the upload;
         # mj_prep_ycc downsamples exactly at 2x2, 2x1 and 1x1 only (other
@@ -348,12 +354,13 @@ def _batch_p1(images, ctx: GroupCtx, dev, times=None):
                 qt_slots(cfg, ctx.cs, ctx.ncomps))
     else:
         with stage(times, "prep", dev):
-            imgs_t = torch.from_numpy(np.stack(images)).to(dev)
+            imgs_t = pipeline_t.to_samples(np.stack(images), dev)
         with stage(times, "p1", dev):
             merged, smalls, norms = pipeline_t.p1_batch(
                 imgs_t, geom, ctx.cs, ctx.qtables,
                 qt_slots(cfg, ctx.cs, ctx.ncomps),
-                cfg.overshoot_deringing, dctm, ris, cfg.smoothing_factor)
+                cfg.overshoot_deringing, dctm, ris, cfg.smoothing_factor,
+                cfg.precision)
     return geom, merged, smalls, norms
 
 
@@ -417,7 +424,7 @@ def _batch_rest(images, p1, ctx: GroupCtx, dev, times=None, record=None,
         record.setdefault("lambda", []).extend(zip(norms, lams))
     common = dict(batch=b, eob_opt=cfg.trellis_eob_opt,
                   delta_w=float(cfg.trellis_delta_dc_weight), times=times,
-                  record=record)
+                  record=record, precision=cfg.precision)
 
     def run(cur, ac_sis, bands, dc_on):
         return trellis.trellis_all(tcomps, raws, cur, lams, ac_sis, dc_sis,

@@ -4,8 +4,8 @@ Port of mozjpeg_tpu/codec/pipeline_t.py. p1 runs on the device over every
 block of a group of same-shape images at once, per component:
 
   blockify -> [zigzag -> dering -> natural] -> FDCT (islow, ifast or
-  float) -> quantize -> clip +-1023 -> zigzag; norm sums; AC-first
-  histograms (segmented at the trellis's restart intervals).
+  float) -> quantize -> clip +-(2^(precision+2)-1) -> zigzag; norm sums;
+  AC-first histograms (segmented at the trellis's restart intervals).
 
 Its planes come one of two ways, as in the JAX package's _batch_p1:
   - host prep (run_p1_batch_pre): the native mj_prep_ycc converts and
@@ -19,6 +19,11 @@ Its planes come one of two ways, as in the JAX package's _batch_p1:
 Block data is coefficient-major, (64, B*n) image-major, like the JAX
 package's merged planes. The small sidecar is the JAX package's layout:
 per image [norm f32 bits per comp | AC-first histogram per comp], int32.
+
+Samples are uint8 at 8 bits; 12-bit samples go up as uint16 bits and are
+carried as int32 from there on (to_samples), since torch's uint16
+supports few operations. Host prep is 8-bit YCbCr only, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -75,17 +80,31 @@ def _t81(table: np.ndarray, device) -> torch.Tensor:
                            device=device)
 
 
+def to_samples(images: np.ndarray, dev) -> torch.Tensor:
+    """A stack of uint8 or uint16 images -> its samples on dev: uint8 as
+    they are, uint16 uploaded as their 16 bits and widened to int32
+    there."""
+    if images.dtype == np.uint8:
+        return torch.from_numpy(images).to(dev)
+    bits = torch.from_numpy(images.view(np.int16)).to(dev)
+    return bits.to(torch.int32) & 0xFFFF
+
+
 def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
             dering_on: bool, batch: int, dct_method: str = "islow",
-            ri: int = 0):
-    """One component of a group: plane (B, >= bh*8, >= bw*8) uint8 ->
-    (q_zz (64, B*n) int16, raw_zz (64, B*n) int32, norm (B*n,) f32,
-    AC-first histograms (B, 256) int32)."""
+            ri: int = 0, precision: int = 8):
+    """One component of a group: plane (B, >= bh*8, >= bw*8) samples
+    (uint8, or int32 above 8 bits) -> (q_zz (64, B*n) int16, raw_zz
+    (64, B*n) int32, norm (B*n,) f32, AC-first histograms (B, 256)
+    int32)."""
     dev = plane.device
     qtbl = np.asarray(qtbl)
     q0 = int(qtbl.reshape(64)[0])
     blocks = layout.blockify_t(
-        plane[:, :g.bh * 8, :g.bw * 8].to(torch.int32) - 128)
+        plane[:, :g.bh * 8, :g.bw * 8].to(torch.int32)
+        - (1 << (precision - 1)))
+    # the dering threshold stays 255 - CENTERJSAMPLE's 8-bit literal at
+    # every precision (jcdctmgr.c:419)
     if dering_on and dct_method != "float":
         blocks = layout.from_zigzag_t(
             dering.dering_t(layout.to_zigzag_t(blocks), q0))
@@ -102,11 +121,13 @@ def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
         qz = dct.quantize_float_t(sc, _t81(dct.float_divisors(qtbl), dev))
         coeffs = dct.rescale_float_t(sc)
     else:
-        coeffs = dct.fdct_islow_t(blocks)
+        coeffs = dct.fdct_islow_t(blocks, dct.pass1_bits(precision))
         qz = quant.quantize_islow_t(
             coeffs, _t81(np.asarray(qtbl, np.int32), dev))
     if dering_on:
-        qz = torch.clamp(qz, -1023, 1023)    # post-dering clamp
+        # post-dering clamp (jcdctmgr.c:706,764)
+        maxc = (1 << (precision + 2)) - 1
+        qz = torch.clamp(qz, -maxc, maxc)
     q_zz = layout.to_zigzag_t(qz)
     raw_zz = layout.to_zigzag_t(coeffs)
     return (q_zz, raw_zz, norm_seq(raw_zz),
@@ -114,15 +135,15 @@ def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
 
 
 def _p1_planes(planes, geom, qtables, dering_on: bool, dct_method: str,
-               ris):
-    """Per component (B, H, W) uint8 planes -> ([(q_zz, raw_zz)] per comp,
-    smalls (B*stride,) int32, [norm (B*n,) f32] per comp)."""
+               ris, precision: int = 8):
+    """Per component (B, H, W) sample planes -> ([(q_zz, raw_zz)] per
+    comp, smalls (B*stride,) int32, [norm (B*n,) f32] per comp)."""
     b = planes[0].shape[0]
     merged, norms, hists = [], [], []
     for ci, (plane, g) in enumerate(zip(planes, geom)):
         q_zz, raw_zz, norm, hist = p1_comp(
             plane, g, qtables[ci], dering_on, b, dct_method,
-            ris[ci] if ris else 0)
+            ris[ci] if ris else 0, precision)
         merged.append((q_zz, raw_zz))
         norms.append(norm)
         hists.append(hist)
@@ -188,21 +209,22 @@ def _comp_plane(p: torch.Tensor, g: CompGeom, max_h: int, max_v: int,
 
 
 def prep_planes(images: torch.Tensor, geom_full, cs: str,
-                smoothing: int = 0):
-    """Device prep: images (B, H, W) or (B, H, W, C) uint8 on the device
-    -> per component (B, bh_pad*8, bw_pad*8) uint8 planes. cs names the
-    colour conversion (YCbCr, gray, YCCK, or none for RGB and CMYK)."""
+                smoothing: int = 0, precision: int = 8):
+    """Device prep: images (B, H, W) or (B, H, W, C) samples on the
+    device (to_samples) -> per component (B, bh_pad*8, bw_pad*8) planes
+    of the samples' type. cs names the colour conversion (YCbCr, gray,
+    YCCK, or none for RGB and CMYK)."""
     mcus_x, mcus_y, geom = geom_full
     max_h, max_v = geom[0].h, geom[0].v
     h = images.shape[1]
     ph, pw = mcus_y * 8 * max_v, mcus_x * 8 * max_h
     h2 = -(-h // max_v) * max_v
     if cs == "ycck":
-        chans = color.cmyk_to_ycck(images)
+        chans = color.cmyk_to_ycck(images, precision)
     elif cs in ("rgb", "cmyk"):
         chans = images                # null conversion (jccolor.c:723)
     elif images.dim() == 4:
-        chans = color.rgb_to_ycc(images)
+        chans = color.rgb_to_ycc(images, precision)
     else:
         chans = images[..., None]
     return [_comp_plane(layout.pad_plane(chans[..., ci], ph, pw), g,
@@ -212,12 +234,12 @@ def prep_planes(images: torch.Tensor, geom_full, cs: str,
 
 def p1_batch(images: torch.Tensor, geom_full, cs: str, qtables, slots,
              dering_on: bool, dct_method: str = "islow", ris=None,
-             smoothing: int = 0):
+             smoothing: int = 0, precision: int = 8):
     """Device prep + p1 -> as p1_batch_pre; slots are the components'
     quant slots."""
-    planes = prep_planes(images, geom_full, cs, smoothing)
+    planes = prep_planes(images, geom_full, cs, smoothing, precision)
     return _p1_planes(planes, geom_full[2], comp_qtables(qtables, slots),
-                      dering_on, dct_method, ris)
+                      dering_on, dct_method, ris, precision)
 
 
 def download_hists(geom, small: torch.Tensor, b: int) -> np.ndarray:

@@ -38,7 +38,13 @@ from ..ops.symbols import ac_first_histograms_t, nbits
 from .stages import stage
 
 DC_CAND_MAX = 9    # DC_TRELLIS_MAX_CANDIDATES
-MAXQ = 1023        # largest 8-bit coefficient magnitude
+
+
+def kmax_maxq(precision: int):
+    """(kmax, maxq) of the trellis at a data precision: the largest
+    quantized magnitude 2^(precision+2) - 1 and its bit length (10, 1023
+    at 8 bits; 14, 16383 at 12), as make_trellis_all_t derives them."""
+    return precision + 2, (1 << (precision + 2)) - 1
 
 
 @functools.lru_cache(maxsize=1)
@@ -122,58 +128,69 @@ def rate_lut(ac_si: torch.Tensor, kmax: int = _ac.KMAX) -> torch.Tensor:
     return lut.contiguous()
 
 
-def ac_example_inputs(kind: str, b: int, n_img: int, seed: int = 0):
+def ac_example_inputs(kind: str, b: int, n_img: int, seed: int = 0,
+                      precision: int = 8):
     """Seeded arguments of the AC trellis for B=b images of n_img blocks,
     as numpy arrays (raw (64, N) int32, qtbl (64,) int32, ltbl (64,) f32,
     rate_luts (b, 128, 16) f32, lam (N,) f32), for tests and the smoke run.
     tie: q = 1, raw on multiples of 8 and lambda 1/64, so that every
     distortion and cost is an integer and ties between predecessors and
     bit lengths are common; sparse: nine in ten AC coefficients quantize
-    to zero; dense: every AC coefficient nonzero, qval spread up to 1023
+    to zero; dense: every AC coefficient nonzero, qval spread up to maxq
     (and past it, clamped); zero: all raw zero; no_codes: sparse blocks
     with every rate and the EOB length BIG, so that no step beats BIG and
-    every end cost is BIG or more."""
+    every end cost is BIG or more. At precision 12 the values scale with
+    maxq (16383 against 1023), so that dense and sparse raw values pass
+    46,341, whose square wraps int32, and the rate LUT has kmax 14."""
     rng = np.random.default_rng(seed)
     n = b * n_img
+    kmax, maxq = kmax_maxq(precision)
+    wide = (maxq + 1) // 1024             # 1 at 8 bits, 16 at 12
     lam = (rng.random(n) * 4 + 0.01).astype(np.float32)
     qtbl = rng.integers(1, 60, 64).astype(np.int32)
     if kind == "tie":
         qtbl = np.ones(64, np.int32)
         raw = rng.integers(-20, 21, (64, n)) * 8
         raw[rng.random(raw.shape) < 0.7] = 0
+        if wide > 1:
+            # a tenth of the values reach bit lengths up to kmax
+            raw[rng.random(raw.shape) < 0.1] *= maxq // 20
         lam = np.full(n, 1 / 64, np.float32)
     elif kind == "dense":
         qtbl = rng.integers(1, 5, 64).astype(np.int32)
         q8 = (qtbl << 3)[:, None]
-        qval = rng.integers(1, 1100, (64, n))
+        qval = rng.integers(1, maxq + 77 * wide, (64, n))
         raw = qval * q8 + rng.integers(-(q8 >> 1), q8 >> 1, (64, n))
-        raw[0] = rng.integers(-2000, 2000, n)
+        raw[0] = rng.integers(-2000 * wide, 2000 * wide, n)
     elif kind == "zero":
         raw = np.zeros((64, n), np.int64)
     else:
-        raw = rng.integers(-3000, 3000, (64, n))
+        raw = rng.integers(-3000 * wide, 3000 * wide, (64, n))
         raw[rng.random(raw.shape) < 0.9] = 0
     raw = (raw * rng.choice([-1, 1], (64, n))).astype(np.int32)
     si = rng.integers(2, 17, (b, 256)).astype(np.int32)
     si[:, 0] = rng.integers(2, 10, b)
     si[b - 1, 0xF0] = 0                   # one image without a ZRL code
-    luts = rate_lut(torch.as_tensor(si)).numpy()
+    luts = rate_lut(torch.as_tensor(si), kmax).numpy()
     if kind == "no_codes":
         luts = np.full_like(luts, _ac.BIGF)
     return raw, qtbl, recip2_table()[qtbl], luts, lam
 
 
 def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int,
-                    delta_w: float = 0.0, above_raw=None, above_dc=None):
+                    delta_w: float = 0.0, above_raw=None, above_dc=None,
+                    maxq: int = 1023):
     """DC trellis over a batch of independent block rows.
 
     raw_dc (R, L) int32 unquantized DC (x8); last_dc0 (R,) int32 initial
     predictor per row; dc_si (256,) int32; lam_dc (R, L) f32 (lambda *
     1/q0^2) -> ((R, L) int32 chosen quantized DC, (R,) int32 last DC).
-    With delta_w > 0 and the row above (above_raw, its raw DC, and
-    above_dc, its chosen DC), the distortion blends in the vertical
-    gradient error (jcdctmgr.c:1069-1084). The DP runs one step per block
-    column; ties go to the first index."""
+    Candidates clamp to +-maxq (kmax_maxq). With delta_w > 0 and the row
+    above (above_raw, its raw DC, and above_dc, its chosen DC), the
+    distortion blends in the vertical gradient error
+    (jcdctmgr.c:1069-1084). The squares stay int32 and wrap at 12 bits as
+    the JAX program's do. The DP runs one step per block column; ties go
+    to the first index."""
     dev = raw_dc.device
     R, L = raw_dc.shape
     q8 = q0 * 8
@@ -181,7 +198,7 @@ def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int,
     x = raw_dc.abs()
     qval = (x + q8 // 2) // q8
     ks = torch.arange(nc, dtype=torch.int32, device=dev)
-    cand_mag = torch.clamp(qval[..., None] - nc // 2 + ks, -MAXQ, MAXQ)
+    cand_mag = torch.clamp(qval[..., None] - nc // 2 + ks, -maxq, maxq)
     delta = cand_mag * q8 - x[..., None]
     dist = (delta * delta).to(torch.float32) * lam_dc[..., None]
     cand = cand_mag * sign[..., None]                  # (R, L, nc) signed
@@ -273,10 +290,11 @@ def eob_block_dp(czero, skip, has_eob, eob_si):
 def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
                 batch: int, bands=((1, 63),), dc_on: bool = True,
                 eob_opt: bool = False, delta_w: float = 0.0, times=None,
-                record=None):
+                record=None, precision: int = 8):
     """Trellis every component of a batch of same-shape images: the AC
     trellis of each band in `bands` (with the EOB-run DP when eob_opt),
-    then, with dc_on, the DC trellis.
+    then, with dc_on, the DC trellis, at the (kmax, maxq) of the
+    precision (kmax_maxq).
 
     raws/qs: per component (64, B*n) int32 / int16 image-major planes;
     lams: per component (B*n,) f32; ac_sis: per component (B, 256) int32
@@ -289,8 +307,9 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
     recip = recip2_table()
     pos = torch.arange(64, device=dev)[:, None]
     outs = []
+    kmax, maxq = kmax_maxq(precision)
     with stage(times, "trellis_ac", dev):
-        luts_all = rate_lut(torch.cat(list(ac_sis), 0))
+        luts_all = rate_lut(torch.cat(list(ac_sis), 0), kmax)
     for ci, g in enumerate(geoms):
         qz = np.asarray(qtbl_zzs[ci], np.int32)
         new_q = qs[ci]
@@ -299,7 +318,7 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
                 args = (raws[ci], torch.as_tensor(qz, device=dev),
                         torch.as_tensor(recip[qz], device=dev),
                         luts_all[ci * batch:(ci + 1) * batch], lams[ci], ss,
-                        se, g.bh * g.bw)
+                        se, g.bh * g.bw, kmax, maxq)
                 if record is not None:
                     record.setdefault("trellis_ac", []).append(args)
                 new_band, ei = _ac.trellis_ac(*args)
@@ -345,7 +364,7 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
                 dc, fin = trellis_dc_rows(
                     rr.reshape(-1, g.bw), init, q0, dc_si,
                     lam_dc_full[:, p::v].reshape(-1, g.bw), ncands[ci],
-                    delta_w, ar, ad)
+                    delta_w, ar, ad, maxq)
                 dc_all[:, p::v] = dc.reshape(batch, nph, g.bw)
                 prev = fin.reshape(batch, nph)
             new_q = outs[ci].clone()

@@ -9,13 +9,21 @@
 // Outputs: new_band (64, N) int32 signed kept values (0 elsewhere) and
 // ei (8, N) f32 rows [czero, skip, has_eob, 0...] for the EOB-run DP.
 //
+// One template on (KMAX, MAXQ), the bit lengths k < KMAX of a quantized
+// value and its clamp: <10, 1023> for 8-bit samples (the Pallas kernel's
+// own constants) and <14, 16383> for 12-bit ones (where the JAX package
+// runs codec/trellis.py::_trellis_ac_t at kmax 14 / maxq 16383).
+// mj_trellis_ac picks the instantiation from the data precision.
+//
 // Bound: bytes. Each block reads its 64 raw words and lambda and writes
 // 64 + 8 words, 548 bytes a block (40.6 MB for one group of eight
 // 768x512 images, 12 us at 3.35 TB/s). The operations are data
 // dependent: only nonzero quantized positions are DP states, and on
-// quantized photos most AC positions are zero (about 65 candidate
+// quantized 8-bit photos most AC positions are zero (about 65 candidate
 // operations a block on the smoke corpus), so the arithmetic is far
-// below the bytes unless blocks are dense.
+// below the bytes unless blocks are dense. At 12 bits the samples grow
+// 16x against the same quant tables, so blocks are dense (about 50
+// nonzero AC coefficients) and the O(nnz^2 * KMAX) DP sets the time.
 //
 // Design: a CTA takes a tile of TB consecutive blocks of one image (the
 // grid is image x tile, so one rate LUT serves the CTA; the ragged last
@@ -46,7 +54,11 @@
 //
 // Exactness: build with -fmad=false and without --use_fast_math; every f32
 // product feeding an add is also an explicit __fmul_rn, so it rounds
-// before the add like the C reference. 1/q^2 comes from the host IEEE
+// before the add like the C reference. The squares |raw|^2 and delta^2
+// are int32 products in the JAX program and wrap there once |raw| passes
+// 46,341 (12-bit strong edges); here they multiply as unsigned, whose
+// wrap is defined, and convert back to int, the same two's complement
+// value (signed overflow would be undefined, and nvcc may assume it away). 1/q^2 comes from the host IEEE
 // table (ltbl); nothing is divided in floating point on the device.
 // Integer division only sees non-negative operands. The azd prefix is the
 // serial C-order sum over [Ss, Se] on one lane: positions outside the band
@@ -58,10 +70,8 @@
 
 namespace {
 
-constexpr int KMAX = 10;        // NBITS(1023)
 constexpr int RR_K = 16;        // row width of the run-indexed rate LUT
 constexpr int LUT_ROWS = 64;    // rows staged: 64-i+j lies in [1, 63]
-constexpr int LUT_LD = 11;      // odd shared row stride: rows spread banks
 constexpr float BIGF = 1e38f;
 constexpr int L = 8;            // lanes per 8x8 block
 constexpr int TB = 16;          // blocks per CTA (one tile)
@@ -77,6 +87,12 @@ __device__ __forceinline__ int nbits(int v) {
 
 __device__ __forceinline__ int low_bit(unsigned long long m) {
   return __ffsll((long long)m) - 1;
+}
+
+// a * b - c in int32 with two's complement wrap (the JAX program's int32
+// arithmetic), computed unsigned so that no signed overflow occurs
+__device__ __forceinline__ int wrap_mad(int a, int b, int c) {
+  return (int)((unsigned)a * (unsigned)b - (unsigned)c);
 }
 
 // Lexicographic (cost, j) minimum over the L lanes of a block (gm names
@@ -97,6 +113,7 @@ __device__ __forceinline__ void group_argmin(unsigned gm, float& c, int& j,
   }
 }
 
+template <int KMAX, int MAXQ>
 __global__ void __launch_bounds__(NT, 4)
 trellis_ac_kernel(const int32_t* __restrict__ raw,
                   const int32_t* __restrict__ qtbl,
@@ -111,6 +128,9 @@ trellis_ac_kernel(const int32_t* __restrict__ raw,
   __shared__ float s_acc[64 * LD];
   __shared__ int s_rb[64 * LD];       // qval, then rs | bv << 6
   __shared__ float s_ei[8 * LD];
+  constexpr int LUT_LD = KMAX | 1;  // odd shared row stride >= KMAX:
+                                    // rows spread over the banks
+  static_assert(KMAX <= RR_K && MAXQ < (1 << KMAX), "a LUT row holds k");
   __shared__ float s_lut[LUT_ROWS * LUT_LD];
   __shared__ int s_q8[64];
   __shared__ float s_lt[64];
@@ -166,11 +186,12 @@ trellis_ac_kernel(const int32_t* __restrict__ raw,
       const int r = rawb[p * LD];
       const int xa = r < 0 ? -r : r;
       const int q8 = s_q8[p];
-      azd[p * LD] = __fmul_rn(__fmul_rn((float)(xa * xa), lam_n), s_lt[p]);
+      azd[p * LD] =
+          __fmul_rn(__fmul_rn((float)wrap_mad(xa, xa, 0), lam_n), s_lt[p]);
       if (xa >= q8 - (q8 >> 1)) {                   // qval != 0
         mask |= 1ull << p;
         const int q = (xa + (q8 >> 1)) / q8;
-        rb[p * LD] = q > 1023 ? 1023 : q;
+        rb[p * LD] = q > MAXQ ? MAXQ : q;
       }
     }
 #pragma unroll
@@ -212,8 +233,9 @@ trellis_ac_kernel(const int32_t* __restrict__ raw,
       for (int k = 0; k < KMAX; ++k) {
         if (k >= nc_i) break;
         const int c = (nc_i == k + 1) ? qval_i : (2 << k) - 1;
-        const int d = c * q8_i - x_i;
-        cdist[k] = __fmul_rn(__fmul_rn((float)(d * d), lam_n), ltbl_i);
+        const int d = wrap_mad(c, q8_i, x_i);
+        cdist[k] = __fmul_rn(__fmul_rn((float)wrap_mad(d, d, 0), lam_n),
+                             ltbl_i);
       }
       float best = BIGF;
       int bj = 0, bk = -1;
@@ -289,7 +311,7 @@ trellis_ac_kernel(const int32_t* __restrict__ raw,
     for (int p = lane; p < 64; p += L) {
       int v = 0;
       if ((keep >> p) & 1ull) {
-        v = (rb[p * LD] >> 6) & 1023;
+        v = (rb[p * LD] >> 6) & MAXQ;             // rs | bv << 6
         if (rawb[p * LD] < 0) v = -v;
       }
       rawb[p * LD] = v;
@@ -311,22 +333,38 @@ trellis_ac_kernel(const int32_t* __restrict__ raw,
   }
 }
 
+template <int KMAX, int MAXQ>
+int launch(const void* raw, const void* qtbl, const void* ltbl,
+           const void* luts, const void* lam, void* nb, void* ei,
+           long long N, long long n_img, int Ss, int Se, void* stream) {
+  const long long tiles = (n_img + TB - 1) / TB;
+  const long long grid = tiles * (N / n_img);
+  trellis_ac_kernel<KMAX, MAXQ>
+      <<<(unsigned)grid, NT, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)raw, (const int32_t*)qtbl, (const float*)ltbl,
+          (const float*)luts, (const float*)lam, (int32_t*)nb, (float*)ei,
+          N, n_img, tiles, Ss, Se);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // raw (64, N) int32, qtbl (64,) int32, ltbl (64,) f32, luts (B, 128, 16)
 // f32, lam (N,) f32 -> nb (64, N) int32, ei (8, N) f32; N = B * n_img,
-// image-major. Launches on `stream` and returns cudaGetLastError().
+// image-major; precision 8 launches <10, 1023>, 12 <14, 16383>. Launches
+// on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for
+// another precision).
 extern "C" int mj_trellis_ac(const void* raw, const void* qtbl,
                              const void* ltbl, const void* luts,
                              const void* lam, void* nb, void* ei,
                              long long N, long long n_img, int Ss, int Se,
-                             void* stream) {
+                             int precision, void* stream) {
   if (N <= 0 || n_img <= 0) return 0;
-  const long long tiles = (n_img + TB - 1) / TB;
-  const long long grid = tiles * (N / n_img);
-  trellis_ac_kernel<<<(unsigned)grid, NT, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)raw, (const int32_t*)qtbl, (const float*)ltbl,
-      (const float*)luts, (const float*)lam, (int32_t*)nb, (float*)ei, N,
-      n_img, tiles, Ss, Se);
-  return (int)cudaGetLastError();
+  if (precision == 8)
+    return launch<10, 1023>(raw, qtbl, ltbl, luts, lam, nb, ei, N, n_img,
+                            Ss, Se, stream);
+  if (precision == 12)
+    return launch<14, 16383>(raw, qtbl, ltbl, luts, lam, nb, ei, N, n_img,
+                             Ss, Se, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,8 @@ Only the sources the encode and decode paths call are built:
                   and two-pass, and to a supplied colormap)
   imageio.cpp     the GIF LZW codec and the Targa RLE decoder of the
                   image writers and readers (utils/gif.py, utils/targa.py)
+  lossless.cpp    the lossless (SOF3) predictor coder and decoder
+                  (codec/lossless.py)
 
 The flags are a copy of mozjpeg_tpu/native/build.py's: -ffp-contract=off
 keeps every f32 product rounded before it feeds an add, and
@@ -33,7 +35,7 @@ SRC_DIR = os.path.join(os.path.dirname(PKG_DIR), "mozjpeg_tpu", "native")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 SOURCES = ("entropy.cpp", "scansearch.cpp", "prep.cpp", "hostenc.cpp",
-           "arith.cpp", "quant.cpp", "imageio.cpp")
+           "arith.cpp", "quant.cpp", "imageio.cpp", "lossless.cpp")
 LIB_NAME = "libmjport.so"
 
 BASE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",

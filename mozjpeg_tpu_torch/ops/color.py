@@ -7,6 +7,10 @@ build_ycc_rgb_table (decode) inlined as int32 multiplies (SCALEBITS=16).
 The tables are linear in the sample value, so the inlined products give
 the tables' integers. Decode clamps with the plain range-limit table of
 ycc_rgb_convert (not the post-IDCT wraparound one).
+
+Every function takes the data precision: 8-bit samples are uint8, wider
+ones (12 bits) int32, since torch's uint16 supports few operations; the
+callers make uint16 arrays on the host.
 """
 from __future__ import annotations
 
@@ -38,10 +42,17 @@ FIX_0_71414 = _fix(0.71414)
 FIX_0_34414 = _fix(0.34414)
 
 
-def _ycc(r, g, b):
+def _samples(x: torch.Tensor, precision: int) -> torch.Tensor:
+    """int32 samples -> the sample type of the precision (uint8 at 8
+    bits, int32 above)."""
+    return x.to(torch.uint8) if precision <= 8 else x.to(torch.int32)
+
+
+def _ycc(r, g, b, precision: int = 8):
     """int32 planes -> (Y, Cb, Cr) int32; Cb/Cr round with ONE_HALF-1
-    plus the centre offset (rgb_ycc_start's 0.5-epsilon)."""
-    ctr_off = 128 << SCALEBITS
+    plus the centre offset 1 << (precision-1) (rgb_ycc_start's
+    0.5-epsilon)."""
+    ctr_off = (1 << (precision - 1)) << SCALEBITS
     y = (FIX_0_29900 * r + FIX_0_58700 * g + FIX_0_11400 * b
          + ONE_HALF) >> SCALEBITS
     cb = ((-FIX_0_16874) * r + (-FIX_0_33126) * g + FIX_0_50000 * b
@@ -51,26 +62,31 @@ def _ycc(r, g, b):
     return y, cb, cr
 
 
-def rgb_to_ycc(rgb: torch.Tensor) -> torch.Tensor:
-    """(..., >=3) uint8 RGB -> (..., 3) uint8 YCbCr (8-bit samples)."""
+def rgb_to_ycc(rgb: torch.Tensor, precision: int = 8) -> torch.Tensor:
+    """(..., >=3) RGB samples -> (..., 3) YCbCr samples of the
+    precision."""
     r, g, b = (rgb[..., i].to(torch.int32) for i in range(3))
-    return torch.stack(_ycc(r, g, b), dim=-1).to(torch.uint8)
+    return _samples(torch.stack(_ycc(r, g, b, precision), dim=-1),
+                    precision)
 
 
-def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
-    """(..., 3) uint8 RGB -> (...) uint8 luma, the fixed-point Y of
-    jdcolor.c rgb_gray_convert."""
+def rgb_to_gray(rgb: torch.Tensor, precision: int = 8) -> torch.Tensor:
+    """(..., 3) RGB samples -> (...) luma samples of the precision, the
+    fixed-point Y of jdcolor.c rgb_gray_convert (Y has no centre
+    offset)."""
     r, g, b = (rgb[..., i].to(torch.int32) for i in range(3))
-    return _ycc(r, g, b)[0].to(torch.uint8)
+    return _samples(_ycc(r, g, b, precision)[0], precision)
 
 
-def cmyk_to_ycck(cmyk: torch.Tensor) -> torch.Tensor:
-    """(..., 4) uint8 CMYK -> (..., 4) uint8 YCCK (jccolor.c:396-437
-    cmyk_ycck_convert): CMY inverts to RGB and takes the YCC transform;
-    K passes through."""
-    r, g, b = (255 - cmyk[..., i].to(torch.int32) for i in range(3))
+def cmyk_to_ycck(cmyk: torch.Tensor, precision: int = 8) -> torch.Tensor:
+    """(..., 4) CMYK -> (..., 4) YCCK samples of the precision
+    (jccolor.c:396-437 cmyk_ycck_convert): CMY inverts to RGB against
+    MAXJSAMPLE and takes the YCC transform; K passes through."""
+    maxv = (1 << precision) - 1
+    r, g, b = (maxv - cmyk[..., i].to(torch.int32) for i in range(3))
     k = cmyk[..., 3].to(torch.int32)
-    return torch.stack(_ycc(r, g, b) + (k,), dim=-1).to(torch.uint8)
+    return _samples(torch.stack(_ycc(r, g, b, precision) + (k,), dim=-1),
+                    precision)
 
 
 def ycc_to_rgb(ycc: torch.Tensor, precision: int = 8) -> torch.Tensor:
@@ -86,15 +102,15 @@ def ycc_to_rgb(ycc: torch.Tensor, precision: int = 8) -> torch.Tensor:
     b = y + ((FIX_1_77200 * cb + ONE_HALF) >> SCALEBITS)
     g = y + (((-FIX_0_34414) * cb + (-FIX_0_71414) * cr + ONE_HALF)
              >> SCALEBITS)
-    rgb = torch.clamp(torch.stack([r, g, b], dim=-1), 0, maxv)
-    # samples wider than 8 bits stay int32 (torch has no full uint16)
-    return rgb.to(torch.uint8) if precision <= 8 else rgb
+    return _samples(torch.clamp(torch.stack([r, g, b], dim=-1), 0, maxv),
+                    precision)
 
 
-def ycck_to_cmyk(ycck: torch.Tensor) -> torch.Tensor:
-    """(..., 4) uint8 YCCK -> (..., 4) uint8 CMYK (jdcolor.c
-    ycck_cmyk_convert): YCC -> RGB, clamped, inverted back to CMY; K
-    passes through."""
-    cmy = 255 - ycc_to_rgb(ycck[..., :3]).to(torch.int32)
-    return torch.cat([cmy, ycck[..., 3:].to(torch.int32)],
-                     dim=-1).to(torch.uint8)
+def ycck_to_cmyk(ycck: torch.Tensor, precision: int = 8) -> torch.Tensor:
+    """(..., 4) YCCK -> (..., 4) CMYK samples of the precision (jdcolor.c
+    ycck_cmyk_convert): YCC -> RGB, clamped, inverted back to CMY against
+    MAXJSAMPLE; K passes through."""
+    maxv = (1 << precision) - 1
+    cmy = maxv - ycc_to_rgb(ycck[..., :3], precision).to(torch.int32)
+    return _samples(torch.cat([cmy, ycck[..., 3:].to(torch.int32)], dim=-1),
+                    precision)

@@ -96,15 +96,21 @@ def _fdct_butterfly(d, shift_even: int, descale_n: int):
     return o0, o1, o2, o3, o4, o5, o6, o7
 
 
-def fdct_islow_t(x: torch.Tensor) -> torch.Tensor:
-    """Exact islow forward DCT on (8, 8, N) int32 centered 8-bit samples;
-    output scaled x8 like jpeg_fdct_islow."""
+def pass1_bits(precision: int) -> int:
+    """PASS1_BITS of jfdctint.c / jidctint.c: 2 for 8-bit samples, 1 for
+    12-bit ones (so that the 12-bit products stay in 32 bits)."""
+    return PASS1_BITS if precision == 8 else 1
+
+
+def fdct_islow_t(x: torch.Tensor, pass1: int = PASS1_BITS) -> torch.Tensor:
+    """Exact islow forward DCT on (8, 8, N) int32 centered samples (pass1
+    = pass1_bits(precision)); output scaled x8 like jpeg_fdct_islow."""
     x = x.to(torch.int32)
     d = [x[:, c, :] for c in range(8)]                 # pass 1 over rows
-    o = _fdct_butterfly(d, PASS1_BITS, CONST_BITS - PASS1_BITS)
+    o = _fdct_butterfly(d, pass1, CONST_BITS - pass1)
     y = torch.stack(o, dim=1)                          # (8, 8, N)
     d = [y[r, :, :] for r in range(8)]                 # pass 2 over columns
-    o = _fdct_butterfly(d, -PASS1_BITS, CONST_BITS + PASS1_BITS)
+    o = _fdct_butterfly(d, -pass1, CONST_BITS + pass1)
     return torch.stack(o, dim=0)
 
 
@@ -433,17 +439,19 @@ def _idct_ifast_1d(d):
             t1 - t6, t0 - t7]
 
 
-def idct_ifast(coeffs: torch.Tensor, ifmtbl: torch.Tensor) -> torch.Tensor:
+def idct_ifast(coeffs: torch.Tensor, ifmtbl: torch.Tensor,
+               precision: int = 8) -> torch.Tensor:
     """AAN integer IDCT: (..., 8, 8) natural-order coefficients times the
-    ifast multiplier table -> (..., 8, 8) uint8 samples. The final descale
-    is a plain >> 5 (PASS1_BITS + 3, jidctfst.c IDESCALE without rounding),
-    then the wraparound range limit."""
+    ifast multiplier table -> (..., 8, 8) samples. The final descale is a
+    plain >> 5 (PASS1_BITS + 3, jidctfst.c IDESCALE without rounding),
+    then the wraparound range limit of the precision (the JAX package
+    keeps the 8-bit descale at 12 bits too)."""
     x = coeffs.to(torch.int32) * ifmtbl.to(torch.int32)
     y = torch.stack(_idct_ifast_1d([x[..., i, :] for i in range(8)]),
                     dim=-2)                            # columns
     o = torch.stack(_idct_ifast_1d([y[..., :, i] for i in range(8)]),
                     dim=-1)                            # rows
-    return _range_limit(o >> 5)
+    return _range_limit(o >> 5, precision)
 
 
 def float_multipliers(qtbl) -> np.ndarray:
@@ -500,19 +508,22 @@ def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= _I32_MAX_F, torch.full_like(v, 2 ** 31 - 1), v)
 
 
-def idct_float(coeffs: torch.Tensor, fmtbl: torch.Tensor) -> torch.Tensor:
+def idct_float(coeffs: torch.Tensor, fmtbl: torch.Tensor,
+               precision: int = 8) -> torch.Tensor:
     """Float AAN IDCT: (..., 8, 8) natural-order coefficients dequantized
     by fmtbl * 0.125, two f32 passes with the centre + 0.5 folded into the
     second pass's DC, (int) truncation, then jidctflt.c's range limit
     (sample_range_limit without the IDCT's centre offset: the identity on
-    0..255, then 255, then 0 over the wrapped index) -> (..., 8, 8)
-    uint8."""
+    0..MAXJSAMPLE, then MAXJSAMPLE, then 0 over the wrapped index) ->
+    (..., 8, 8) samples of the precision."""
     qm = fmtbl.to(torch.float32) * 0.125
     x = coeffs.to(torch.float32) * qm
     y = torch.stack(_idct_float_1d([x[..., i, :] for i in range(8)]),
                     dim=-2)
     o = torch.stack(_idct_float_1d([y[..., :, i] for i in range(8)],
-                                   128.5), dim=-1)
-    idx = _f32_to_i32(o) & 1023
-    lim = torch.where(idx <= 255, idx, torch.where(idx < 640, 255, 0))
-    return lim.to(torch.uint8)
+                                   (1 << (precision - 1)) + 0.5), dim=-1)
+    m = (1 << precision) - 1
+    idx = _f32_to_i32(o) & (4 * (m + 1) - 1)
+    lim = torch.where(idx <= m, idx,
+                      torch.where(idx < 2 * (m + 1) + (m + 1) // 2, m, 0))
+    return lim.to(torch.uint8 if precision <= 8 else torch.int32)

@@ -6,8 +6,12 @@ whole-tensor PyTorch ops over every block at once; the all-zero-AC
 shortcuts of the reference give the general path's values, so only the
 general path is written.
 
-Inputs: (..., 8, 8) int coefficients (natural order), qtbl broadcastable.
-Outputs: (..., S, S) uint8 samples.
+Inputs: (..., 8, 8) int coefficients (natural order), qtbl broadcastable,
+and the data precision. Outputs: (..., S, S) samples, uint8 at 8 bits and
+int32 above. At 12 bits the kernels run as jidctint.c and jidctred.c do
+there: PASS1_BITS 1 (dct.pass1_bits) and the 12-bit range limit. (The JAX
+package renders every scaled size with the 8-bit constants whatever the
+precision; the port departs from it there, ROADMAP.md §3.)
 
 The NxN kernels fold the descale rounding into the DC term as the C code
 does (the fudge added once, plain arithmetic shifts after it).
@@ -21,10 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from .dct import _descale, _range_limit
+from .dct import _descale, _range_limit, pass1_bits
 
 CONST_BITS = 13
-PASS1_BITS = 2
 
 F_0_211164243 = 1730
 F_0_509795579 = 4176
@@ -60,17 +63,19 @@ def _pass_4(d0, d1, d2, d3, d5, d6, d7, descale_n):
     return o0, o1, o2, o3
 
 
-def idct_4x4(coeffs: torch.Tensor, qtbl: torch.Tensor) -> torch.Tensor:
+def idct_4x4(coeffs: torch.Tensor, qtbl: torch.Tensor,
+             precision: int = 8) -> torch.Tensor:
+    pb = pass1_bits(precision)
     x = coeffs.to(torch.int32) * qtbl.to(torch.int32)
     # pass 1: columns (skip column 4)
     d = [x[..., i, :] for i in range(8)]
     o = _pass_4(d[0], d[1], d[2], d[3], d[5], d[6], d[7],
-                CONST_BITS - PASS1_BITS + 1)
+                CONST_BITS - pb + 1)
     y = torch.stack(o, dim=-2)                          # (..., 4, 8)
     d = [y[..., :, i] for i in range(8)]
     o = _pass_4(d[0], d[1], d[2], d[3], d[5], d[6], d[7],
-                CONST_BITS + PASS1_BITS + 3 + 1)
-    return _range_limit(torch.stack(o, dim=-1))         # (..., 4, 4)
+                CONST_BITS + pb + 3 + 1)
+    return _range_limit(torch.stack(o, dim=-1), precision)   # (..., 4, 4)
 
 
 def _pass_2(d0, d1, d3, d5, d7, descale_n):
@@ -82,23 +87,39 @@ def _pass_2(d0, d1, d3, d5, d7, descale_n):
     return o0, o1
 
 
-def idct_2x2(coeffs: torch.Tensor, qtbl: torch.Tensor) -> torch.Tensor:
+def idct_2x2(coeffs: torch.Tensor, qtbl: torch.Tensor,
+             precision: int = 8) -> torch.Tensor:
+    pb = pass1_bits(precision)
     x = coeffs.to(torch.int32) * qtbl.to(torch.int32)
     d = [x[..., i, :] for i in range(8)]
-    o = _pass_2(d[0], d[1], d[3], d[5], d[7], CONST_BITS - PASS1_BITS + 2)
+    o = _pass_2(d[0], d[1], d[3], d[5], d[7], CONST_BITS - pb + 2)
     y = torch.stack(o, dim=-2)                          # (..., 2, 8)
     d = [y[..., :, i] for i in range(8)]
-    o = _pass_2(d[0], d[1], d[3], d[5], d[7], CONST_BITS + PASS1_BITS + 3 + 2)
-    return _range_limit(torch.stack(o, dim=-1))         # (..., 2, 2)
+    o = _pass_2(d[0], d[1], d[3], d[5], d[7], CONST_BITS + pb + 3 + 2)
+    return _range_limit(torch.stack(o, dim=-1), precision)   # (..., 2, 2)
 
 
-def idct_1x1(coeffs: torch.Tensor, qtbl: torch.Tensor) -> torch.Tensor:
+def idct_1x1(coeffs: torch.Tensor, qtbl: torch.Tensor,
+             precision: int = 8) -> torch.Tensor:
+    """DESCALE(DC * q, 3), range-limited: the block's DC level."""
     dc = coeffs[..., 0, 0].to(torch.int32) * qtbl.to(torch.int32)[..., 0, 0]
-    return _range_limit(_descale(dc, 3))[..., None, None]
+    return _range_limit(_descale(dc, 3), precision)[..., None, None]
 
 
 def _fix(x: float) -> int:
     return int(x * (1 << CONST_BITS) + 0.5)
+
+
+class _Pass:
+    """Which pass a 1-D kernel runs (true for the first, over columns)
+    and the PASS1_BITS of the precision, which both passes read."""
+    __slots__ = ("first", "bits")
+
+    def __init__(self, first: bool, bits: int):
+        self.first, self.bits = first, bits
+
+    def __bool__(self):
+        return self.first
 
 
 def _sh(x, n):
@@ -108,13 +129,13 @@ def _sh(x, n):
 def _dc_in(d0, pass1):
     """DC term with the pass's descale fudge folded in (jidctint.c)."""
     if pass1:
-        return (d0 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1))
-    return (d0 + (1 << (PASS1_BITS + 2))) << CONST_BITS
+        return (d0 << CONST_BITS) + (1 << (CONST_BITS - pass1.bits - 1))
+    return (d0 + (1 << (pass1.bits + 2))) << CONST_BITS
 
 
 def _finish(outs, pass1):
-    n1 = CONST_BITS - PASS1_BITS
-    n2 = CONST_BITS + PASS1_BITS + 3
+    n1 = CONST_BITS - pass1.bits
+    n2 = CONST_BITS + pass1.bits + 3
     return [_sh(o, n1 if pass1 else n2) for o in outs]
 
 
@@ -154,12 +175,12 @@ def _p6(d, pass1):
     o1 = (z1 + z3) * _fix(0.366025404)
     odd0 = o1 + ((z1 + z2) << CONST_BITS)
     odd2 = o1 + ((z3 - z2) << CONST_BITS)
-    n1 = CONST_BITS - PASS1_BITS
-    n2 = CONST_BITS + PASS1_BITS + 3
+    n1 = CONST_BITS - pass1.bits
+    n2 = CONST_BITS + pass1.bits + 3
     if pass1:
         # rows 1/4 are finished early in pass 1 (jidctint.c:627-629)
         o14a = _sh(tmp11, n1)
-        o14b = (z1 - z2 - z3) << PASS1_BITS
+        o14b = (z1 - z2 - z3) << pass1.bits
         return [_sh(tmp10 + odd0, n1), o14a + o14b,
                 _sh(tmp12 + odd2, n1), _sh(tmp12 - odd2, n1),
                 o14a - o14b, _sh(tmp10 - odd0, n1)]
@@ -199,17 +220,18 @@ _REDUCED = {3: _p3, 5: _p5, 6: _p6, 7: _p7}
 
 
 def idct_reduced(coeffs: torch.Tensor, qtbl: torch.Tensor,
-                 size: int) -> torch.Tensor:
+                 size: int, precision: int = 8) -> torch.Tensor:
     """NxN reduced IDCT for N in 3/5/6/7: pass 1 over the first N columns
     using the upper-left NxN coefficients, pass 2 over the N rows."""
     p = _REDUCED[size]
+    pb = pass1_bits(precision)
     x = coeffs.to(torch.int32) * qtbl.to(torch.int32)
     cols = [x[..., k, :size] for k in range(size)]     # (..., size) each
-    rows = p(cols, True)                               # size x (..., size)
+    rows = p(cols, _Pass(True, pb))                    # size x (..., size)
     y = torch.stack(rows, dim=-2)                       # (..., size, size)
     ins = [y[..., :, k] for k in range(size)]
-    outs = p(ins, False)
-    return _range_limit(torch.stack(outs, dim=-1))
+    outs = p(ins, _Pass(False, pb))
+    return _range_limit(torch.stack(outs, dim=-1), precision)
 
 
 # ---------------------------------------------------------------------------
@@ -277,12 +299,12 @@ def _p10(d, pass1):
     z4b = z5 - tmp12o - (tmp13o << (CONST_BITS - 1))
     tmp11b = z1 * _fix(1.260073511) - z2 - z4b
     tmp13b = z1 * _fix(0.642039522) - z2 + z4b
-    n1 = CONST_BITS - PASS1_BITS
-    n2 = CONST_BITS + PASS1_BITS + 3
+    n1 = CONST_BITS - pass1.bits
+    n2 = CONST_BITS + pass1.bits + 3
     if pass1:
         # rows 2/7 finish early: both terms already at PASS1 scale
         o2a = _sh(tmp22_big, n1)
-        o2b = (z1 - tmp13o - z3o) << PASS1_BITS
+        o2b = (z1 - tmp13o - z3o) << pass1.bits
         return [_sh(tmp20 + tmp10o, n1), _sh(tmp21 + tmp11b, n1),
                 o2a + o2b,
                 _sh(tmp23 + tmp13b, n1), _sh(tmp24 + tmp14o, n1),
@@ -302,16 +324,17 @@ _EXPANDED = {9: _p9, 10: _p10}
 
 
 def idct_expanded(coeffs: torch.Tensor, qtbl: torch.Tensor,
-                  size: int) -> torch.Tensor:
+                  size: int, precision: int = 8) -> torch.Tensor:
     """NxN expanded IDCT for N in 9..16: 8 -> N point 1-D kernels."""
     p = _EXPANDED[size]
+    pb = pass1_bits(precision)
     x = coeffs.to(torch.int32) * qtbl.to(torch.int32)
     cols = [x[..., k, :] for k in range(8)]            # (..., 8) each
-    rows = p(cols, True)                               # N x (..., 8)
+    rows = p(cols, _Pass(True, pb))                    # N x (..., 8)
     y = torch.stack(rows, dim=-2)                       # (..., N, 8)
     ins = [y[..., :, k] for k in range(8)]
-    outs = p(ins, False)
-    return _range_limit(torch.stack(outs, dim=-1))      # (..., N, N)
+    outs = p(ins, _Pass(False, pb))
+    return _range_limit(torch.stack(outs, dim=-1), precision)  # (..., N, N)
 
 
 def _p11(d, pass1):
@@ -478,11 +501,11 @@ def _p14(d, pass1):
     t13o = (z3 - z2) * _fix(1.405321284)
     t14 = t14 + t13o + z4s - z3 * _fix(1.6906431334)
     t15 = t15 + t13o + z2 * _fix(0.674957567)
-    n1 = CONST_BITS - PASS1_BITS
-    n2 = CONST_BITS + PASS1_BITS + 3
+    n1 = CONST_BITS - pass1.bits
+    n2 = CONST_BITS + pass1.bits + 3
     if pass1:
         o3a = _sh(tmp23_big, n1)
-        o3b = (z1m + z4 - z3) << PASS1_BITS
+        o3b = (z1m + z4 - z3) << pass1.bits
         return [_sh(tmp20 + t10, n1), _sh(tmp21 + t11, n1),
                 _sh(tmp22 + t12, n1), o3a + o3b,
                 _sh(tmp24 + t14, n1), _sh(tmp25 + t15, n1),

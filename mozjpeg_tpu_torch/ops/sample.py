@@ -6,7 +6,8 @@ jcsample.c (h2v2 with the 1,2,1,2 bias, h2v1 with 0,1,0,1, int_downsample
 for every other integral ratio) and its smoothing filters
 (fullsize_smooth_downsample, h2v2_smooth_downsample). Decode: the
 triangle filters of jdsample.c and plain replication. Planes are
-(..., H, W) uint8; the arithmetic is int32.
+(..., H, W) uint8, or int32 for samples wider than 8 bits; the arithmetic
+is int32, and every output keeps its input's type.
 
 Exactness: each upsampling filter interleaves its even and odd outputs
 with stack(..., -1).reshape and only then overwrites the first and last

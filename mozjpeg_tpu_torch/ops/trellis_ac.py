@@ -10,12 +10,17 @@ stream. trellis_ac() launches it for CUDA tensors and takes the plain
 version only for tensors on the CPU; anything else raises.
 
 Both compute, per block n of image b = n // n_img:
-  qval = min((|raw| + 4q) // 8q, 1023); azd = serial f32 prefix of the
+  qval = min((|raw| + 4q) // 8q, maxq); azd = serial f32 prefix of the
   in-band zero-distortion terms; a Viterbi over i in [Ss, Se], previous
-  nonzero j and bit length k < 10 with first-minimum (j, k) ties; end
+  nonzero j and bit length k < kmax with first-minimum (j, k) ties; end
   selection with the EOB length from rate_luts[b, 127, 0]; path walk;
   -> new_band (64, N) int32 signed kept values (0 elsewhere) and
      ei (8, N) f32 rows [czero, skip, has_eob, 0, ...].
+(kmax, maxq) is (10, 1023) at 8 bits and (14, 16383) at 12 (INSTANCES);
+the kernel is one template with an instantiation for each. The squares
+x*x and delta*delta are int32 products that wrap as the JAX program's do
+(at 12 bits raw passes 46,341 on strong edges); the plain version keeps
+them int32, the kernel multiplies unsigned so that the wrap is defined.
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ import torch
 from ..native import build as _build
 from .symbols import nbits
 
-KMAX = 10          # NBITS(1023)
+KMAX = 10          # NBITS(1023), the 8-bit instantiation
 RR_K = 16          # row width of the run-indexed rate LUT
+# (kmax, maxq) -> the data precision of the kernel's instantiation
+INSTANCES = {(10, 1023): 8, (14, 16383): 12}
 BIGF = 1e38        # "invalid" cost; float32(1e38) in every table and cost
 
 SOURCE = os.path.join(_build.PKG_DIR, "csrc", "trellis_ac.cu")
@@ -70,12 +77,14 @@ def _lib():
             so.mj_trellis_ac.restype = ctypes.c_int
             so.mj_trellis_ac.argtypes = [
                 vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, vp]
             _LIB = so
     return _LIB
 
 
-def _check(raw, qtbl_zz, ltbl, rate_luts, lam, Ss, Se, n_img):
+def _check(raw, qtbl_zz, ltbl, rate_luts, lam, Ss, Se, n_img, kmax,
+           maxq):
     dev = raw.device
     n = raw.shape[1] if raw.dim() == 2 else -1
     b = rate_luts.shape[0] if rate_luts.dim() == 3 else -1
@@ -94,17 +103,22 @@ def _check(raw, qtbl_zz, ltbl, rate_luts, lam, Ss, Se, n_img):
                          % (n, b, n_img))
     if not 1 <= Ss <= Se <= 63:
         raise ValueError("trellis_ac: bad band (%d, %d)" % (Ss, Se))
+    if (kmax, maxq) not in INSTANCES:
+        raise ValueError("trellis_ac: no instantiation for kmax=%d maxq=%d"
+                         % (kmax, maxq))
 
 
 def trellis_ac(raw, qtbl_zz, ltbl, rate_luts, lam, Ss: int, Se: int,
-               n_img: int):
+               n_img: int, kmax: int = KMAX, maxq: int = 1023):
     """raw (64, N) int32 image-major (N = B*n_img); qtbl_zz (64,) int32;
     ltbl (64,) f32 host-IEEE 1/(q*q); rate_luts (B, 128, 16) f32 with the
-    EOB code length at [b, 127, 0]; lam (N,) f32 -> (new_band, ei)."""
-    _check(raw, qtbl_zz, ltbl, rate_luts, lam, Ss, Se, n_img)
+    EOB code length at [b, 127, 0]; lam (N,) f32 -> (new_band, ei).
+    (kmax, maxq) picks the instantiation (INSTANCES); each launch adds one
+    to trellis_ac.launches and to trellis_ac.launches_by_kmax[kmax]."""
+    _check(raw, qtbl_zz, ltbl, rate_luts, lam, Ss, Se, n_img, kmax, maxq)
     if raw.device.type == "cpu":
         return trellis_ac_plain(raw, qtbl_zz, ltbl, rate_luts, lam, Ss, Se,
-                                n_img)
+                                n_img, kmax, maxq)
     if raw.device.type != "cuda":
         raise ValueError("trellis_ac: no kernel for device %s" % raw.device)
     lib = _lib()
@@ -115,21 +129,29 @@ def trellis_ac(raw, qtbl_zz, ltbl, rate_luts, lam, Ss: int, Se: int,
     rc = lib.mj_trellis_ac(
         raw.data_ptr(), qtbl_zz.data_ptr(), ltbl.data_ptr(),
         rate_luts.data_ptr(), lam.data_ptr(), new_band.data_ptr(),
-        ei.data_ptr(), n, n_img, Ss, Se, stream)
+        ei.data_ptr(), n, n_img, Ss, Se, INSTANCES[(kmax, maxq)], stream)
     if rc != 0:
         raise RuntimeError("trellis_ac kernel launch failed: CUDA error %d"
                            % rc)
     trellis_ac.launches += 1
+    trellis_ac.launches_by_kmax[kmax] += 1
     return new_band, ei
 
 
-trellis_ac.launches = 0
+def reset_launches():
+    """Set every launch count of the kernel to 0."""
+    trellis_ac.launches = 0
+    trellis_ac.launches_by_kmax = {k: 0 for k, _ in INSTANCES}
+
+
+reset_launches()
 
 
 def trellis_ac_plain(raw, qtbl_zz, ltbl, rate_luts, lam, Ss: int, Se: int,
-                     n_img: int):
+                     n_img: int, kmax: int = KMAX, maxq: int = 1023):
     """The kernel's function as whole-tensor PyTorch ops: each DP step is
-    one (B, 64, KMAX, n_img) cost tensor. Same signature and outputs."""
+    one (B, 64, kmax, n_img) cost tensor. Same signature and outputs.
+    The squares are int32 and wrap as in the JAX program."""
     dev = raw.device
     n = raw.shape[1]
     b = rate_luts.shape[0]
@@ -140,7 +162,7 @@ def trellis_ac_plain(raw, qtbl_zz, ltbl, rate_luts, lam, Ss: int, Se: int,
 
     x = raw.abs()
     q8 = (qtbl_zz << 3)[:, None]
-    qval = torch.clamp_max((x + (q8 >> 1)) // q8, 1023)
+    qval = torch.clamp_max((x + (q8 >> 1)) // q8, maxq)
     pos = torch.arange(64, device=dev)[:, None]
     in_band = (pos >= Ss) & (pos <= Se)
     zdist = ((x * x).to(torch.float32) * lam[None]) * ltbl[:, None]
@@ -159,14 +181,14 @@ def trellis_ac_plain(raw, qtbl_zz, ltbl, rate_luts, lam, Ss: int, Se: int,
     rs = torch.zeros((64, n), dtype=torch.int64, device=dev)
     bv = torch.zeros((64, n), dtype=torch.int32, device=dev)
     nc = nbits(qval)
-    kv = torch.arange(KMAX, dtype=torch.int32, device=dev)[:, None]
+    kv = torch.arange(kmax, dtype=torch.int32, device=dev)[:, None]
 
     for i in range(Ss, Se + 1):
         qval_i, nc_i = qval[i], nc[i]
         cand = torch.where(kv == nc_i - 1, qval_i, (2 << kv) - 1)  # (K, N)
         delta = cand * q8[i] - x[i]
         cdist = ((delta * delta).to(torch.float32) * lam) * ltbl[i]
-        rate = rate_luts[:, 64 - i:128 - i, :KMAX]           # (B, 64, K)
+        rate = rate_luts[:, 64 - i:128 - i, :kmax]           # (B, 64, K)
         tail = (azd[i - 1] - azd) + acc                      # (64, N)
         cost = ((rate[..., None] + lanes(cdist)[:, None])
                 + lanes(tail)[:, :, None])                   # (B,64,K,n)

@@ -10,7 +10,11 @@ streams with the islow, ifast and float IDCTs, a corrupt stream with
 16-bit quant tables, decode_grayscale, decode_cropped and BufferedImage;
 decode_scaled at every M/8, the scaled IDCTs on int16 extremes,
 decode_rgb565 and decode_many(output="rgb565")) on the GPU against its
-CPU path. They skip
+CPU path; and sample precision: the kernel's <14, 16383> instantiation
+against its plain version (the shared generator's 12-bit inputs, whose
+squares wrap int32, and the 12-bit groups' launches), 12-bit encode and
+decode, decode_scaled at 12 bits and lossless round trips at 8, 12 and
+16 bits on the GPU's entry points against the CPU path. They skip
 without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -345,3 +349,89 @@ def test_decode_rgb565_on_the_card_equals_cpu(cuda, port_jpegs):
                                                device="cpu"))
     assert _same(mjt.decode_many(port_jpegs, output="rgb565"),
                  mjt.decode_many(port_jpegs, output="rgb565", device="cpu"))
+
+
+@pytest.mark.parametrize("band", [(1, 63), (1, 8), (9, 63)])
+@pytest.mark.parametrize("kind,b,n_img", [
+    ("sparse", 3, 1001), ("tie", 3, 1001), ("dense", 3, 1001),
+    ("dense", 1, 1), ("zero", 2, 700), ("no_codes", 3, 1001)])
+def test_kernel_kmax14_equals_plain(cuda, kind, b, n_img, band):
+    """The <14, 16383> instantiation on 12-bit inputs: raw past 46,341
+    (the squares wrap int32), qval clamped at 16383, ties at 14 bit
+    lengths, ragged tiles and N = 1."""
+    args = tuple(torch.as_tensor(a, device=cuda)
+                 for a in ttr.ac_example_inputs(kind, b, n_img, seed=n_img,
+                                                precision=12)) \
+        + band + (n_img, 14, 16383)
+    before = dict(tac.trellis_ac.launches_by_kmax)
+    nb, ei = tac.trellis_ac(*args)
+    assert tac.trellis_ac.launches_by_kmax[14] == before[14] + 1
+    assert tac.trellis_ac.launches_by_kmax[10] == before[10]
+    nb_p, ei_p = tac.trellis_ac_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nb, nb_p)
+    assert torch.equal(ei.view(torch.int32), ei_p.view(torch.int32))
+
+
+def _photo12(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 4095.0 / w, yy * 4095.0 / h,
+                    2048 + 1500 * np.sin(xx / 5.0)], -1)
+    img[h // 4:h // 2, w // 4:w // 2] = 4095
+    return np.clip(img + rng.normal(0, 200, img.shape), 0, 4095) \
+        .astype(np.uint16)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(profile=mjt.Profile.FASTEST),
+                                dict(dct_method=mjt.DCTMethod.FLOAT,
+                                     subsampling=(1, 1)),
+                                dict(trellis_eob_opt=True,
+                                     use_scans_in_trellis=True)])
+def test_12_bit_encode_on_the_card_equals_cpu(cuda, kw):
+    imgs = [_photo12(64, 96, 1), _photo12(64, 96, 2), _photo12(45, 77, 3)]
+    cfg = mjt.EncoderConfig(quality=75, precision=12, **kw)
+    card = mjt.encode_many(imgs, cfg)
+    assert card == mjt.encode_many(imgs, cfg, device="cpu")
+    assert mjt.encode(imgs[2], cfg) == card[2]
+    gray = [im[..., 0] for im in imgs]
+    assert mjt.encode_many(gray, cfg) == mjt.encode_many(gray, cfg,
+                                                         device="cpu")
+
+
+def test_12_bit_decode_on_the_card_equals_cpu(cuda):
+    img = _photo12(64, 96, 4)
+    datas = [mjt.encode(img, mjt.EncoderConfig(quality=75, precision=12,
+                                               **kw), device="cpu")
+             for kw in (dict(), dict(progressive=False),
+                        dict(colorspace="rgb"), dict(grayscale=True))]
+    for data in datas:
+        for method in ("islow", "ifast", "float"):
+            assert _same(mjt.decode(data, dct_method=method),
+                         mjt.decode(data, dct_method=method, device="cpu"))
+        assert _same(mjt.decode_grayscale(data),
+                     mjt.decode_grayscale(data, device="cpu"))
+        got, want = (mjt.decode_cropped(data, 17, 40),
+                     mjt.decode_cropped(data, 17, 40, device="cpu"))
+        assert got[1:] == want[1:] and _same(got[0], want[0])
+        assert _same(list(mjt.BufferedImage(data)),
+                     list(mjt.BufferedImage(data, device="cpu")))
+        for m in (1, 3, 4, 8, 13, 16):
+            assert _same(mjt.decode_scaled(data, m, 8),
+                         mjt.decode_scaled(data, m, 8, device="cpu"))
+    for output in ("rgb", "yuv", "rgb565"):
+        assert _same(mjt.decode_many(datas[:2] + datas[3:], output=output),
+                     mjt.decode_many(datas[:2] + datas[3:], output=output,
+                                     device="cpu"))
+
+
+def test_lossless_on_the_card_entry_points_equals_cpu(cuda):
+    from mozjpeg_tpu_torch.codec import lossless
+    rng = np.random.default_rng(7)
+    for prec in (8, 12, 16):
+        dt = np.uint8 if prec == 8 else np.uint16
+        img = rng.integers(0, 1 << prec, (37, 53, 3)).astype(dt)
+        data = lossless.encode_lossless(img, 5, 0, prec, 0, 2)
+        for got in (mjt.decode(data), mjt.decode_many([data])[0]):
+            assert _same(got, mjt.decode(data, device="cpu"))
+            assert _same(got, img)

@@ -259,18 +259,17 @@ def _same_result(port, jax):
     _equal_outputs(port(), want)
 
 
-PORTED = ("arithmetic", "rgb", "cmyk", "ycck")
-
-
 @pytest.mark.parametrize("case", ["arithmetic", "lossless", "12-bit",
                                   "16-bit", "rgb", "cmyk", "ycck"])
 def test_out_of_slice_streams_raise(streams, case):
-    """Lossless, 12-bit and 16-bit streams raise NotImplementedError
-    naming their ROADMAP.md item. The arithmetic, RGB, CMYK and YCCK
-    streams, now ported, equal the JAX package instead: the RGB
-    and CMYK streams here carry subsampled chroma, which the JAX
-    package's null conversion refuses with a ValueError, and so does the
-    port; their YUV output and the YCCK stream decode."""
+    """Every stream kind the earlier slices refused is ported now and
+    equals the JAX package, or raises its ValueError: arithmetic, RGB,
+    CMYK and YCCK (the RGB and CMYK streams here carry subsampled chroma,
+    which the JAX package's null conversion refuses, and so does the
+    port; their YUV output and the YCCK stream decode), an 8-bit stream
+    whose SOF says 12 or 16 bits (rendered at that precision, uint16
+    out), and one whose SOF says lossless (decode_lossless refuses its
+    scans; YUV output refuses a lossless stream)."""
     base = streams["q75_420_64x48"]
     data = {
         "arithmetic": lambda: _enc(_photo(16, 16, 8), arithmetic=True),
@@ -291,11 +290,7 @@ def test_out_of_slice_streams_raise(streams, case):
              lambda: mj.decode_many([base, data])),
             (lambda: mjt.decode_many([data], output="yuv", device="cpu"),
              lambda: mj.decode_many([data], output="yuv"))):
-        if case in PORTED:
-            _same_result(port, jax)
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                port()
+        _same_result(port, jax)
 
 
 def test_out_of_slice_options_raise(streams):

@@ -158,11 +158,33 @@ def test_decode_positional_order_is_jax(streams):
 @pytest.mark.parametrize("case,item", [("lossless", "6.10"),
                                        ("12-bit", "6.2")])
 def test_out_of_slice_streams_raise_from_every_entry(streams, case, item):
+    """The lossless (item 6.10) and 12-bit (6.2) cases, ported since,
+    equal the JAX package from every entry point: a stream whose SOF says
+    lossless fails the lossless scan checks with the same ValueError, and
+    one whose SOF says 12 bits renders at 12 bits."""
     base = streams["ycc_420"]
     data = (_with_sof(base, code=0xC3) if case == "lossless"
             else _with_sof(base, precision=12))
-    for call in (lambda: mjt.decode_grayscale(data, device="cpu"),
-                 lambda: mjt.decode_cropped(data, 0, 16, device="cpu"),
-                 lambda: mjt.BufferedImage(data, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item %s" % item):
-            call()
+    for port, jax in (
+            (lambda: mjt.decode_grayscale(data, device="cpu"),
+             lambda: jdec.decode_grayscale(data)),
+            (lambda: mjt.decode_cropped(data, 0, 16, device="cpu"),
+             lambda: jdec.decode_cropped(data, 0, 16)),
+            (lambda: list(mjt.BufferedImage(data, device="cpu")),
+             lambda: list(jdec.BufferedImage(data)))):
+        try:
+            want = jax()
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                port()
+            assert str(got.value) == str(e)
+            continue
+        got = port()
+        if isinstance(want, tuple):                # decode_cropped
+            assert got[1:] == want[1:]
+            got, want = [got[0]], [want[0]]
+        elif not isinstance(want, list):
+            got, want = [got], [want]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _equal(g, w)

@@ -24,7 +24,8 @@ def _forbidden(name: str) -> bool:
 def test_import_leaves_jax_and_jax_package_unloaded():
     code = ("import sys, mozjpeg_tpu_torch\n"
             "import mozjpeg_tpu_torch.cli.djpeg, "
-            "mozjpeg_tpu_torch.cli.jpegyuv\n"
+            "mozjpeg_tpu_torch.cli.jpegyuv, "
+            "mozjpeg_tpu_torch.codec.lossless\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'mozjpeg_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'mozjpeg_tpu.')))\n"
@@ -47,7 +48,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(p, REPO) for p in _py_files()}
     # the modules each slice brought are among those scanned
     for rel in ("cli/djpeg.py", "cli/jpegyuv.py", "codec/arith.py",
-                "codec/decoder.py", "codec/encoder.py", "codec/marker.py",
+                "codec/decoder.py", "codec/encoder.py", "codec/lossless.py",
+                "codec/marker.py",
                 "native/__init__.py", "ops/color.py", "ops/dct.py",
                 "ops/idct_scaled.py", "ops/trellis_ac.py", "utils/bmp.py",
                 "utils/gif.py", "utils/ppm.py", "utils/targa.py"):
