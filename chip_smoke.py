@@ -105,21 +105,50 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      JPEGs of phase 4, in turns; lossless round trips at 8, 12 and 16
      bits (encode_lossless, then decode and decode_many on the card's
      entry points) equal to the CPU path and to the input;
- 12. the script's time, the kernels line (both instantiations of the AC
+ 12. the remaining surfaces on one seeded 4032x3024 photo (12.2 MP, a
+     phone camera's frame, MCU-aligned at 4:2:0), written as a PPM and a
+     PNG: the port's cjpeg, in-process on the card with -report and
+     -verbose, on both files, equal to each other and to encode() of the
+     image with the same configuration on the CPU (the host engine), its
+     SCAN trace lines equal to the CPU's; yuvjpeg on the image's I420
+     planes (made on the card with rgb_to_ycc and downsample_h2v2) equal
+     to encode() of the image at yuvjpeg's configuration on the CPU, and
+     encode_raw_yuv of the planes at quality 75 equal to encode() of the
+     image; the stage times of the 12 MP image's group on the card; on a
+     768x512 photo, encode_many's progress sequence and trace lines on
+     the card equal to the CPU's, and the TurboJPEG API (TJ on the card
+     against TJ on the CPU: compress at RGB and BGRX and at 4:2:0 and
+     4:4:0, decompress at 1/2, transform rot90, encode_yuv / decode_yuv,
+     compress_from_yuv, decompress_to_yuv); jpegtran (host-only) on the
+     12 MP JPEG: -rot90, -crop 1024x768+512+256, -grayscale, -copy all
+     and -optimize -progressive, each output's coefficients equal to the
+     source's rotated, sliced or unchanged as numpy computes them here,
+     and the jpegrescan output decoding to the source's pixels; then the
+     median wall time of 3 reps (and MP/s) of cjpeg on the card beside
+     the host engine's encode(), encode_raw_yuv on the card and jpegtran
+     -rot90 and -optimize -progressive, each line with the card's name
+     and power limit;
+ 13. the script's time, the kernels line (both instantiations of the AC
      kernel), then {"ok": true, "device": ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
-phase 8, phase 11's 12-bit main path) and read just after it; the
-kernels line carries phase 4's count of the <10, 1023> instantiation and
-phase 11's of the <14, 16383> one. It needs no network and imports no
-JAX.
+phase 8, phase 11's 12-bit main path, each of phase 12's calls) and read
+just after it; the kernels line carries phase 4's count of the
+<10, 1023> instantiation with phase 12's counts beside it, and phase
+11's of the <14, 16383> one. It needs no network and imports no JAX.
 """
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1175,6 +1204,315 @@ def precision_phase(kodak8, jpegs8, dev, compare):
             "dense_bound_ms": d_bound}
 
 
+def write_png(path, img):
+    """An 8-bit RGB PNG, every row with filter 0, IDAT at zlib level 1."""
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * 3)], 1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def zz_to_nat(planes):
+    """(bh, bw, 64) zigzag planes -> (bh, bw, 8, 8) natural blocks."""
+    from mozjpeg_tpu_torch import consts
+    nat = np.empty_like(planes)
+    nat[..., consts.JPEG_ZIGZAG] = planes
+    return nat.reshape(planes.shape[:2] + (8, 8))
+
+
+def timed3(fn):
+    """Median and the three wall times (s) of fn, synchronised."""
+    import torch
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
+    """Phase 12: cjpeg, yuvjpeg and encode_raw_yuv on the card at
+    4032x3024 (h, w: at least 1024x1536 and MCU-aligned), every AC kernel
+    launch of their first calls against the plain version, reporting and
+    the TurboJPEG API on a 768x512 photo, jpegtran's transforms on the
+    12 MP JPEG, and their times.
+    -> (the <10, 1023> launches of each of its card paths, the largest
+    kernel-vs-plain difference)."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch import turbojpeg as tj
+    from mozjpeg_tpu_torch.cli import cjpeg, jpegtran, wrjpgcom, yuvjpeg
+    from mozjpeg_tpu_torch.codec import encoder, transcode
+    from mozjpeg_tpu_torch.codec.encoder import encode_raw_yuv
+    from mozjpeg_tpu_torch.ops import color, sample
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+    mp = h * w / 1e6
+    size = "%dx%d" % (w, h)
+    big = photo(h, w, 1212)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    d = tmp.name
+    ppm_path, png_path = os.path.join(d, "in.ppm"), os.path.join(d, "in.png")
+    with open(ppm_path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h) + big.tobytes())
+    write_png(png_path, big)
+    launches = {}
+    max_err = 0.0
+
+    def counted(name, fn, check=False):
+        """fn's <10, 1023> launches. With check, every card path of this
+        phase trellises through encoder._finals, which then records each
+        launch's arguments; each is held against the plain version."""
+        nonlocal max_err
+        rec, finals = {}, encoder._finals
+
+        def recording(p1, ctx, dev_, b, times=None, record=None, *rest):
+            return finals(p1, ctx, dev_, b, times, rec, *rest)
+
+        torch.cuda.synchronize()
+        tac.reset_launches()
+        if check:
+            encoder._finals = recording
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            encoder._finals = finals
+        launches[name] = tac.trellis_ac.launches_by_kmax[10]
+        if tac.trellis_ac.launches_by_kmax[14]:
+            raise SystemExit("%s launched the 12-bit instantiation" % name)
+        if check:
+            recorded = rec.get("trellis_ac", [])
+            if len(recorded) != launches[name]:
+                raise SystemExit("%s: %d launches recorded of %d"
+                                 % (name, len(recorded), launches[name]))
+            for i, args in enumerate(recorded):
+                max_err = max(max_err, compare(
+                    args, "phase 12 %s %s launch %d" % (name, size, i)))
+        return out
+
+    # 1. cjpeg on the card, PPM and PNG, against the host engine
+    flags = ["-report", "-verbose"]
+    cfg_cj = cjpeg.config_from_args(cjpeg.build_parser().parse_args(flags))
+
+    def run_cjpeg(src, out):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cjpeg.main(flags + ["-outfile", out, src], device="cuda")
+        if rc != 0:
+            raise SystemExit("cjpeg exited with %d" % rc)
+        with open(out, "rb") as f:
+            return f.read(), err.getvalue()
+
+    cj_path = os.path.join(d, "cjpeg.jpg")
+    run_cjpeg(ppm_path, cj_path)                          # warm-up
+    jpg, err = counted("cjpeg", lambda: run_cjpeg(ppm_path, cj_path),
+                       check=True)
+    jpg_png, err_png = run_cjpeg(png_path, os.path.join(d, "png.jpg"))
+    cpu_trace = []
+    t0 = time.perf_counter()
+    host = mjt.encode(big, cfg_cj, trace=cpu_trace.append, device="cpu")
+    host_s = time.perf_counter() - t0
+    # -report's "\rPass n/m" prints without a newline before the trace
+    scan_re = r"SCAN [0-9,]+: \d+ \d+ \d+ \d+"
+    scans, scans_png = re.findall(scan_re, err), re.findall(scan_re, err_png)
+    passes = [p for p in err.replace("\n", "\r").split("\r") if p]
+    ok = (jpg == host and jpg_png == host and scans == cpu_trace
+          and scans_png == cpu_trace and len(scans) > 0)
+    log("remaining surfaces cjpeg card vs cpu [%s, PPM and PNG, -report "
+        "-verbose]: %d bytes, equal=%s, SCAN lines %d equal=%s, last report "
+        "%r, trellis_ac<10, 1023> launches=%d"
+        % (size, len(jpg), jpg == host and jpg_png == host, len(scans),
+           scans == cpu_trace and scans_png == cpu_trace,
+           passes[-1].strip() if passes else "", launches["cjpeg"]))
+    if not ok or launches["cjpeg"] <= 0:
+        raise SystemExit("cjpeg on the card differs from the host engine")
+
+    # 2. yuvjpeg and encode_raw_yuv on the card
+    ycc = color.rgb_to_ycc(torch.from_numpy(big).to(dev))
+    planes = [ycc[..., 0].cpu().numpy()] + [
+        sample.downsample_h2v2(ycc[..., c].contiguous()).cpu().numpy()
+        for c in (1, 2)]
+    yuv_path = os.path.join(d, "in.yuv")
+    with open(yuv_path, "wb") as f:
+        for pl in planes:
+            f.write(pl.tobytes())
+    yj_path = os.path.join(d, "yuv.jpg")
+    rc = counted("yuvjpeg", lambda: yuvjpeg.main(
+        ["75", "%dx%d" % (w, h), yuv_path, yj_path], device="cuda"),
+        check=True)
+    with open(yj_path, "rb") as f:
+        yj = f.read()
+    cfg75 = mjt.EncoderConfig(quality=75)
+    samp = [(2, 2), (1, 1), (1, 1)]
+    raw = counted("encode_raw_yuv", lambda: encode_raw_yuv(
+        planes, w, h, samp, cfg75), check=True)
+    want_yj = mjt.encode(big, mjt.EncoderConfig(
+        quality=75, force_baseline=True, subsampling=(2, 2)), device="cpu")
+    want_raw = mjt.encode(big, cfg75, device="cpu")
+    log("remaining surfaces yuvjpeg / encode_raw_yuv card vs encode() on "
+        "the cpu [%s I420]: rc=%d, %d / %d bytes, equal=%s / %s, "
+        "trellis_ac<10, 1023> launches=%d / %d"
+        % (size, rc, len(yj), len(raw), yj == want_yj, raw == want_raw,
+           launches["yuvjpeg"], launches["encode_raw_yuv"]))
+    if rc != 0 or yj != want_yj or raw != want_raw \
+            or not launches["yuvjpeg"] or not launches["encode_raw_yuv"]:
+        raise SystemExit("yuvjpeg / encode_raw_yuv differ from encode()")
+
+    # the stage times of the 12 MP image's group on the card
+    times = {}
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        encoder.encode_group([big], encoder.resolve_group(big, cfg_cj), dev,
+                             pool, times=times)[0].result()
+        group_s = time.perf_counter() - t0
+    log("remaining surfaces stages of cjpeg's %s group (ms): %s; "
+        "total %.1f" % (size, json.dumps({k: round(v * 1e3, 3)
+                                    for k, v in times.items()}),
+                        group_s * 1e3))
+
+    # 3. reporting on the card against the CPU, one 768x512 photo
+    rep = {}
+    for device in ("cuda", "cpu"):
+        ev, tr = [], []
+        out = mjt.encode_many([kodak[0]], cfg75, device=device,
+                              progress=lambda *a: ev.append(a),
+                              trace=tr.append)
+        rep[device] = (out, ev, tr)
+    ok = rep["cuda"] == rep["cpu"]
+    log("remaining surfaces reporting card vs cpu [encode_many 768x512]: "
+        "passes %s, %d SCAN lines, equal=%s"
+        % ([e[2] for e in rep["cuda"][1]], len(rep["cuda"][2]), ok))
+    if not ok:
+        raise SystemExit("reporting on the card differs from the CPU")
+
+    # 4. the TurboJPEG API on the card against the CPU
+    img = kodak[1]
+    card, cpu = tj.TJ(device="cuda"), tj.TJ(device="cpu")
+    bgrx = np.concatenate([img[..., ::-1], img[..., :1]], -1)
+    checks = {}
+
+    def both(fn):
+        return fn(card), fn(cpu)
+
+    tac.reset_launches()
+    for sname, sv in (("4:2:0", tj.TJSAMP_420), ("4:4:0", tj.TJSAMP_440)):
+        for t in (card, cpu):
+            t.set(tj.TJPARAM_SUBSAMP, sv)
+        a, b = both(lambda t: t.compress(img))
+        checks["compress RGB " + sname] = a == b
+        data = a
+        a, b = both(lambda t: t.compress(bgrx, tj.TJPF_BGRX))
+        checks["compress BGRX " + sname] = a == b
+        yuv_a, yuv_b = both(lambda t: t.encode_yuv(img, align=4))
+        checks["encode_yuv " + sname] = yuv_a == yuv_b
+        a, b = both(lambda t: t.decode_yuv(yuv_a, img.shape[1],
+                                           img.shape[0], align=4))
+        checks["decode_yuv " + sname] = same(a, b)
+        a, b = both(lambda t: t.compress_from_yuv(yuv_a, img.shape[1],
+                                                  img.shape[0], align=4))
+        checks["compress_from_yuv " + sname] = a == b
+        a, b = both(lambda t: t.decompress_to_yuv(data))
+        checks["decompress_to_yuv " + sname] = a == b
+    a, b = both(lambda t: t.transform(data, tj.TJXOP_ROT90))
+    checks["transform rot90"] = a == b
+    for t in (card, cpu):
+        t.set_scaling_factor(1, 2)
+    a, b = both(lambda t: t.decompress(data))
+    checks["decompress 1/2"] = same(a, b)
+    tj_launches = tac.trellis_ac.launches
+    log("remaining surfaces TurboJPEG card vs cpu [768x512]: %s; "
+        "trellis_ac launches=%d" % (", ".join(
+            "%s equal=%s" % kv for kv in checks.items()), tj_launches))
+    if not all(checks.values()) or tj_launches:
+        raise SystemExit("the TurboJPEG API on the card differs from the "
+                         "CPU, or launched the trellis")
+
+    # 5. jpegtran on the 12 MP JPEG (host-only)
+    src_path = os.path.join(d, "src.jpg")
+    with open(src_path, "wb") as f:
+        f.write(wrjpgcom.insert_comment(jpg, b"chip smoke", False))
+    src = transcode.read_coefficients(open(src_path, "rb").read())
+    sp = src.planes
+
+    def tran(flags):
+        out = os.path.join(d, "tran.jpg")
+        rc = jpegtran.main(flags + ["-outfile", out, src_path])
+        if rc != 0:
+            raise SystemExit("jpegtran %s exited with %d" % (flags, rc))
+        with open(out, "rb") as f:
+            return f.read()
+
+    sign = np.where(np.arange(8) % 2 == 1, -1, 1)[None, None, None, :]
+    results = {}
+    tac.reset_launches()
+    out = tran(["-rotate", "90"])
+    got = transcode.read_coefficients(out)
+    results["-rotate 90"] = (got.jp.width, got.jp.height) == (h, w) and all(
+        np.array_equal(zz_to_nat(g), np.transpose(zz_to_nat(p)[::-1],
+                                                  (1, 0, 3, 2)) * sign)
+        for g, p in zip(got.planes, sp))
+    out = tran(["-crop", "1024x768+512+256"])
+    got = transcode.read_coefficients(out)
+    results["-crop 1024x768+512+256"] = (
+        (got.jp.width, got.jp.height) == (1024, 768) and all(
+            np.array_equal(g, p[256 * c.v // 16:256 * c.v // 16 + 96 * c.v
+                                // 2, 512 * c.h // 16:512 * c.h // 16
+                                + 128 * c.h // 2])
+            for g, p, c in zip(got.planes, sp, src.jp.components)))
+    out = tran(["-grayscale"])
+    got = transcode.read_coefficients(out)
+    results["-grayscale"] = (len(got.planes) == 1
+                             and np.array_equal(got.planes[0], sp[0]))
+    out = tran(["-copy", "all"])
+    got = transcode.read_coefficients(out)
+    results["-copy all"] = (b"chip smoke" in out and all(
+        np.array_equal(g, p) for g, p in zip(got.planes, sp)))
+    rescan = tran(["-optimize", "-progressive"])
+    got = transcode.read_coefficients(rescan)
+    results["-optimize -progressive"] = (
+        all(np.array_equal(g, p) for g, p in zip(got.planes, sp))
+        and same(mjt.decode(rescan), mjt.decode(jpg)))
+    log("remaining surfaces jpegtran [%s, %d bytes, jpegrescan %d bytes]: "
+        "%s; trellis_ac launches=%d"
+        % (size, len(jpg), len(rescan), ", ".join(
+            "%s equal=%s" % kv for kv in results.items()),
+           tac.trellis_ac.launches))
+    if not all(results.values()) or tac.trellis_ac.launches:
+        raise SystemExit("jpegtran's coefficients are not as expected")
+
+    # 6. times: median of 3 reps each, with the card's name and limit
+    for name, fn in (
+            ("cjpeg on the card", lambda: counted(
+                "cjpeg (timed)", lambda: run_cjpeg(ppm_path, cj_path))),
+            ("encode() host engine on the cpu", lambda: mjt.encode(
+                big, cfg_cj, device="cpu")),
+            ("encode_raw_yuv on the card", lambda: counted(
+                "encode_raw_yuv (timed)", lambda: encode_raw_yuv(
+                    planes, w, h, samp, cfg75))),
+            ("jpegtran -rotate 90 (host)", lambda: tran(["-rotate", "90"])),
+            ("jpegtran -optimize -progressive (host)", lambda: tran(
+                ["-optimize", "-progressive"]))):
+        med, walls = timed3(fn)
+        log("remaining surfaces time [%s, %s] on %s: median %.4f s "
+            "(reps %s), %.3f MP/s" % (name, size, smi, med, ", ".join(
+                "%.4f" % v for v in walls), mp / med))
+    log("remaining surfaces: first host-engine encode %.3f s; launches %s; "
+        "%.1f s" % (host_s, json.dumps(launches),
+                    time.perf_counter() - t_phase))
+    tmp.cleanup()
+    return launches, max_err
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1398,7 +1736,11 @@ def main():
     # ---- 11. precision ----
     k12 = precision_phase(kodak[:8], outs[:8], dev, compare)
 
-    # ---- 12. result lines ----
+    # ---- 12. the remaining surfaces ----
+    l12, err12 = remaining_surfaces(kodak, dev, smi, compare)
+    max_err = max(max_err, err12)
+
+    # ---- 13. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -1408,7 +1750,7 @@ def main():
         "ms": k_ms, "kernel_ms": k_ms, "ms_with_launch_gaps": k_un,
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
-        "dense_bound_ms": d_bound}, k12]}))
+        "dense_bound_ms": d_bound, "launches_phase12": l12}, k12]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,8 @@ into the port's own library.
     exact = mjt.encode_lossless(uint16_image, predictor=1, precision=16)
 
     python -m mozjpeg_tpu_torch.cli.djpeg -scale 1/2 -bmp in.jpg > o.bmp
+    python -m mozjpeg_tpu_torch.cli.cjpeg -quality 80 in.png > o.jpg
+    python -m mozjpeg_tpu_torch.cli.jpegtran -rotate 90 in.jpg > r.jpg
 """
 from .codec.config import DCTMethod, EncoderConfig, Profile
 from .codec.decoder import (BufferedImage, decode, decode_cropped,

@@ -25,6 +25,16 @@ class Profile(enum.Enum):
     FASTEST = "fastest"        # libjpeg-turbo-compatible ("-revert")
 
 
+def quality_default_subsampling(quality: float) -> Tuple[int, int]:
+    """cjpeg -quality subsampling heuristic (rdswitch.c:562-570):
+    >=90 -> 4:4:4, >=80 -> 4:2:2, else 4:2:0."""
+    if quality >= 90:
+        return (1, 1)
+    if quality >= 80:
+        return (2, 1)
+    return (2, 2)
+
+
 class DCTMethod(enum.Enum):
     ISLOW = "islow"
     IFAST = "ifast"

@@ -38,6 +38,7 @@ naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -49,8 +50,8 @@ import torch
 from .. import consts, native
 from ..entropy import encode as entenc
 from ..entropy.huffman import HuffTable, derive_codes
-from . import (arith, host_engine, marker, pipeline_t, scanopt, scans,
-               trellis)
+from . import (arith, host_engine, marker, pipeline_t, report, scanopt,
+               scans, trellis)
 from .config import (CS_INFO, EncoderConfig, Profile, ResolvedConfig,
                      qt_slots, scan_restart_interval, trellis_ris)
 from .pipeline import geometry
@@ -98,6 +99,11 @@ class GroupCtx(NamedTuple):
     ncomps: int
     samp: list                  # (h, v) sampling factors per component
     qtables: List[np.ndarray]
+    # the frame's quant slot per component where it is not the
+    # configuration's (a transcoded stream keeps its source's)
+    slots: Optional[tuple] = None
+    # markers written after the ICC profile (a transcode's copied ones)
+    extra_markers: tuple = ()
 
 
 def resolve_group(image, config: Optional[EncoderConfig] = None,
@@ -194,14 +200,6 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _no_reporting(progress, trace):
-    if progress is not None or trace is not None:
-        raise NotImplementedError(
-            "mozjpeg_tpu_torch: progress and trace reporting "
-            "(codec/report.py) is not ported yet (ROADMAP.md queue 1 item "
-            "10)")
-
-
 def encode(image, config: Optional[EncoderConfig] = None, progress=None,
            trace=None, device=None, **overrides) -> bytes:
     """Encode one image to JPEG bytes, byte-identical to mozjpeg_tpu.encode.
@@ -209,15 +207,18 @@ def encode(image, config: Optional[EncoderConfig] = None, progress=None,
     it is encode_many of the one image. With device="cpu" it routes as
     the JAX package does: the host engine (codec/host_engine.py) when
     MJ_HOST_ENGINE is not 0 and the configuration is in its matrix with
-    the colorspace's quant slots, else encode_many."""
-    _no_reporting(progress, trace)
+    the colorspace's quant slots, else encode_many.
+    progress(completed, total, desc) is called after each pass and
+    trace(msg) gets the reference's trace lines (codec/report.py)."""
     dev = _device(device)
     image = np.asarray(image)
     if dev.type == "cpu":
         ctx = resolve_group(image, config, **overrides)
         if _host_engine_serves(ctx):
-            return host_engine.encode_host(image, ctx)
-    return encode_many([image], config, device=dev, **overrides)[0]
+            with report.reporting(progress, trace):
+                return host_engine.encode_host(image, ctx)
+    return encode_many([image], config, progress=progress, trace=trace,
+                       device=dev, **overrides)[0]
 
 
 def _default_slots(ctx: GroupCtx) -> bool:
@@ -253,9 +254,15 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
     device: None or "cuda" (the default, the GPU; raises without one) or
     "cpu" (the kernels' plain versions). Same-shape images run in groups
     (encode_group); on the CPU the configurations the JAX package does
-    not batch take the host engine where it serves them, as there."""
-    _no_reporting(progress, trace)
+    not batch take the host engine where it serves them, as there.
+    progress and trace as in encode; the passes of a group's images
+    interleave, so only a group of one image reports in a fixed order."""
     dev = _device(device)
+    with report.reporting(progress, trace):
+        return _encode_many(images, config, dev, overrides)
+
+
+def _encode_many(images, config, dev, overrides) -> List[bytes]:
     out = [None] * len(images)
     by_shape = {}
     for i, img in enumerate(images):
@@ -279,7 +286,8 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
         for k in range(0, len(idxs), ge):
             chunks.append((idxs[k:k + ge], ctx, big or not batchable(ctx)))
     if host:
-        # each call threads its own stages over the host's cores
+        # each call threads its own stages over the host's cores; these
+        # tasks do not carry the caller's reporter, as in the JAX package
         with ThreadPoolExecutor(max_workers=2) as pool:
             for i, f in [(i, pool.submit(host_engine.encode_host,
                                          np.asarray(images[i]), ctx))
@@ -290,11 +298,14 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
         pending = []
         for idxs, ctx, per_image in chunks:
             imgs = [np.asarray(images[i]) for i in idxs]
-            pending.append((idxs, encode_group(imgs, ctx, dev, pool,
-                                               per_image=per_image)))
-        for idxs, futs in pending:
+            pending.append((idxs, per_image,
+                            encode_group(imgs, ctx, dev, pool,
+                                         per_image=per_image)))
+        for idxs, per_image, futs in pending:
             for i, f in zip(idxs, futs):
                 out[i] = f.result()
+                if not per_image:
+                    report.pass_done("entropy")
     return out
 
 
@@ -311,15 +322,37 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
     synchronised and timed, and the host entropy is waited for inside
     its stage. With `record` (dict) record["lambda"] gets each
     component's (norm sums, lambda) and record["trellis_ac"] the
-    arguments of each trellis_ac call."""
+    arguments of each trellis_ac call. The per-image route reports a
+    main and a trellis pass per image, the batched one an entropy pass
+    per image (counted here, done as encode_many takes the result)."""
     cfg, b = ctx.cfg, len(images)
+    if per_image is None:
+        per_image = not batchable(ctx)
+    if per_image:
+        report.add_passes(b * (2 if cfg.trellis_quant else 1))
     p1 = _batch_p1(images, ctx, dev, times)
+    if per_image:
+        for _ in range(b):
+            report.pass_done("main")
+    finals, qtables = _finals(p1, ctx, dev, b, times, record, per_image)
+    if per_image and cfg.trellis_quant:
+        for _ in range(b):
+            report.pass_done("trellis")
+    return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
+                       qtables, entropy_passes=not per_image)
+
+
+def _finals(p1, ctx: GroupCtx, dev, b: int, times=None, record=None,
+            loop_ris: bool = True):
+    """The trellis passes of a group after p1 -> (the final (64, B*n)
+    planes per component, each image's refit table list under
+    trellis_q_opt or None)."""
+    cfg = ctx.cfg
     if cfg.trellis_quant and cfg.arithmetic:
         finals = arith_trellis(p1, ctx, b, times)
     else:
-        finals = _batch_rest(images, p1, ctx, dev, times, record,
-                             loop_ris=(not batchable(ctx)
-                                       if per_image is None else per_image))
+        finals = _batch_rest(b, p1, ctx, dev, times, record,
+                             loop_ris=loop_ris)
     qtables = None
     if cfg.trellis_quant and cfg.trellis_q_opt:
         with stage(times, "q_opt", dev):
@@ -327,8 +360,7 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
             ns, nc = q_opt_sums([m[1] for m in p1[1]], finals, b)
             qtables = [q_opt_tables(ns[i], nc[i], ctx.qtables, slots)
                        for i in range(b)]
-    return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
-                       qtables)
+    return finals, qtables
 
 
 def _batch_p1(images, ctx: GroupCtx, dev, times=None):
@@ -387,7 +419,7 @@ def _host_ac_tables(hists, slots, opt: bool, b: int, dev):
     return out
 
 
-def _batch_rest(images, p1, ctx: GroupCtx, dev, times=None, record=None,
+def _batch_rest(b: int, p1, ctx: GroupCtx, dev, times=None, record=None,
                 loop_ris: bool = False):
     """The trellis passes of one group -> the final (64, B*n) int16
     planes per component (the quantized ones without trellis). With
@@ -395,7 +427,6 @@ def _batch_rest(images, p1, ctx: GroupCtx, dev, times=None, record=None,
     at the restarts (the JAX per-image route), else not (its batched
     route)."""
     cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
-    b = len(images)
     geom, merged, smalls, norms = p1
     qs = tuple(m[0] for m in merged)
     if not cfg.trellis_quant:
@@ -631,10 +662,12 @@ def arith_trellis(p1, ctx: GroupCtx, b: int, times=None):
 
 
 def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
-                times=None, qtables=None):
+                times=None, qtables=None, entropy_passes: bool = True):
     """Download, dummy blocks, then each image's entropy stage on the
-    pool; qtables: each image's own table list (trellis_q_opt), else
-    the group's."""
+    pool, each task in a copy of the caller's context (its reporter);
+    qtables: each image's own table list (trellis_q_opt), else the
+    group's. entropy_passes counts one pass per image (the batched
+    route's)."""
     b = len(images)
     _, _, comps = geom
     with stage(times, "download", dev):
@@ -644,15 +677,66 @@ def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
                      for planes in pipeline_t.split_flat_batch(geom, flat, b)]
     # one image per pool thread; a lone image threads its own search
     nthreads = (os.cpu_count() or 1) if b == 1 else 1
+    if entropy_passes:
+        report.add_passes(b)
     with stage(times, "host_entropy", dev):
-        futs = [pool.submit(entropy_image, img.shape[1], img.shape[0], geom,
-                            planes, ctx._replace(qtables=qtables[i])
+        futs = [pool.submit(contextvars.copy_context().run, entropy_image,
+                            img.shape[1], img.shape[0], geom, planes,
+                            ctx._replace(qtables=qtables[i])
                             if qtables else ctx, nthreads)
                 for i, (img, planes) in enumerate(zip(images, per_image))]
         if times is not None:
             for f in futs:
                 f.result()
     return futs
+
+
+def encode_raw_yuv(planes, width: int, height: int, samp,
+                   config: Optional[EncoderConfig] = None, device=None,
+                   **overrides) -> bytes:
+    """Encode pre-subsampled component planes (jpeg_write_raw_data,
+    tj3CompressFromYUV8), byte-identical to the JAX package's
+    encode_raw_yuv: no colour conversion or downsampling, but the whole
+    mozjpeg pass machinery (deringing, trellis, scan search).
+    planes: 1 (gray) or 3 (YCbCr) (ph, pw) uint8 arrays at
+    tjPlaneWidth/Height; samp: [(h, v), ...] per component; device as
+    in encode. Each plane is padded on the host out to its block grid by
+    replicating its last row and column, goes up, and p1, the trellis
+    (the per-image route's, the AC kernel on the card) and the download
+    run on the device; the host codes the coefficients."""
+    dev = _device(device)
+    if config is None:
+        config = EncoderConfig(**overrides)
+    cfg = config.resolved()
+    ncomps = len(planes)
+    cs = "grayscale" if ncomps == 1 else "ycbcr"
+    ctx = GroupCtx(cfg, config.profile, cs, ncomps, [tuple(s) for s in samp],
+                   make_qtables(cfg))
+    geom = geometry(width, height, ctx.samp)
+    comps = geom[2]
+    ups = []
+    for pl, g in zip(planes, comps):
+        pl = np.asarray(pl)
+        ph, pw = pl.shape
+        buf = np.zeros((g.bh * 8, g.bw * 8), pl.dtype)
+        ch, cw = min(ph, g.bh * 8), min(pw, g.bw * 8)
+        buf[:ch, :cw] = pl[:ch, :cw]
+        if cw < g.bw * 8:
+            buf[:ch, cw:] = buf[:ch, cw - 1:cw]
+        if ch < g.bh * 8:
+            buf[ch:] = buf[ch - 1:ch]
+        ups.append(pipeline_t.to_samples(buf[None], dev))
+    merged, smalls, norms = pipeline_t._p1_planes(
+        ups, comps, pipeline_t.comp_qtables(ctx.qtables, qt_slots(
+            cfg, cs, ncomps)), cfg.overshoot_deringing,
+        cfg.dct_method.value, trellis_ris(cfg, comps), cfg.precision)
+    finals, qtables = _finals((geom, merged, smalls, norms), ctx, dev, 1)
+    if qtables:
+        ctx = ctx._replace(qtables=qtables[0])
+    flat = pipeline_t.pack_all_batch(finals, 1).cpu().numpy()
+    out = [pipeline_t.add_dummy_blocks_host(p, g) for p, g in
+           zip(pipeline_t.split_flat_batch(geom, flat, 1)[0], comps)]
+    return entropy_image(width, height, geom, out, ctx, os.cpu_count() or 1)
 
 
 # ---------------------------------------------------------------------------
@@ -793,10 +877,13 @@ def assemble(width: int, height: int, geom, qtables, scan_results,
 def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
                   nthreads: int = 1) -> bytes:
     """One image's padded (bh_pad, bw_pad, 64) int16 planes -> its JPEG
-    bytes: the native scan search (progressive with optimize_scans, gray
-    or YCbCr), or the scans of a script emitted one by one."""
+    bytes: the scan search (progressive with optimize_scans, gray or
+    YCbCr; native unless MJ_NATIVE_SCANSEARCH=0, as in the JAX package),
+    or the scans of a script emitted one by one, a pass each."""
     cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
-    extra = marker.icc_chunks(cfg.icc) if cfg.icc else None
+    extra = ((marker.icc_chunks(cfg.icc) if cfg.icc else [])
+             + list(ctx.extra_markers)) or None
+    slots = _frame_slots(ctx)
     if cfg.arithmetic:
         return _entropy_arith(width, height, geom, planes, ctx, extra)
     ycbcr = cs == "ycbcr"
@@ -809,9 +896,13 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
         progressive = script[0].Ss != 0 or script[0].Se != 63
     elif cfg.progressive:
         if cfg.optimize_scans and (ncomps == 1 or (ncomps == 3 and ycbcr)):
-            return scanopt.encode_optimize_scans_native(
+            if os.environ.get("MJ_NATIVE_SCANSEARCH", "1") != "0":
+                return scanopt.encode_optimize_scans_native(
+                    width, height, geom, planes, ctx.qtables, cfg, ncomps,
+                    slots, cfg.precision, nthreads, extra)
+            return scanopt.encode_optimize_scans(
                 width, height, geom, planes, ctx.qtables, cfg, ncomps,
-                cfg.precision, nthreads, extra)
+                slots, cfg.precision, extra)
         if ctx.profile == Profile.MAX_COMPRESSION or cfg.optimize_scans:
             # the scan search bails for non-YCbCr multi-component images
             # (jcparam.c:753-756) to the simple script
@@ -826,6 +917,7 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
     dc_tbls = {ci: tbl_slots[ci] for ci in range(ncomps)}
     ac_tbls = dict(dc_tbls)
     results = []
+    report.add_passes(len(script))
     for scan in script:
         sg = entenc.ScanGeometry(scan, geom, planes)
         r = scan_restart_interval(cfg, scan, geom)
@@ -836,12 +928,18 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
             std_ac = {s: STD_TABLES[(1, s)] for s in tbl_slots[:ncomps]}
             results.append(encode_scan_fixed(sg, dc_tbls, ac_tbls, std_dc,
                                              std_ac, r))
+        report.pass_done("scan %d-%d" % (scan.Ss, scan.Se))
     return assemble(width, height, geom, ctx.qtables, results, progressive,
                     ncomps, multi_dqt=ctx.profile != Profile.FASTEST,
                     precision=cfg.precision, cs=cs, extra_markers=extra,
                     density=cfg.density, write_jfif=cfg.write_jfif,
-                    sof_samp=_gray_sof_samp(cfg, cs),
-                    slots=qt_slots(cfg, cs, ncomps))
+                    sof_samp=_gray_sof_samp(cfg, cs), slots=slots)
+
+
+def _frame_slots(ctx: GroupCtx) -> tuple:
+    """The quant slot per component that the frame header names."""
+    return (tuple(ctx.slots) if ctx.slots is not None
+            else tuple(qt_slots(ctx.cfg, ctx.cs, ctx.ncomps)))
 
 
 def _gray_sof_samp(cfg, cs):
@@ -864,8 +962,9 @@ def _entropy_arith(width: int, height: int, geom, planes, ctx: GroupCtx,
         elif cfg.optimize_scans and (ncomps == 1 or (ncomps == 3 and ycbcr)):
             # the scan search runs with the arithmetic coder too
             # (jcparam.c:739-742)
-            return scanopt.encode_optimize_scans_arith(
-                width, height, geom, planes, ctx.qtables, cfg, ncomps, extra)
+            return scanopt.encode_optimize_scans(
+                width, height, geom, planes, ctx.qtables, cfg, ncomps,
+                _frame_slots(ctx), 8, extra, arith=True)
         elif ctx.profile == Profile.MAX_COMPRESSION:
             script = scans.simple_progression_max(
                 ncomps, cfg.dc_scan_opt_mode, ycbcr)
@@ -881,7 +980,7 @@ def _entropy_arith(width: int, height: int, geom, planes, ctx: GroupCtx,
     _frame_header(w, width, height, geom, ctx.qtables, ncomps,
                   marker.SOF10 if cfg.progressive else marker.SOF9,
                   ctx.profile != Profile.FASTEST, 8, cs,
-                  qt_slots(cfg, cs, ncomps), extra, cfg.density,
+                  _frame_slots(ctx), extra, cfg.density,
                   cfg.write_jfif, _gray_sof_samp(cfg, cs))
     last_dri = 0
     for scan in script:

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import consts, native
-from . import encoder, trellis
+from . import encoder, report, trellis
 from .config import CS_INFO, qt_slots, trellis_ris
 from .pipeline import geometry
 from .pipeline_t import add_dummy_blocks_host
@@ -215,12 +215,16 @@ def encode_host(image, ctx: "encoder.GroupCtx") -> bytes:
     geom = geometry(w, h, ctx.samp)
     comps = geom[2]
     slots = qt_slots(cfg, cs, ncomps)
+    report.add_passes(2 if cfg.trellis_quant else 1)
     planes = _prep_planes(image, cs, ctx.samp, geom)
     p1 = _run_p1(planes, geom, ctx.qtables, slots, cfg.overshoot_deringing)
+    report.pass_done("main")
     if cfg.trellis_quant and cfg.arithmetic:
         finals = _trellis_arith(cfg, cs, comps, p1)
+        report.pass_done("trellis")
     elif cfg.trellis_quant:
         finals = _trellis(cfg, cs, comps, p1)
+        report.pass_done("trellis")
     else:
         finals = [q for q, _, _, _ in p1]
     if cfg.trellis_quant and cfg.trellis_q_opt:

@@ -8,8 +8,8 @@ and EOI, with field layouts as mozjpeg jcmarker.c writes them. The parser
 (the decode path) follows mozjpeg jdmarker.c for the markers a
 conformant decoder needs, plus the Adobe APP14 transform that names the
 colourspace, the JFIF APP0 density and the ICC profile of the APP2
-chunks (djpeg's BMP density and -icc); other APPn and COM segments are
-skipped.
+chunks (djpeg's BMP density and -icc); every APPn and COM segment is
+kept in ParsedJpeg.markers for jpegtran -copy.
 """
 from __future__ import annotations
 
@@ -188,6 +188,8 @@ class ParsedJpeg:
     adobe_transform: Optional[int] = None
     density: tuple = (0, 1, 1)           # JFIF (unit, X, Y)
     icc_profile: Optional[bytes] = None  # the APP2 chunks, joined
+    # the APPn and COM segments in stream order (jpegtran -copy)
+    markers: List[Tuple[int, bytes]] = dataclasses.field(default_factory=list)
     # DAC arithmetic conditioning (cls, idx) -> value, snapshotted per scan
     arith_cond: Dict[Tuple[int, int], int] = \
         dataclasses.field(default_factory=dict)
@@ -414,16 +416,20 @@ def _parse(data: bytes) -> ParsedJpeg:
                                     for k, v in jp.qtables.items()})
             pos = data_end
             continue
-        elif m == APP0 and seg[:5] == b"JFIF\x00" and len(seg) >= 12:
-            jp.density = (seg[7], (seg[8] << 8) | seg[9],
-                          (seg[10] << 8) | seg[11])
-        elif m == APP14 and seg[:5] == b"Adobe":
-            jp.adobe_transform = seg[11] if len(seg) > 11 else 0
-        elif m == APP2 and seg[:12] == b"ICC_PROFILE\x00":
-            # a profile chunk too short for its index and count bytes is
-            # a truncated segment (IndexError), as for the JAX parser
-            icc_parts[seg[12]] = bytes(seg[14:])
-            icc_total = seg[13]
+        else:
+            if m == APP0 and seg[:5] == b"JFIF\x00" and len(seg) >= 12:
+                jp.density = (seg[7], (seg[8] << 8) | seg[9],
+                              (seg[10] << 8) | seg[11])
+            elif m == APP14 and seg[:5] == b"Adobe":
+                jp.adobe_transform = seg[11] if len(seg) > 11 else 0
+            elif m == APP2 and seg[:12] == b"ICC_PROFILE\x00":
+                # a profile chunk too short for its index and count bytes
+                # is a truncated segment (IndexError), as for the JAX
+                # parser
+                icc_parts[seg[12]] = bytes(seg[14:])
+                icc_total = seg[13]
+            # every other segment (APPn, COM) is kept for jpegtran -copy
+            jp.markers.append((m, bytes(seg)))
         pos += 2 + ln
     if icc_total and len(icc_parts) == icc_total:
         jp.icc_profile = b"".join(icc_parts[i]

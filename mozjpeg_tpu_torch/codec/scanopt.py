@@ -5,19 +5,25 @@ candidate sweep, greedy selection and stitching run in C++
 (mozjpeg_tpu/native/scansearch.cpp mj_scan_search, GIL released), each
 candidate scan with its own restart interval; Python writes the frame
 header around the stitched scans (encode_optimize_scans_native). With
-the arithmetic coder, which the native search does not carry, the same
-search runs in Python (encode_optimize_scans_arith): each candidate scan
-is arithmetic-coded from the resident coefficient planes, the greedy
-state machine picks the winners in the reference's trial order with its
-early exits (_run_selection), and the winners are stitched in display
-order (mozjpeg jcmaster.c:773-962 select_scans, jcparam.c:734-852, and
-jcparam.c:739-742 for the search under -arithmetic). The search runs for
-grayscale and YCbCr frames only (jcparam.c:753-756).
+the arithmetic coder, which the native search does not carry, or with
+MJ_NATIVE_SCANSEARCH=0, the same search runs in Python
+(encode_optimize_scans): each candidate scan is coded from the resident
+coefficient planes, the greedy state machine picks the winners in the
+reference's trial order with its early exits (_run_selection), and the
+winners are stitched in display order (mozjpeg jcmaster.c:773-962
+select_scans, jcparam.c:734-852, and jcparam.c:739-742 for the search
+under -arithmetic). The search runs for grayscale and YCbCr frames only
+(jcparam.c:753-756).
 
-Both frame headers name the components' quant slots (qt_slots) and
-write their tables in component order. The JAX package writes slots 0
-and 1 there whatever -qslots says, so for a non-default qslots with the
-search its bytes differ from the port's (ROADMAP.md, Faults).
+Progress and trace (codec/report.py) as in the JAX package: the native
+search is one pass, the Python search one pass per candidate scan, and
+both trace each stitched scan's SCAN line.
+
+Both frame headers name the components' quant slots (the
+configuration's, or the source's for a transcode) and write their tables in component
+order. The JAX package writes slots 0 and 1 there whatever -qslots says,
+so for a non-default qslots with the search its bytes differ from the
+port's (ROADMAP.md, Faults).
 """
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ from typing import Dict, List
 import numpy as np
 
 from .. import native
-from . import arith, marker, scans
-from .config import CS_INFO, qt_slots, scan_restart_interval
+from ..entropy import encode as entenc
+from . import arith, marker, report, scans
+from .config import CS_INFO, scan_restart_interval
 from .scans import ScanInfo
 
 AL_MAX_LUMA = scans.AL_MAX_LUMA                  # 3
@@ -36,12 +43,13 @@ NUM_FREQ_SPLITS = len(scans.FREQUENCY_SPLITS)    # 5
 
 
 def encode_optimize_scans_native(width: int, height: int, geom, planes,
-                                 qtables, cfg, ncomps: int,
+                                 qtables, cfg, ncomps: int, slots,
                                  precision: int = 8, nthreads: int = 1,
                                  extra_markers=None) -> bytes:
     """planes: per component (bh_pad, bw_pad, 64) int16 zigzag blocks;
+    slots: the components' quant slots in the frame header;
     extra_markers: [(marker code, payload)] written after the JFIF
-    header (the ICC chunks)."""
+    header (the ICC chunks, a transcode's copied markers)."""
     mcus_x, mcus_y, comps = geom
     script = scans.search_progression(ncomps, cfg.dc_scan_opt_mode)
     restarts = np.asarray([scan_restart_interval(cfg, s, geom)
@@ -77,7 +85,17 @@ def encode_optimize_scans_native(width: int, height: int, geom, planes,
     w = marker.MarkerWriter()
     _file_header(w, cfg, extra_markers)
     _frame_header(w, marker.SOF2, width, height, geom, qtables, cfg, ncomps,
-                  precision)
+                  slots, precision)
+    report.add_passes(1)
+    for i in range(int(meta[0])):
+        # the stitched scans: component count, first component, Ss, Se,
+        # Ah, Al
+        nc0, c0, ss, se, ah, al = (int(v) for v in meta[2 + 8 * i:
+                                                        8 + 8 * i])
+        comps_ = (tuple(range(nc0)) if c0 == 0 and nc0 > 1
+                  else ((1, 2) if nc0 == 2 else (c0,)))
+        report.trace_scan(comps_, ss, se, ah, al)
+    report.pass_done("scan search (native)")
     w.raw(out[:n].tobytes())
     w.eoi()
     return w.bytes()
@@ -93,12 +111,11 @@ def _file_header(w, cfg, extra_markers):
 
 
 def _frame_header(w, sof_code, width, height, geom, qtables, cfg,
-                  ncomps: int, precision: int = 8):
+                  ncomps: int, slots, precision: int = 8):
     """DQT (one marker, the tables in component order) and SOF, with the
     declared gray sampling (rdswitch.c:610-642)."""
     comps = geom[2]
     cs = "grayscale" if ncomps == 1 else "ycbcr"
-    slots = qt_slots(cfg, cs, ncomps)
     comp_ids = CS_INFO[cs][2]
     sof_samp = [(comps[ci].h, comps[ci].v) for ci in range(ncomps)]
     if ncomps == 1 and cfg.gray_sample:
@@ -110,8 +127,42 @@ def _frame_header(w, sof_code, width, height, geom, qtables, cfg,
 
 
 # ---------------------------------------------------------------------------
-# The search in Python, for the arithmetic coder
+# The search in Python (the arithmetic coder, or MJ_NATIVE_SCANSEARCH=0)
 # ---------------------------------------------------------------------------
+
+def _scan_buffer(scan: ScanInfo, geom, planes, dc_tbls, ac_tbls,
+                 restart: int, frame_header, emit_dri: bool) -> bytes:
+    """One Huffman candidate scan: [frame header] + DHT + [DRI] + SOS +
+    data, with the scan's own optimal tables."""
+    from .encoder import encode_scan_optimal
+    sr = encode_scan_optimal(entenc.ScanGeometry(scan, geom, planes),
+                             dc_tbls, ac_tbls, restart)
+    w = marker.MarkerWriter()
+    if frame_header:
+        w.raw(frame_header)
+    entries, seen = [], set()
+    for ci in scan.comps:
+        if scan.Ss == 0 and scan.Ah == 0:
+            t = sr.dc_tbls[ci]
+            if t in sr.dc_tables and ("d", t) not in seen:
+                entries.append((0, t, sr.dc_tables[t]))
+                seen.add(("d", t))
+        if scan.Se > 0:
+            t = sr.ac_tbls[ci]
+            if t in sr.ac_tables and ("a", t) not in seen:
+                entries.append((1, t, sr.ac_tables[t]))
+                seen.add(("a", t))
+    w.dht_multi(entries)
+    if emit_dri:
+        w.dri(restart)
+    comp_ids = CS_INFO["ycbcr"][2]
+    w.sos([(comp_ids[ci],
+            sr.dc_tbls[ci] if scan.Ss == 0 and scan.Ah == 0 else 0,
+            sr.ac_tbls[ci] if scan.Se else 0)
+           for ci in scan.comps], scan.Ss, scan.Se, scan.Ah, scan.Al)
+    w.raw(sr.data)
+    return w.bytes()
+
 
 def _scan_buffer_arith(scan: ScanInfo, geom, planes, dc_tbls, ac_tbls,
                        restart: int, frame_header, emit_dri: bool) -> bytes:
@@ -307,36 +358,44 @@ def display_order(layout: SearchLayout, r: SearchResult,
     return order
 
 
-def encode_optimize_scans_arith(width: int, height: int, geom, planes,
-                                qtables, cfg, ncomps: int,
-                                extra_markers=None) -> bytes:
-    """The scan search with the arithmetic coder -> the whole JPEG. Each
-    candidate's buffer is kept as encoded, with a DRI where the restart
-    interval changes along the trial order (jcmaster.c:672-683,
-    jcmarker.c:778-780), and the winners are stitched verbatim."""
+def encode_optimize_scans(width: int, height: int, geom, planes, qtables,
+                          cfg, ncomps: int, slots, precision: int = 8,
+                          extra_markers=None, arith: bool = False) -> bytes:
+    """The scan search in Python -> the whole JPEG, Huffman-coded (SOF2)
+    or arithmetic-coded (SOF10). Each candidate's buffer is kept as
+    encoded, with a DRI where the restart interval changes along the
+    trial order (jcmaster.c:672-683, jcmarker.c:778-780), and the winners
+    are stitched verbatim; scan 0's buffer carries the frame header."""
     script = scans.search_progression(ncomps, cfg.dc_scan_opt_mode)
     dc_tbls = {ci: (0 if ci == 0 else 1) for ci in range(ncomps)}
     ac_tbls = dict(dc_tbls)
     layout = SearchLayout(ncomps)
     fh = marker.MarkerWriter()
-    _frame_header(fh, marker.SOF10, width, height, geom, qtables, cfg,
-                  ncomps)
+    _frame_header(fh, marker.SOF10 if arith else marker.SOF2, width, height,
+                  geom, qtables, cfg, ncomps, slots, precision)
     frame_header = fh.bytes()
     bufs: Dict[int, bytes] = {}
     dri = [0]
+    mk = _scan_buffer_arith if arith else _scan_buffer
+    report.add_passes(layout.num_scans)
 
     def get_size(sn, scan):
         r = scan_restart_interval(cfg, scan, geom)
-        bufs[sn] = _scan_buffer_arith(scan, geom, planes, dc_tbls, ac_tbls,
-                                      r, frame_header if sn == 0 else None,
-                                      emit_dri=r != dri[0])
+        bufs[sn] = mk(scan, geom, planes, dc_tbls, ac_tbls, r,
+                      frame_header if sn == 0 else None,
+                      emit_dri=r != dri[0])
         dri[0] = r
+        report.pass_done("candidate scan %d/%d" % (sn + 1, layout.num_scans))
         return len(bufs[sn]) - (len(frame_header) if sn == 0 else 0)
 
     res = _run_selection(layout, script, get_size)
     w = marker.MarkerWriter()
     _file_header(w, cfg, extra_markers)
     for idx in display_order(layout, res, cfg.dc_scan_opt_mode):
+        # the scan trace at the reference's copy_buffer point
+        # (jcmaster.c:747-754), with the Al the scan was emitted with
+        s = res.used_scans[idx]
+        report.trace_scan(s.comps, s.Ss, s.Se, s.Ah, s.Al)
         w.raw(bufs[idx])
     w.eoi()
     return w.bytes()

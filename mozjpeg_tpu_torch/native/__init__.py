@@ -16,7 +16,7 @@ mj_arith_train_rows, and the scan decoders mj_arith_decode_{seq,dc_first,
 dc_refine,ac_first,ac_refine}), the colour quantizers (quant.cpp:
 mj_quantize_colors, mj_quantize_onepass, mj_quantize_to_map) and the
 image codecs (imageio.cpp: mj_gif_lzw_encode, mj_gif_lzw_decode,
-mj_tga_rle_decode) and the lossless coder (lossless.cpp:
+mj_tga_rle_decode, mj_png_unfilter) and the lossless coder (lossless.cpp:
 mj_lossless_encode, mj_lossless_decode); see build.py for the sources.
 """
 from __future__ import annotations
@@ -212,6 +212,8 @@ def _bind(so):
     so.mj_gif_lzw_encode.argtypes = [u8p, lng, cint, cint, u8p, lng]
     so.mj_tga_rle_decode.restype = lng
     so.mj_tga_rle_decode.argtypes = [u8p, lng, cint, u8p, lng]
+    so.mj_png_unfilter.restype = cint
+    so.mj_png_unfilter.argtypes = [u8p, u8p, lng, lng, cint]
 
     # the lossless coder (lossless.cpp)
     vpp = _p(ctypes.c_void_p)

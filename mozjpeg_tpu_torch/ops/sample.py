@@ -45,6 +45,14 @@ def downsample_h2v1(plane: torch.Tensor) -> torch.Tensor:
     return ((s + _bias(s.shape[-1], 0, 1, s.device)) >> 1).to(plane.dtype)
 
 
+def downsample_h1v2(plane: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) -> (..., H/2, W). jcsample.c has no 1x2 kernel: this
+    ratio is int_downsample's, with the constant +numpix/2 bias
+    (jcsample.c:152-199), not h2v1's alternating one."""
+    x = plane.to(torch.int32)
+    return ((x[..., 0::2, :] + x[..., 1::2, :] + 1) >> 1).to(plane.dtype)
+
+
 def downsample_int(plane: torch.Tensor, hexp: int, vexp: int
                    ) -> torch.Tensor:
     """Integral-factor downsample (jcsample.c:152-199 int_downsample):

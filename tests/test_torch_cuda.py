@@ -14,7 +14,10 @@ CPU path; and sample precision: the kernel's <14, 16383> instantiation
 against its plain version (the shared generator's 12-bit inputs, whose
 squares wrap int32, and the 12-bit groups' launches), 12-bit encode and
 decode, decode_scaled at 12 bits and lossless round trips at 8, 12 and
-16 bits on the GPU's entry points against the CPU path. They skip
+16 bits on the GPU's entry points against the CPU path; and the remaining
+surfaces: encode_raw_yuv (4:2:0 and gray) with its AC kernel launches,
+the TurboJPEG API (TJ(device="cuda") against TJ(device="cpu")) and cjpeg
+and yuvjpeg's main(device="cuda") against device="cpu". They skip
 without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -435,3 +438,85 @@ def test_lossless_on_the_card_entry_points_equals_cpu(cuda):
         for got in (mjt.decode(data), mjt.decode_many([data])[0]):
             assert _same(got, mjt.decode(data, device="cpu"))
             assert _same(got, img)
+
+
+def _photo8(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack([255 * xx / w, 255 * yy / h,
+                    128 + 90 * np.sin((xx + 2 * yy) / 5.0)], -1)
+    return np.clip(img + rng.normal(0, 9, img.shape), 0, 255) \
+        .astype(np.uint8)
+
+
+@pytest.mark.parametrize("gray", [False, True], ids=["420", "gray"])
+def test_encode_raw_yuv_on_the_card_equals_cpu(cuda, gray):
+    from mozjpeg_tpu_torch.codec.encoder import encode_raw_yuv
+    from mozjpeg_tpu_torch.ops import color, sample
+    img = _photo8(64, 96, 11)
+    ycc = color.rgb_to_ycc(torch.from_numpy(img))
+    if gray:
+        planes, samp = [ycc[..., 0].numpy()], [(1, 1)]
+    else:
+        planes = [ycc[..., 0].numpy()] + [sample.downsample_h2v2(
+            ycc[..., c].contiguous()).numpy() for c in (1, 2)]
+        samp = [(2, 2), (1, 1), (1, 1)]
+    cfg = mjt.EncoderConfig(quality=75)
+    tac.reset_launches()
+    card = encode_raw_yuv(planes, 96, 64, samp, cfg)
+    assert tac.trellis_ac.launches_by_kmax[10] == len(planes)
+    assert card == encode_raw_yuv(planes, 96, 64, samp, cfg, device="cpu")
+    assert card == mjt.encode(planes[0] if gray else img, cfg,
+                              device="cpu")
+
+
+def test_turbojpeg_on_the_card_equals_cpu(cuda):
+    from mozjpeg_tpu_torch import turbojpeg as tj
+    img = _photo8(48, 64, 12)
+    card, cpu = tj.TJ(device="cuda"), tj.TJ(device="cpu")
+    for samp in (tj.TJSAMP_420, tj.TJSAMP_440, tj.TJSAMP_GRAY):
+        for t in (card, cpu):
+            t.set(tj.TJPARAM_SUBSAMP, samp)
+        bgrx = np.concatenate([img[..., ::-1], img[..., :1]], -1)
+        data = card.compress(bgrx, tj.TJPF_BGRX)
+        assert data == cpu.compress(bgrx, tj.TJPF_BGRX)
+        yuv = card.encode_yuv(img, align=4)
+        assert yuv == cpu.encode_yuv(img, align=4)
+        assert _same(card.decode_yuv(yuv, 64, 48, align=4),
+                     cpu.decode_yuv(yuv, 64, 48, align=4))
+        assert card.compress_from_yuv(yuv, 64, 48, align=4) == \
+            cpu.compress_from_yuv(yuv, 64, 48, align=4)
+        assert card.decompress_to_yuv(data) == cpu.decompress_to_yuv(data)
+        for pf in (tj.TJPF_RGB, tj.TJPF_GRAY):
+            assert _same(card.decompress(data, pf), cpu.decompress(data, pf))
+    for t in (card, cpu):
+        t.set_scaling_factor(1, 2)
+    assert _same(card.decompress(data), cpu.decompress(data))
+    assert card.transform(data, tj.TJXOP_ROT90) == \
+        cpu.transform(data, tj.TJXOP_ROT90)
+
+
+def test_cjpeg_and_yuvjpeg_on_the_card_equal_cpu(cuda, tmp_path):
+    from mozjpeg_tpu_torch.cli import cjpeg, yuvjpeg
+    img = _photo8(48, 64, 13)
+    src = tmp_path / "in.ppm"
+    src.write_bytes(b"P6\n64 48\n255\n" + img.tobytes())
+    for flags in ([], ["-quality", "90", "-dct", "float"], ["-arithmetic"],
+                  ["-revert", "-restart", "1"]):
+        outs = []
+        for device in ("cuda", "cpu"):
+            out = tmp_path / (device + ".jpg")
+            assert cjpeg.main(flags + ["-outfile", str(out), str(src)],
+                              device=device) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1]
+    yuv = tmp_path / "in.yuv"
+    yuv.write_bytes(np.random.default_rng(14).integers(
+        0, 256, 64 * 48 * 3 // 2, dtype=np.uint8).tobytes())
+    outs = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / (device + ".jpg")
+        assert yuvjpeg.main(["75", "64x48", str(yuv), str(out)],
+                            device=device) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]

@@ -1,8 +1,9 @@
 """The port's serial encode() on the CPU is byte-identical to
 mozjpeg_tpu.encode: through the host engine where both route there, and
 with MJ_HOST_ENGINE=0 through the port's group route (the JAX package's
-batched route); on the GPU route it raises without CUDA, and progress
-and trace reporting are refused."""
+batched route); on the GPU route it raises without CUDA; and progress
+and trace reporting report what the JAX package reports
+(test_torch_report.py holds the routes)."""
 import numpy as np
 import pytest
 import torch
@@ -57,8 +58,15 @@ def test_encode_gpu_route_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("arg", ["progress", "trace"])
 def test_reporting_is_refused(arg):
-    cb = {"progress": lambda done, total, desc: None,
-          "trace": lambda msg: None}[arg]
-    for fn, x in ((mjt.encode, A), (mjt.encode_many, [A])):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(x, device="cpu", **{arg: cb})
+    """Reporting is accepted: each callback alone gets the JAX package's
+    calls, from encode() and from encode_many."""
+    for name, x in (("encode", A), ("encode_many", [A])):
+        calls = []
+        cb = {"progress": lambda *a: calls.append(a),
+              "trace": calls.append}[arg]
+        got = getattr(mjt, name)(x, device="cpu", **{arg: cb})
+        want_calls = []
+        wcb = {"progress": lambda *a: want_calls.append(a),
+               "trace": want_calls.append}[arg]
+        assert got == getattr(mj, name)(x, **{arg: wcb})
+        assert calls == want_calls and calls

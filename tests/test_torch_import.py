@@ -25,7 +25,15 @@ def test_import_leaves_jax_and_jax_package_unloaded():
     code = ("import sys, mozjpeg_tpu_torch\n"
             "import mozjpeg_tpu_torch.cli.djpeg, "
             "mozjpeg_tpu_torch.cli.jpegyuv, "
-            "mozjpeg_tpu_torch.codec.lossless\n"
+            "mozjpeg_tpu_torch.codec.lossless, "
+            "mozjpeg_tpu_torch.codec.report, "
+            "mozjpeg_tpu_torch.codec.transcode, "
+            "mozjpeg_tpu_torch.turbojpeg, "
+            "mozjpeg_tpu_torch.utils.png, mozjpeg_tpu_torch.utils.jobs, "
+            "mozjpeg_tpu_torch.cli.cjpeg, mozjpeg_tpu_torch.cli.jpegtran, "
+            "mozjpeg_tpu_torch.cli.yuvjpeg, mozjpeg_tpu_torch.cli.rdjpgcom, "
+            "mozjpeg_tpu_torch.cli.wrjpgcom, "
+            "mozjpeg_tpu_torch.cli.rdswitch\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'mozjpeg_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'mozjpeg_tpu.')))\n"
@@ -49,7 +57,10 @@ def test_no_module_imports_jax_or_the_jax_package():
     # the modules each slice brought are among those scanned
     for rel in ("cli/djpeg.py", "cli/jpegyuv.py", "codec/arith.py",
                 "codec/decoder.py", "codec/encoder.py", "codec/lossless.py",
-                "codec/marker.py",
+                "codec/marker.py", "codec/report.py", "codec/transcode.py",
+                "turbojpeg.py", "utils/png.py", "utils/jobs.py",
+                "cli/cjpeg.py", "cli/jpegtran.py", "cli/yuvjpeg.py",
+                "cli/rdjpgcom.py", "cli/wrjpgcom.py", "cli/rdswitch.py",
                 "native/__init__.py", "ops/color.py", "ops/dct.py",
                 "ops/idct_scaled.py", "ops/trellis_ac.py", "utils/bmp.py",
                 "utils/gif.py", "utils/ppm.py", "utils/targa.py"):
