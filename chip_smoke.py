@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
-  2. build the native host library and the CUDA kernel from the checkout,
-     in parallel, with their build times, and the report of ptxas from
-     the build that made the kernel (registers, spills, shared memory);
+  2. build the native host library and the CUDA kernels from the
+     checkout, in parallel, with their build times, and the report of
+     ptxas from the builds that made the kernels (registers, spills,
+     shared memory);
   3. the AC trellis kernel against its plain PyTorch version on the card,
      exactly: on the inputs that one 768x512 group and the 1021x683 group
      give it, on a seeded tie-stress input and on bands (1, 8) and
@@ -15,9 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      odd N (B = 3, n_img = 1,001) and N = 1; the card's lambda of both
      groups against the CPU's and numpy's, exactly;
   4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
-     photo-like images on the card, warm-up first; every output starts
-     with SOI and ends with EOI, and the first and last image of each
-     shape are byte-equal to the port's device="cpu" path;
+     photo-like images on the card, warm-up first, on the device-tablegen
+     route (3 trellis_ac and 1 tablegen launches a group); every output
+     starts with SOI and ends with EOI, and the first and last image of
+     each shape are byte-equal to the port's device="cpu" path;
   5. decode of the nineteen JPEGs of phase 4 on the card, warm-up first:
      decode_many's RGB for images 0, 7, 16 and 18 equals the port's
      device="cpu" path, every image's PSNR against its source photo is
@@ -30,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      device kernels (torch.profiler) and between CUDA events (held, and
      with the host's launch gaps), beside its bytes bound;
   6. encode timings: median MP/s over 3 reps, per-stage times of one
-     group (synchronised instrumented pass), the kernel's time per group
+     group (synchronised instrumented pass), and with MJ_DEV_FIRST 1 and 0
+     in turns (same bytes), the kernel's time per group
      beside its plain version's and its bound, and the same on the dense
      input; each kernel time both with the card's queue held (device time
      alone) and without (the host's launch gaps counted too);
@@ -128,14 +131,42 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      the host engine's encode(), encode_raw_yuv on the card and jpegtran
      -rot90 and -optimize -progressive, each line with the card's name
      and power limit;
- 13. the script's time, the kernels line (both instantiations of the AC
-     kernel), then {"ok": true, "device": ...} as the last line.
+ 13. the device engines (PR 10): the Annex-K tablegen kernel exactly
+     against its plain version (bits, values, ok and code lengths) on the
+     tables of phase 3's two recorded groups, on adversarial histograms
+     (ties, one symbol, sparse, length-limited, Fibonacci, 2^26 counts)
+     and on one sizes pass of the device scan search, with its time per
+     call held and with launch gaps, its plain version's, the native
+     host Annex K's on the same tables and its bound (the bytes and the
+     integer operations Annex K needs, at the INT32 rate);
+     encode_many(device_entropy=True) of a 768x512 and the 1021x683
+     image equal to the host emission (sequential, with restart_in_rows,
+     the simple progressive script, a custom script with AC refinement,
+     the 12-bit default and simple script on a 12-bit photo);
+     encode_many(device_scanopt=True) of the sixteen 768x512 photos
+     (q75 4:2:0 and q92 4:4:4, dc_scan_opt_mode 0-2) equal to the host
+     search, each run launching tablegen twice (its trellis loop, its
+     search) and trellis_ac three times a group; the sizes pass's peak
+     memory and wall time on a group and on a 4032x3024 photo, and its
+     kernels and device time per group (torch.profiler); the crossover
+     for a group of eight 768x512 photos and the 12 MP photo (MP/s,
+     median of 3 in turns, process CPU seconds, stage times, every
+     engine's bytes equal to the host's) with the engines off, with
+     device_scanopt and with both; the device search of an 8000x6000
+     photo (48 MP, the batch limit) equal to the host search, with two
+     tablegen launches and its peak memory under 40 GiB; no engine host
+     route taken over these photos; sync_latency_ms();
+ 14. the script's time, the kernels line (both instantiations of the AC
+     kernel and the tablegen kernel), then {"ok": true, "device": ...} as
+     the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
 phase 8, phase 11's 12-bit main path, each of phase 12's calls) and read
 just after it; the kernels line carries phase 4's count of the
 <10, 1023> instantiation with phase 12's counts beside it, and phase
-11's of the <14, 16383> one. It needs no network and imports no JAX.
+11's of the <14, 16383> one, and phase 4's count of tablegen with
+phase 13's per device-search group beside it. It needs
+no network and imports no JAX.
 """
 import contextlib
 import io
@@ -155,6 +186,9 @@ import numpy as np
 
 H100_F32_OPS = 67e12       # FP32 peak outside the tensor cores (data sheet)
 H100_BYTES = 3.35e12       # HBM3 bytes/s (data sheet)
+# INT32 peak: 132 SMs x 64 INT32 lanes x 1.98 GHz (the SM layout of the
+# Hopper whitepaper at the clock behind the data sheet's FP32 peak)
+H100_INT32_OPS = 16.7e12
 KERNEL_REPLACES = "mozjpeg_tpu/ops/pallas_trellis.py:242"
 KERNEL_SOURCE = "mozjpeg_tpu_torch/csrc/trellis_ac.cu"
 
@@ -219,10 +253,11 @@ def example_trellis(kind, b, n_img, dev, seed, precision=8):
         + (1, 63, n_img) + trellis.kmax_maxq(precision)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, op_rate=H100_F32_OPS):
     """(least ms on the card, "bytes" or "operations"): the larger of the
-    bytes over the memory rate and the f32 operations over the peak."""
-    t_b, t_o = nbytes / H100_BYTES, ops / H100_F32_OPS
+    bytes over the memory rate and the operations over their peak rate
+    (f32 unless op_rate says otherwise)."""
+    t_b, t_o = nbytes / H100_BYTES, ops / op_rate
     return max(t_b, t_o) * 1e3, ("operations" if t_o >= t_b else "bytes")
 
 
@@ -1513,6 +1548,345 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
     return launches, max_err
 
 
+def dev_first_routes(group, ctx, dev):
+    """Phase 6's stage times of one group with the device-tablegen route
+    (MJ_DEV_FIRST=1, the default) and the host route (0), in turns, with
+    the same bytes."""
+    import torch
+    from mozjpeg_tpu_torch.codec import encoder
+    outs = {}
+    for flag in ("1", "0", "0", "1"):
+        os.environ["MJ_DEV_FIRST"] = flag
+        times = {}
+        with ThreadPoolExecutor(8) as pool:
+            t0 = time.perf_counter()
+            got = [f.result() for f in encoder.encode_group(
+                group, ctx, dev, pool, times=times)]
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        if outs.setdefault(flag, got) != got or got != outs["1"]:
+            raise SystemExit("MJ_DEV_FIRST=%s changed the bytes" % flag)
+        log("stages with MJ_DEV_FIRST=%s (ms): trellis_tables %.3f, "
+            "trellis_ac %.3f, total %.1f; %s" % (
+                flag, times.get("trellis_tables", 0) * 1e3,
+                times.get("trellis_ac", 0) * 1e3, total * 1e3,
+                json.dumps({k: round(v * 1e3, 3)
+                            for k, v in times.items()})))
+    del os.environ["MJ_DEV_FIRST"]
+
+
+def adversarial_freqs():
+    """(T, 257) int32 histograms on which Annex-K implementations split:
+    heavy ties, one symbol, 2-17 sparse symbols, skewed counts that force
+    the length limiting, Fibonacci depth, counts of 2^26, dense random."""
+    rng = np.random.default_rng(7)
+    cases = []
+    for _ in range(8):
+        cases.append(rng.integers(0, 1000, 257))
+    for n in (2, 3, 5, 9, 17):
+        f = np.zeros(257, np.int64)
+        f[rng.choice(256, n, replace=False)] = rng.integers(1, 50, n)
+        cases.append(f)
+    for sl, v in ((slice(0, 100), 7), (slice(0, 256, 2), 1),
+                  (slice(42, 43), 10), (slice(0, 8), 1 << 26)):
+        f = np.zeros(257, np.int64)
+        f[sl] = v
+        cases.append(f)
+    f = np.zeros(257, np.int64)
+    f[:40] = [2 ** min(i, 25) for i in range(40)]
+    cases.append(f)
+    f = np.zeros(257, np.int64)
+    a, b = 1, 1
+    for i in range(30):
+        f[i] = a
+        a, b = b, min(a + b, 1 << 29)
+    cases.append(f)
+    out = np.stack(cases).astype(np.int32)
+    out[:, 256] = 0
+    return out
+
+
+def tablegen_bound(freqs):
+    """(bytes, integer operations) that Annex K needs on these counts, not
+    what the kernel does: the counts read once, bits, values, ok and code
+    lengths written once; per table with n present symbols, n - 1 merges
+    on a binary heap (two pops and a push, ceil(log2 n) compares each),
+    the code sizes and their counts from the tree (2n), the length
+    limiting over the 33 size bins, and the bucket sort of the values
+    by size (two passes over the 257 entries)."""
+    t = freqs.shape[0]
+    n = ((freqs[:, :256] > 0).sum(1) + 1).double()     # + pseudo-symbol
+    depth = n.log2().ceil().clamp_min(1)
+    ops = float(((n - 1).clamp_min(0) * 3 * depth + 2 * n + 33
+                 + 2 * 257).sum())
+    return t * 257 * 4 + t * (17 + 256 + 256) * 4 + t, ops
+
+
+# custom script with AC refinement scans (phase 13's device entropy)
+REFINE_SCRIPT = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                 ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                 ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                 ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                 ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+
+
+def device_engines(kodak, odd, rec_k, rec_o, dev, smi, launches,
+                   h=3024, w=4032, hh=6000, ww=8000):
+    """Phase 13: the tablegen kernel against its plain version and its
+    times, device entropy and the device scan search against the host's
+    bytes (with their kernel launches), the sizes pass's peak memory, the
+    host-versus-card crossover (h, w: the large photo, MCU-aligned), and
+    the device search on a photo about four times as large (hh <= 2h,
+    ww <= 2w, MCU-aligned; 48 MP, the batch limit, by default).
+    -> the kernels-line entry of tablegen (launches: phase 4's count)."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import encoder
+    from mozjpeg_tpu_torch.codec import scanopt_dev as sd
+    from mozjpeg_tpu_torch.entropy import encode as entenc
+    from mozjpeg_tpu_torch.ops import tablegen as tg
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    from mozjpeg_tpu_torch.utils import attachment
+    t_phase = time.perf_counter()
+    cfg = mjt.EncoderConfig(quality=75)
+    ctx = encoder.resolve_group(kodak[0], cfg)
+    p1 = encoder._batch_p1(kodak[:8], ctx, dev)
+    finals, _ = encoder._finals(p1, ctx, dev, 8, loop_ris=False)
+    cand = sd.get_candidates(3, 0)
+    sizes_freqs = torch.nn.functional.pad(
+        sd._Pass(cand, finals, p1[0], 8).histograms().to(torch.int32),
+        (0, 1))
+    trellis_freqs = rec_k["tablegen"][0]
+
+    # the kernel against its plain version, exactly
+    max_err = 0
+    for label, f in (
+            ("phase 3 768x512 group", trellis_freqs),
+            ("phase 3 1021x683 group", rec_o["tablegen"][0]),
+            ("adversarial", torch.as_tensor(adversarial_freqs(),
+                                            device=dev)),
+            ("sizes pass of one group of 8", sizes_freqs)):
+        got = tg.gen_optimal_tables(f, sizes=True)
+        bits, vals, ok = tg.gen_optimal_tables_plain(f)
+        want = (bits, vals, ok, tg.derive_codes(bits, vals)[1])
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in
+                  zip(got, want))
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        log("tablegen kernel vs plain [%s] T=%d: exact=%s max_abs_err=%d"
+            % (label, f.shape[0], exact, err))
+        if not exact:
+            raise SystemExit("tablegen kernel disagrees with its plain "
+                             "version (%s)" % label)
+        max_err = max(max_err, err)
+
+    # times: the kernel held and with launch gaps, the plain version on
+    # the card, the native host Annex K on the same tables, the bound
+    timing = {}
+    for label, f in (("trellis route, one group", trellis_freqs),
+                     ("sizes pass, one group", sizes_freqs)):
+        k_ms = cuda_ms(lambda: tg.gen_optimal_tables(f, sizes=True), 20)
+        k_un = cuda_ms(lambda: tg.gen_optimal_tables(f, sizes=True), 20,
+                       hold=False)
+        p_ms = cuda_ms(lambda: tg.gen_optimal_tables_plain(f), 1,
+                       hold=False)
+        fh = f.cpu().numpy().astype(np.int64)
+        t0 = time.perf_counter()
+        for row in fh:
+            entenc.gen_optimal_table(row)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        nbytes, ops = tablegen_bound(f)
+        b_ms, b_by = bound(nbytes, ops, H100_INT32_OPS)
+        timing[label] = (k_ms, k_un, p_ms, b_ms, b_by, host_ms)
+        log("tablegen per call [%s] T=%d: kernel %.4f ms (%.4f ms with the "
+            "host's launch gaps), plain %.3f ms, native host Annex K %.3f "
+            "ms, bound %.5f ms (%.3g ops, %d bytes, by %s), %.2f%% of the "
+            "bound; %s" % (label, f.shape[0], k_ms, k_un, p_ms, host_ms,
+                           b_ms, ops, nbytes, b_by, 100 * b_ms / k_ms, smi))
+
+    # device entropy: the host emission's bytes
+    encoder.reset_host_routes()
+    rng = np.random.default_rng(1200)
+    p12 = photo(*kodak[0].shape[:2], 1200).astype(np.uint16) << 4
+    p12 |= rng.integers(0, 16, p12.shape, dtype=np.uint16)
+    cases = [("sequential", {"progressive": False}, None),
+             ("sequential restart_in_rows=1",
+              {"progressive": False, "restart_in_rows": 1}, None),
+             ("simple progressive", {"optimize_scans": False}, None),
+             ("custom script with AC refine", {"scan_script": REFINE_SCRIPT},
+              None),
+             ("12-bit default", {"precision": 12}, p12),
+             ("12-bit simple progressive",
+              {"precision": 12, "optimize_scans": False}, p12)]
+    for name, kw, img in cases:
+        for im in ([img] if img is not None else [kodak[0], odd[0]]):
+            t0 = time.perf_counter()
+            on = mjt.encode_many([im], mjt.EncoderConfig(
+                quality=75, device_entropy=True, **kw))[0]
+            t1 = time.perf_counter()
+            off = mjt.encode_many([im], mjt.EncoderConfig(quality=75,
+                                                          **kw))[0]
+            t2 = time.perf_counter()
+            log("device entropy vs host [%s %dx%d]: equal=%s (%d bytes; "
+                "%.1f ms against %.1f ms)" % (name, im.shape[1], im.shape[0],
+                                             on == off, len(on),
+                                             (t1 - t0) * 1e3,
+                                             (t2 - t1) * 1e3))
+            if on != off:
+                raise SystemExit("device entropy changed the bytes (%s)"
+                                 % name)
+
+    # the device scan search: the host search's bytes, and the kernels it
+    # launches (each group: tablegen once for its trellis loop and once
+    # for its search, trellis_ac three times)
+    ngroups = -(-len(kodak) // encoder.GROUP)
+    search_launches = None
+    for q, sub in ((75, (2, 2)), (92, (1, 1))):
+        for mode in (0, 1, 2):
+            kw = dict(quality=q, subsampling=sub, dc_scan_opt_mode=mode)
+            torch.cuda.synchronize()
+            tg.reset_launches()
+            tac.reset_launches()
+            on = mjt.encode_many(kodak, mjt.EncoderConfig(
+                device_scanopt=True, **kw))
+            n_tg, n_tac = tg.launches, tac.trellis_ac.launches_by_kmax[10]
+            off = mjt.encode_many(kodak, mjt.EncoderConfig(**kw))
+            log("device scan search vs host [16x%dx%d q%d %dx%d "
+                "dc_scan_opt_mode=%d]: equal=%s; launches tablegen %d, "
+                "trellis_ac<10, 1023> %d (%d groups)" % (
+                    kodak[0].shape[1], kodak[0].shape[0], q, sub[0], sub[1],
+                    mode, on == off, n_tg, n_tac, ngroups))
+            if on != off:
+                raise SystemExit("the device scan search changed the bytes")
+            if n_tg != 2 * ngroups or n_tac != 3 * ngroups:
+                raise SystemExit("the device scan search should launch "
+                                 "tablegen twice and trellis_ac 3 times a "
+                                 "group")
+            search_launches = search_launches or n_tg // ngroups
+
+    # the sizes pass: peak memory (its lanes built a chunk of blocks at a
+    # time), kernels and device time
+    big = photo(h, w, 1212)
+    ctx_big = encoder.resolve_group(big, cfg)
+    p1_big = encoder._batch_p1([big], ctx_big, dev)
+    finals_big, _ = encoder._finals(p1_big, ctx_big, dev, 1, loop_ris=False)
+    for label, fin, geom, b in (("one group of 8", finals, p1[0], 8),
+                                ("%dx%d image" % (w, h), finals_big,
+                                 p1_big[0], 1)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sd.sizes_pass(cand, fin, geom, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        prof = ""
+        if b > 1:
+            dms, nk, pwall = profiled(
+                lambda: sd.sizes_pass(cand, fin, geom, b), reps=1)
+            prof = ("; %d kernels, %.3f ms device time, %.1f ms wall under "
+                    "torch.profiler" % (nk, dms, pwall))
+        log("device scan search sizes pass [%s]: peak %.1f MiB above its "
+            "input, %.1f ms wall%s; %s" % (label, peak, wall, prof, smi))
+    del p1_big, finals_big
+
+    # the crossover (the analog of scripts/engine_tradeoff.py), which also
+    # holds the engines' bytes to the host's on the large photo
+    engines = (("off", {}), ("device_scanopt", {"device_scanopt": True}),
+               ("device_entropy+device_scanopt",
+                {"device_entropy": True, "device_scanopt": True}))
+    for label, imgs in (("8x%dx%d" % kodak[0].shape[1::-1], kodak[:8]),
+                        ("%dx%d" % (w, h), [big])):
+        mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
+        walls = {n: [] for n, _ in engines}
+        cpus = {n: [] for n, _ in engines}
+        outs = {}
+        for turn in range(3):
+            for name, kw in (engines if turn != 1 else engines[::-1]):
+                c = mjt.EncoderConfig(quality=75, **kw)
+                c0, t0 = time.process_time(), time.perf_counter()
+                got = mjt.encode_many(imgs, c)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+                cpus[name].append(time.process_time() - c0)
+                if outs.setdefault(name, got) != got or got != outs.get(
+                        "off", got):
+                    raise SystemExit("the device engines changed the bytes "
+                                     "(%s, %s)" % (label, name))
+        log("device engines vs host [%s]: equal=True (%d bytes)"
+            % (label, sum(map(len, outs["off"]))))
+        for name, kw in engines:
+            cx = encoder.resolve_group(imgs[0], mjt.EncoderConfig(
+                quality=75, **kw))
+            times = {}
+            with ThreadPoolExecutor(8) as pool:
+                encoder.encode_group(imgs, cx, dev, pool, times=times)
+            wm = statistics.median(walls[name])
+            log("crossover [%s, engines %s]: %.3f MP/s (median of 3 in "
+                "turns, walls %s s), process CPU %.3f s a call, host entropy "
+                "%.3f ms, device search %.3f ms, stages (ms) %s; %s" % (
+                    label, name, mp / wm,
+                    ", ".join("%.4f" % v for v in walls[name]),
+                    statistics.median(cpus[name]),
+                    times.get("host_entropy", 0) * 1e3,
+                    times.get("device_search", 0) * 1e3,
+                    json.dumps({k: round(v * 1e3, 3)
+                                for k, v in times.items()}), smi))
+
+    # a photo about four times as large, on which the whole-candidate
+    # lanes of a sizes pass would need some 120 GB: now a chunk of blocks
+    # at a time
+    huge = np.ascontiguousarray(np.tile(big, (2, 2, 1))[:hh, :ww])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tg.reset_launches()
+    t0 = time.perf_counter()
+    on = mjt.encode_many([huge], mjt.EncoderConfig(quality=75,
+                                                   device_scanopt=True))
+    torch.cuda.synchronize()
+    t_on = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    n_tg = tg.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    off = mjt.encode_many([huge], mjt.EncoderConfig(quality=75))
+    t_off = time.perf_counter() - t0
+    peak_off = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log("device scan search vs host [%dx%d]: equal=%s (%d bytes); tablegen "
+        "launches %d; the whole encode's peak %.2f GiB above its input "
+        "(%.2f GiB with the host search); %.2f s against %.2f s; %s" % (
+            ww, hh, on == off, len(on[0]), n_tg, peak, peak_off, t_on,
+            t_off, smi))
+    if on != off:
+        raise SystemExit("the device scan search changed the bytes (48 MP)")
+    if n_tg != 2 or peak > 40:
+        raise SystemExit("the 48 MP device search should launch tablegen "
+                         "twice and stay under 40 GiB")
+    routes = dict(encoder.engine_host_routes)
+    log("device engines' host routes over these photos: %s"
+        % json.dumps(routes))
+    if any(routes.values()):
+        raise SystemExit("a device engine took its host route on photos")
+    log("sync_latency_ms (best of 2 fresh 4 MB read-backs): %.4f"
+        % attachment.sync_latency_ms())
+    log("phase 13: %.1f s" % (time.perf_counter() - t_phase))
+    k_ms, k_un, p_ms, b_ms, b_by, host_ms = timing["trellis route, one group"]
+    s_ms, s_un, s_pms, s_bms, _, s_host = timing["sizes pass, one group"]
+    return {"name": "tablegen", "route": "cuda",
+            "source": "mozjpeg_tpu_torch/csrc/tablegen.cu",
+            "replaces": "mozjpeg_tpu/ops/tablegen.py:30 (XLA, no pallas_call)",
+            "launches": launches,
+            "launches_per_device_search_group": search_launches,
+            "max_abs_err": float(max_err),
+            "exact": max_err == 0, "ms": k_ms, "ms_with_launch_gaps": k_un,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "host_annex_k_ms": host_ms,
+            "sizes_pass_ms": s_ms, "sizes_pass_plain_ms": s_pms,
+            "sizes_pass_bound_ms": s_bms, "sizes_pass_host_ms": s_host}
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1522,6 +1896,7 @@ def main():
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import encoder, trellis
     from mozjpeg_tpu_torch.native import build as nbuild
+    from mozjpeg_tpu_torch.ops import tablegen as tg
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1537,14 +1912,18 @@ def main():
                                     torch.cuda.get_device_name(0)))
 
     # ---- 2. builds, in parallel ----
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         f_nat = ex.submit(nbuild.build_native)
         f_ker = ex.submit(tac.build)
+        f_tg = ex.submit(tg.build)
         ker_s, ptxas = f_ker.result()
-        log("build: native %.1f s, trellis_ac kernel %.1f s"
-            % (f_nat.result(), ker_s))
+        tg_s, tg_ptxas = f_tg.result()
+        log("build: native %.1f s, trellis_ac kernel %.1f s, tablegen "
+            "kernel %.1f s" % (f_nat.result(), ker_s, tg_s))
     for line in ptxas:
         log("trellis_ac build: " + line)
+    for line in tg_ptxas:
+        log("tablegen build: " + line)
 
     # ---- 3. kernel vs plain on the card ----
     cfg = mjt.EncoderConfig(quality=75)
@@ -1632,15 +2011,22 @@ def main():
     mjt.encode_many(images, cfg)                       # warm-up
     torch.cuda.synchronize()
     tac.reset_launches()
+    tg.reset_launches()
     t0 = time.perf_counter()
     outs = mjt.encode_many(images, cfg)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = tac.trellis_ac.launches_by_kmax[10]
-    log("main path: %d images, %.3f MP, trellis_ac<10, 1023> launches=%d"
-        % (len(images), mp, launches))
+    tg_launches = tg.launches
+    ngroups = 3                      # two groups of eight 768x512, one of 3
+    log("main path: %d images, %.3f MP, %d groups, trellis_ac<10, 1023> "
+        "launches=%d, tablegen launches=%d"
+        % (len(images), mp, ngroups, launches, tg_launches))
     if launches <= 0:
         raise SystemExit("the main path never launched the trellis kernel")
+    if launches != 3 * ngroups or tg_launches != ngroups:
+        raise SystemExit("the main path should launch trellis_ac 3 times and "
+                         "tablegen once a group (the device-tablegen route)")
     for o in outs:
         if not (o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"):
             raise SystemExit("output without SOI/EOI")
@@ -1675,6 +2061,7 @@ def main():
     log("stages of one 8x768x512 group (ms): %s; total %.1f"
         % (json.dumps({k: round(v * 1e3, 3) for k, v in times.items()}),
            group_s * 1e3))
+    dev_first_routes(kodak[:8], ctx, dev)
 
     def group_kernel():
         for a in recorded:
@@ -1740,7 +2127,10 @@ def main():
     l12, err12 = remaining_surfaces(kodak, dev, smi, compare)
     max_err = max(max_err, err12)
 
-    # ---- 13. result lines ----
+    # ---- 13. the device engines ----
+    k_tg = device_engines(kodak, odd, rec_k, rec_o, dev, smi, tg_launches)
+
+    # ---- 14. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -1750,7 +2140,7 @@ def main():
         "ms": k_ms, "kernel_ms": k_ms, "ms_with_launch_gaps": k_un,
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
-        "dense_bound_ms": d_bound, "launches_phase12": l12}, k12]}))
+        "dense_bound_ms": d_bound, "launches_phase12": l12}, k12, k_tg]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,11 +3,13 @@
 Port of mozjpeg_tpu/codec/config.py. Defaults follow jpeg_set_defaults
 with JCP_MAX_COMPRESSION (mozjpeg jcparam.c:387-518): progressive +
 trellis + optimize_scans + optimized Huffman + overshoot deringing +
-quant table 3. The JAX package's backend and attachment probes decide
-TPU-tunnel engines (device entropy, device scan search, sparse and
-transport downloads, plane packing); the port has none of those engines
-yet, so their "auto" resolves to off here, and an explicit request for
-one is refused by the encoder (codec/encoder.py _check_slice).
+quant table 3. The device entropy and scan-search engines resolve as in
+the JAX package: an explicit flag, else MJ_DEVICE_ENTROPY /
+MJ_DEVICE_SCANOPT ("1"/"0"), else `deployment` (utils/attachment.py),
+whose "auto" is off in the port. The transfer codecs (sparse and
+transport downloads, plane packing) are not ported: their "auto" is off
+and an explicit request is refused by the encoder (codec/encoder.py
+_check_slice).
 
 Also the per-colorspace component layout (CS_INFO), the quant slot
 mapping and the restart-interval conversions of mozjpeg_tpu/codec/
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from typing import Optional, Sequence, Tuple
 
 
@@ -86,10 +89,15 @@ class EncoderConfig:
     dct_method: DCTMethod = DCTMethod.ISLOW
     scan_script: Optional[Sequence] = None
 
-    # engine selections of the JAX package (None = auto = off in the port)
+    # the device engines: entropy emission with the restart-parallel bit
+    # packers (ops/bitpack.py) and the scan search on the device
+    # (codec/scanopt_dev.py), byte-identical to the host's. None = the
+    # environment, else `deployment`: "local" (on), "remote" (off) or
+    # "auto" (MJ_DEPLOYMENT, else off; utils/attachment.py)
     device_entropy: Optional[bool] = None
     device_scanopt: Optional[bool] = None
     deployment: str = "auto"
+    # the transfer codecs of the JAX package (not ported; None = off)
     sparse_download: Optional[bool] = None
     host_prep: Optional[bool] = None
     plane_pack: Optional[bool] = None
@@ -155,13 +163,32 @@ class EncoderConfig:
             overshoot_deringing=pick(self.overshoot_deringing, maxc),
             dct_method=self.dct_method,
             scan_script=self.scan_script,
-            device_entropy=bool(self.device_entropy),
-            device_scanopt=bool(self.device_scanopt),
+            device_entropy=_engine_flag(self.device_entropy,
+                                        "MJ_DEVICE_ENTROPY",
+                                        self.deployment),
+            device_scanopt=_engine_flag(self.device_scanopt,
+                                        "MJ_DEVICE_SCANOPT",
+                                        self.deployment),
             sparse_download=bool(self.sparse_download),
             host_prep=pick(self.host_prep, True),
             plane_pack=bool(self.plane_pack),
             coef_transport=bool(self.coef_transport),
         )
+
+
+def _engine_flag(flag, env_name: str, deployment: str) -> bool:
+    """A device engine's switch (the JAX package's _auto_device_entropy
+    and _auto_device_scanopt): the flag, else the environment variable,
+    else the deployment."""
+    if flag is not None:
+        return bool(flag)
+    env = os.environ.get(env_name, "auto").lower()
+    if env in ("0", "false", "off"):
+        return False
+    if env in ("1", "true", "on"):
+        return True
+    from ..utils import attachment
+    return attachment.deployment_local(deployment)
 
 
 # per-colorspace component layout: (quant slots, huff table slots, comp IDs)

@@ -41,7 +41,8 @@ from __future__ import annotations
 import contextvars
 import dataclasses
 import os
-from concurrent.futures import ThreadPoolExecutor
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -50,8 +51,9 @@ import torch
 from .. import consts, native
 from ..entropy import encode as entenc
 from ..entropy.huffman import HuffTable, derive_codes
+from ..ops import bitpack, tablegen
 from . import (arith, host_engine, marker, pipeline_t, report, scanopt,
-               scans, trellis)
+               scanopt_dev, scans, trellis)
 from .config import (CS_INFO, EncoderConfig, Profile, ResolvedConfig,
                      qt_slots, scan_restart_interval, trellis_ris)
 from .pipeline import geometry
@@ -155,8 +157,6 @@ def _check_slice(image, cfg):
                          % image.dtype)
     if image.dtype == np.uint16 and cfg.precision == 8:
         raise ValueError("uint16 samples need precision=12")
-    if cfg.device_entropy or cfg.device_scanopt:
-        no("the device entropy and scan-search engines", "7")
     if cfg.sparse_download or cfg.plane_pack or cfg.coef_transport:
         no("the transfer codecs", "8")
 
@@ -304,7 +304,7 @@ def _encode_many(images, config, dev, overrides) -> List[bytes]:
         for idxs, per_image, futs in pending:
             for i, f in zip(idxs, futs):
                 out[i] = f.result()
-                if not per_image:
+                if not (per_image or isinstance(futs, _Searched)):
                     report.pass_done("entropy")
     return out
 
@@ -321,8 +321,9 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
     (q_opt_sums, q_opt_tables). With `times` (dict) every stage is
     synchronised and timed, and the host entropy is waited for inside
     its stage. With `record` (dict) record["lambda"] gets each
-    component's (norm sums, lambda) and record["trellis_ac"] the
-    arguments of each trellis_ac call. The per-image route reports a
+    component's (norm sums, lambda), record["trellis_ac"] the arguments
+    of each trellis_ac call and record["tablegen"] the counts of each
+    device tablegen call of the trellis. The per-image route reports a
     main and a trellis pass per image, the batched one an entropy pass
     per image (counted here, done as encode_many takes the result)."""
     cfg, b = ctx.cfg, len(images)
@@ -338,8 +339,42 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
     if per_image and cfg.trellis_quant:
         for _ in range(b):
             report.pass_done("trellis")
+    if not per_image and _device_search_serves(ctx, p1[0]):
+        try:
+            with stage(times, "device_search", dev):
+                outs = scanopt_dev.encode_batch_scans(
+                    [im.shape[1] for im in images],
+                    [im.shape[0] for im in images], p1[0], finals,
+                    ctx.qtables, cfg, ctx.ncomps, b, _frame_slots(ctx),
+                    ((marker.icc_chunks(cfg.icc) if cfg.icc else [])
+                     + list(ctx.extra_markers)) or None)
+            return _Searched(_done(o) for o in outs)
+        except scanopt_dev.FallbackNeeded:
+            count_host_route("search")
     return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
                        qtables, entropy_passes=not per_image)
+
+
+class _Searched(list):
+    """The futures of a group whose bytes came from the device scan
+    search, which reports its own passes."""
+
+
+def _done(value) -> Future:
+    f = Future()
+    f.set_result(value)
+    return f
+
+
+def _device_search_serves(ctx: GroupCtx, geom) -> bool:
+    """Whether the group takes the device scan search where the JAX
+    package's batched route does: device_scanopt, progressive with the
+    scan search and no script, Huffman, and a configuration and
+    geometry scanopt_dev.supported covers."""
+    cfg = ctx.cfg
+    return (cfg.device_scanopt and cfg.progressive and cfg.optimize_scans
+            and cfg.scan_script is None and not cfg.arithmetic
+            and scanopt_dev.supported(cfg, ctx.cs, ctx.ncomps, geom))
 
 
 def _finals(p1, ctx: GroupCtx, dev, b: int, times=None, record=None,
@@ -425,7 +460,16 @@ def _batch_rest(b: int, p1, ctx: GroupCtx, dev, times=None, record=None,
     planes per component (the quantized ones without trellis). With
     loop_ris the statistics of the loops after the first are segmented
     at the restarts (the JAX per-image route), else not (its batched
-    route)."""
+    route).
+
+    The rate tables come from the device-tablegen route where the JAX
+    package takes it: the batched route's first loop, with optimized
+    Huffman tables, YCbCr or grayscale, no use_scans_in_trellis and
+    MJ_DEV_FIRST not 0 (its dev_first), builds them from p1's
+    histograms on the device (ops/tablegen.py, one launch for every
+    component and image), and every later loop from the device's band
+    histograms (its dev_tables); the host never syncs on them. Otherwise
+    the histograms come down and the native Annex K builds each table."""
     cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
     geom, merged, smalls, norms = p1
     qs = tuple(m[0] for m in merged)
@@ -437,6 +481,9 @@ def _batch_rest(b: int, p1, ctx: GroupCtx, dev, times=None, record=None,
     slots = CS_INFO[cs][1][:ncomps]
     opt = cfg.optimize_coding
     nloops = max(1, cfg.trellis_num_loops)
+    dev_first = (not loop_ris and opt and not cfg.use_scans_in_trellis
+                 and cs in ("ycbcr", "grayscale")
+                 and os.environ.get("MJ_DEV_FIRST", "1") != "0")
     cqt = pipeline_t.comp_qtables(ctx.qtables, qt_slots(cfg, cs, ncomps))
     with stage(times, "trellis_tables", dev):
         lams, dc_sis, qtblzz, ncands = [], [], [], []
@@ -450,7 +497,8 @@ def _batch_rest(b: int, p1, ctx: GroupCtx, dev, times=None, record=None,
             qtblzz.append(qz)
             ncands.append(trellis.get_num_dc_candidates(int(qz[0])))
         first_hists = (pipeline_t.download_hists(geom, smalls, b)
-                       if opt and not cfg.use_scans_in_trellis else None)
+                       if opt and not cfg.use_scans_in_trellis
+                       and not dev_first else None)
     if record is not None:
         record.setdefault("lambda", []).extend(zip(norms, lams))
     common = dict(batch=b, eob_opt=cfg.trellis_eob_opt,
@@ -466,12 +514,24 @@ def _batch_rest(b: int, p1, ctx: GroupCtx, dev, times=None, record=None,
         with stage(times, "trellis_tables", dev):
             return _host_ac_tables(hists, slots, opt, b, dev)
 
-    def band_hists(cur, ss, se, ris):
-        """The current coefficients' band histograms, all components in
-        one download -> (B, ncomps, 256) int32."""
+    def dev_tables(hists):
+        """Per component (B, 256) histograms on the device -> their rate
+        tables, all components in one tablegen call."""
+        with stage(times, "trellis_tables", dev):
+            h = torch.cat(hists, 0)
+            if record is not None:
+                record.setdefault("tablegen", []).append(
+                    tablegen.trellis_freqs(h))
+            si = tablegen.trellis_rate_tables(h)
+            return [si[ci * b:(ci + 1) * b] for ci in range(ncomps)]
+
+    def band_hists(cur, ss, se, ris, host=False):
+        """The current coefficients' per-component (B, 256) band
+        histograms, or with `host` all of them in one download as
+        (B, ncomps, 256) int32."""
         with stage(times, "trellis_hists", dev):
             hs = trellis.band_hists(cur, ss, se, b, ris)
-            return torch.stack(hs, 1).cpu().numpy()
+            return torch.stack(hs, 1).cpu().numpy() if host else hs
 
     ris = trellis_ris(cfg, comps)
     if cfg.use_scans_in_trellis:
@@ -481,19 +541,20 @@ def _batch_rest(b: int, p1, ctx: GroupCtx, dev, times=None, record=None,
         cur = qs
         for _ in range(nloops):
             for bi, (ss, se) in enumerate(((1, fs), (fs + 1, 63))):
-                hists = band_hists(cur, ss, se, ris) if opt else None
+                hists = band_hists(cur, ss, se, ris, True) if opt else None
                 cur = run(cur, tables(hists), ((ss, se),),
                           cfg.trellis_quant_dc and bi == 0)
         return cur
-    ac_sis = tables(first_hists)
+    ac_sis = (dev_tables(pipeline_t.hists_t(geom, smalls, b)) if dev_first
+              else tables(first_hists))
     finals = run(qs, ac_sis, ((1, 63),), cfg.trellis_quant_dc)
     for _ in range(nloops - 1):
         if opt:
             # each loop regathers per-image rate statistics from the
             # previous loop's coefficients (jcmaster.c:1129-1139), with no
             # restart segmentation in the JAX batched route
-            ac_sis = tables(band_hists(finals, 1, 63,
-                                       ris if loop_ris else None))
+            ac_sis = dev_tables(band_hists(finals, 1, 63,
+                                           ris if loop_ris else None))
         finals = run(finals, ac_sis, ((1, 63),), cfg.trellis_quant_dc)
     return finals
 
@@ -669,12 +730,8 @@ def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
     group's. entropy_passes counts one pass per image (the batched
     route's)."""
     b = len(images)
-    _, _, comps = geom
     with stage(times, "download", dev):
-        flat = pipeline_t.pack_all_batch(finals, b).cpu().numpy()
-        per_image = [[pipeline_t.add_dummy_blocks_host(p, g)
-                      for p, g in zip(planes, comps)]
-                     for planes in pipeline_t.split_flat_batch(geom, flat, b)]
+        per_image = _entropy_planes(geom, finals, b, ctx.cfg.device_entropy)
     # one image per pool thread; a lone image threads its own search
     nthreads = (os.cpu_count() or 1) if b == 1 else 1
     if entropy_passes:
@@ -733,10 +790,35 @@ def encode_raw_yuv(planes, width: int, height: int, samp,
     finals, qtables = _finals((geom, merged, smalls, norms), ctx, dev, 1)
     if qtables:
         ctx = ctx._replace(qtables=qtables[0])
-    flat = pipeline_t.pack_all_batch(finals, 1).cpu().numpy()
-    out = [pipeline_t.add_dummy_blocks_host(p, g) for p, g in
-           zip(pipeline_t.split_flat_batch(geom, flat, 1)[0], comps)]
+    out = _entropy_planes(geom, finals, 1, cfg.device_entropy)[0]
     return entropy_image(width, height, geom, out, ctx, os.cpu_count() or 1)
+
+
+class DualPlane(np.ndarray):
+    """A host coefficient plane that carries its twin on the device
+    (`.dev`, (bh_pad, bw_pad, 64) int16): the host coder reads the
+    array, the device bit packers (ops/bitpack.py) the twin, so no scan
+    uploads its plane again."""
+    dev = None
+
+
+def _entropy_planes(geom, finals, b: int, twins: bool = False):
+    """The group's final planes in one download -> per image the padded
+    (bh_pad, bw_pad, 64) int16 planes of the host entropy stage, iMCU
+    dummy blocks added on the host; with `twins` (device_entropy) each a
+    DualPlane whose twin stays on the device."""
+    comps = geom[2]
+    flat = pipeline_t.pack_all_batch(finals, b).cpu().numpy()
+    out = [[pipeline_t.add_dummy_blocks_host(p, g)
+            for p, g in zip(planes, comps)]
+           for planes in pipeline_t.split_flat_batch(geom, flat, b)]
+    if twins:
+        dev_planes = pipeline_t.planes_t(finals, geom, b)
+        for i, planes in enumerate(out):
+            for ci, p in enumerate(planes):
+                planes[ci] = p.view(DualPlane)
+                planes[ci].dev = dev_planes[ci][i]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -753,8 +835,89 @@ class ScanResult(NamedTuple):
     restart: int
 
 
-def encode_scan_optimal(sg, dc_tbls, ac_tbls, restart: int) -> ScanResult:
-    """Gather the scan's statistics, build optimal tables, emit it."""
+# host routes the device engines took on inputs they do not cover: a
+# scan emission whose table is absent, a device scan search that needed
+# the host search (chip_smoke.py holds both to 0 on its photos)
+engine_host_routes = {"emit": 0, "search": 0}
+_ROUTES_LOCK = threading.Lock()
+
+
+def count_host_route(kind: str):
+    with _ROUTES_LOCK:
+        engine_host_routes[kind] += 1
+
+
+def reset_host_routes():
+    for k in engine_host_routes:
+        engine_host_routes[k] = 0
+
+
+def _emit_scan_device(sg, dc_tbls, ac_tbls, dc_tables, ac_tables,
+                      restart: int):
+    """The scan's entropy data from the device's restart-parallel bit
+    packers (ops/bitpack.py): sequential full-band scans and every
+    progressive scan kind, byte-identical to the serial host coder.
+    None where a table the scan needs is absent."""
+    scan = sg.scan
+    planes = [sg.planes[ci] for ci, _, _ in sg.entries]
+    geoms = [(h, v) for _, h, v in sg.entries]
+    if scan.Ss == 0 and scan.Se == 63:               # sequential
+        dc_codes, ac_codes = [], []
+        for ci, _, _ in sg.entries:
+            dt = dc_tables.get(dc_tbls.get(ci, 0))
+            at = ac_tables.get(ac_tbls.get(ci, 0))
+            if dt is None or at is None:
+                return None
+            dc_codes.append(derive_codes(dt))
+            ac_codes.append(derive_codes(at))
+        return bitpack.encode_scan_bitpar(planes, geoms, sg.mcus_x,
+                                          sg.mcus_y, restart, dc_codes,
+                                          ac_codes)
+    dc_codes = ac_codes = None
+    if scan.Ss == 0 and scan.Ah == 0:                # DC first
+        dc_codes = []
+        for ci, _, _ in sg.entries:
+            dt = dc_tables.get(dc_tbls.get(ci, 0))
+            if dt is None:
+                return None
+            dc_codes.append(derive_codes(dt))
+    elif scan.Ss != 0:                               # AC first or refine
+        at = ac_tables.get(ac_tbls.get(scan.comps[0], 0))
+        if at is None:
+            return None
+        ac_codes = [derive_codes(at)]
+    return bitpack.encode_scan_progressive_device(
+        planes, geoms, sg.mcus_x, sg.mcus_y, scan.Ss, scan.Se, scan.Ah,
+        scan.Al, restart, dc_tables=dc_codes, ac_tables=ac_codes)
+
+
+def _device_emit_ok(sg) -> bool:
+    """The device packers take every progressive scan and the
+    sequential full-band one."""
+    scan = sg.scan
+    if scan.Ss == 0 and scan.Se == 63:
+        return scan.Ah == 0 and scan.Al == 0
+    return True
+
+
+def _emit(sg, dc_tbls, ac_tbls, dc_tables, ac_tables, restart: int,
+          device: bool) -> bytes:
+    """The scan's data from the device packers when `device` (the host
+    coder where they return None, counted), else the host coder."""
+    if device and _device_emit_ok(sg):
+        data = _emit_scan_device(sg, dc_tbls, ac_tbls, dc_tables,
+                                 ac_tables, restart)
+        if data is not None:
+            return data
+        count_host_route("emit")
+    return entenc.encode_scan(sg, dc_tbls, ac_tbls, dc_tables, ac_tables,
+                              restart)[0]
+
+
+def encode_scan_optimal(sg, dc_tbls, ac_tbls, restart: int,
+                        device: bool = False) -> ScanResult:
+    """Gather the scan's statistics, build optimal tables, emit it (on
+    the device with `device`)."""
     scan = sg.scan
     _, dcc, acc = entenc.encode_scan(sg, dc_tbls, ac_tbls, {}, {}, restart,
                                      gather=True)
@@ -769,22 +932,22 @@ def encode_scan_optimal(sg, dc_tbls, ac_tbls, restart: int) -> ScanResult:
             t = ac_tbls[ci]
             if t not in ac_tables and acc[t].any():
                 ac_tables[t] = entenc.gen_optimal_table(acc[t])
-    data, _, _ = entenc.encode_scan(sg, dc_tbls, ac_tbls, dc_tables,
-                                    ac_tables, restart)
+    data = _emit(sg, dc_tbls, ac_tbls, dc_tables, ac_tables, restart,
+                 device)
     return ScanResult(scan, data, dc_tables, ac_tables, dc_tbls, ac_tbls,
                       restart)
 
 
 def encode_scan_fixed(sg, dc_tbls, ac_tbls, dc_tables, ac_tables,
-                      restart: int) -> ScanResult:
+                      restart: int, device: bool = False) -> ScanResult:
     """Emit the scan with the given (standard) tables."""
     scan = sg.scan
     used_dc = {dc_tbls[ci]: dc_tables[dc_tbls[ci]] for ci in scan.comps
                if scan.Ss == 0 and scan.Ah == 0 and dc_tbls[ci] in dc_tables}
     used_ac = {ac_tbls[ci]: ac_tables[ac_tbls[ci]] for ci in scan.comps
                if scan.Se > 0 and ac_tbls[ci] in ac_tables}
-    data, _, _ = entenc.encode_scan(sg, dc_tbls, ac_tbls, dc_tables,
-                                    ac_tables, restart)
+    data = _emit(sg, dc_tbls, ac_tbls, dc_tables, ac_tables, restart,
+                 device)
     return ScanResult(scan, data, used_dc, used_ac, dc_tbls, ac_tbls,
                       restart)
 
@@ -918,16 +1081,18 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
     ac_tbls = dict(dc_tbls)
     results = []
     report.add_passes(len(script))
+    dev = cfg.device_entropy and cfg.precision <= 12
     for scan in script:
         sg = entenc.ScanGeometry(scan, geom, planes)
         r = scan_restart_interval(cfg, scan, geom)
         if cfg.optimize_coding or progressive:
-            results.append(encode_scan_optimal(sg, dc_tbls, ac_tbls, r))
+            results.append(encode_scan_optimal(sg, dc_tbls, ac_tbls, r,
+                                               dev))
         else:
             std_dc = {s: STD_TABLES[(0, s)] for s in tbl_slots[:ncomps]}
             std_ac = {s: STD_TABLES[(1, s)] for s in tbl_slots[:ncomps]}
             results.append(encode_scan_fixed(sg, dc_tbls, ac_tbls, std_dc,
-                                             std_ac, r))
+                                             std_ac, r, dev))
         report.pass_done("scan %d-%d" % (scan.Ss, scan.Se))
     return assemble(width, height, geom, ctx.qtables, results, progressive,
                     ncomps, multi_dqt=ctx.profile != Profile.FASTEST,

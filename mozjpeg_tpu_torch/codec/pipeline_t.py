@@ -251,6 +251,15 @@ def download_hists(geom, small: torch.Tensor, b: int) -> np.ndarray:
         .reshape(b, len(comps), 256)
 
 
+def hists_t(geom, small: torch.Tensor, b: int):
+    """The sidecar's AC-first histograms on the device, per component
+    (B, 256) int32 views."""
+    _, _, comps = geom
+    nnorm = sum(g.bh * g.bw for g in comps)
+    h = small.reshape(b, -1)[:, nnorm:]
+    return [h[:, 256 * ci:256 * (ci + 1)] for ci in range(len(comps))]
+
+
 def pack_all_batch(planes_t, b: int) -> torch.Tensor:
     """Per comp (64, B*n) planes -> ONE flat int16 tensor ordered
     [image0: comp0 blocks (n, 64), comp1, ...][image1: ...]."""
@@ -270,6 +279,28 @@ def split_flat_batch(geom, flat: np.ndarray, b: int):
             planes.append(flat[off:off + n].reshape(g.bh, g.bw, 64))
             off += n
         out.append(planes)
+    return out
+
+
+def planes_t(finals, geom, b: int):
+    """Per component (64, B*n) planes -> (B, bh_pad, bw_pad, 64) on their
+    device, with the iMCU dummy blocks of add_dummy_blocks_host."""
+    out = []
+    for q, g in zip(finals, geom[2]):
+        p = q.reshape(64, b, g.bh, g.bw).permute(1, 2, 3, 0)
+        if g.bw == g.bw_pad and g.bh == g.bh_pad:
+            out.append(p.contiguous())
+            continue
+        full = torch.zeros((b, g.bh_pad, g.bw_pad, 64), dtype=p.dtype,
+                           device=p.device)
+        full[:, :g.bh, :g.bw] = p
+        if g.bw < g.bw_pad:
+            full[:, :g.bh, g.bw:, 0] = p[:, :, g.bw - 1, 0:1]
+        if g.bh < g.bh_pad:
+            src = full[:, g.bh - 1, :, 0].reshape(b, g.bw_pad // g.h,
+                                                   g.h)[:, :, -1]
+            full[:, g.bh:, :, 0] = src.repeat_interleave(g.h, 1)[:, None, :]
+        out.append(full)
     return out
 
 

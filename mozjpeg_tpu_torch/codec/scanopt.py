@@ -131,12 +131,14 @@ def _frame_header(w, sof_code, width, height, geom, qtables, cfg,
 # ---------------------------------------------------------------------------
 
 def _scan_buffer(scan: ScanInfo, geom, planes, dc_tbls, ac_tbls,
-                 restart: int, frame_header, emit_dri: bool) -> bytes:
+                 restart: int, frame_header, emit_dri: bool,
+                 device: bool = False) -> bytes:
     """One Huffman candidate scan: [frame header] + DHT + [DRI] + SOS +
-    data, with the scan's own optimal tables."""
+    data, with the scan's own optimal tables; emitted by the device's bit
+    packers with `device` (device_entropy)."""
     from .encoder import encode_scan_optimal
     sr = encode_scan_optimal(entenc.ScanGeometry(scan, geom, planes),
-                             dc_tbls, ac_tbls, restart)
+                             dc_tbls, ac_tbls, restart, device)
     w = marker.MarkerWriter()
     if frame_header:
         w.raw(frame_header)
@@ -379,11 +381,14 @@ def encode_optimize_scans(width: int, height: int, geom, planes, qtables,
     mk = _scan_buffer_arith if arith else _scan_buffer
     report.add_passes(layout.num_scans)
 
+    extra = ({} if arith else
+             {"device": cfg.device_entropy and precision <= 12})
+
     def get_size(sn, scan):
         r = scan_restart_interval(cfg, scan, geom)
         bufs[sn] = mk(scan, geom, planes, dc_tbls, ac_tbls, r,
                       frame_header if sn == 0 else None,
-                      emit_dri=r != dri[0])
+                      emit_dri=r != dri[0], **extra)
         dri[0] = r
         report.pass_done("candidate scan %d/%d" % (sn + 1, layout.num_scans))
         return len(bufs[sn]) - (len(frame_header) if sn == 0 else 0)

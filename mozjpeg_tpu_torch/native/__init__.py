@@ -3,7 +3,8 @@
 Binds what the encode path calls (mj_prep_ycc, mj_gen_optimal_table,
 mj_scan_search, and the scan encoders mj_encode_seq and
 mj_encode_{dc,ac}_{first,refine} of entropy.cpp, which gather symbol
-counts or emit one scan), what the decode path calls (the six Huffman
+counts or emit one scan, and mj_ac_refine_schedule, the AC-refinement
+EOB-run and correction-bit flush schedule of the device packers), what the decode path calls (the six Huffman
 decoders mj_decode_seq, mj_decode_seq_par, mj_decode_{dc,ac}_{first,refine}
 and the warning counter mj_set_warnings / mj_get_warnings, all in
 entropy.cpp), the host engine's steps (hostenc.cpp: mj_host_p1,
@@ -103,6 +104,9 @@ def _bind(so):
                so.mj_encode_dc_refine, so.mj_encode_ac_first,
                so.mj_encode_ac_refine):
         fn.restype = lng
+    so.mj_ac_refine_schedule.restype = lng
+    so.mj_ac_refine_schedule.argtypes = [i32p, i32p, i32p, lng, lng] \
+        + [i32p] * 9
 
     tabs = [i32p, i64p, i32p, u8p]      # mincode, maxcode, valptr, vals
     so.mj_decode_seq.restype = ctypes.c_long

@@ -17,8 +17,11 @@ decode, decode_scaled at 12 bits and lossless round trips at 8, 12 and
 16 bits on the GPU's entry points against the CPU path; and the remaining
 surfaces: encode_raw_yuv (4:2:0 and gray) with its AC kernel launches,
 the TurboJPEG API (TJ(device="cuda") against TJ(device="cpu")) and cjpeg
-and yuvjpeg's main(device="cuda") against device="cpu". They skip
-without a GPU; run them on one with
+and yuvjpeg's main(device="cuda") against device="cpu"; and the device
+engines: the Annex-K tablegen kernel against its plain version, and
+device_scanopt, deployment="local", device_entropy and the
+device-tablegen trellis route on the card against the CPU path and the
+host engines. They skip without a GPU; run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -520,3 +523,58 @@ def test_cjpeg_and_yuvjpeg_on_the_card_equal_cpu(cuda, tmp_path):
                             device=device) == 0
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
+
+
+def test_tablegen_kernel_equals_plain_on_the_card(cuda):
+    """The Annex-K kernel (csrc/tablegen.cu) against its plain version:
+    ties, sparse and dense histograms, counts of 2^20, an empty and a
+    one-symbol histogram, with and without the code lengths."""
+    from mozjpeg_tpu_torch.ops import tablegen as tg
+    rng = np.random.default_rng(31)
+    f = np.zeros((70, 257), np.int32)
+    for i in range(64):
+        k = int(rng.integers(1, 257))
+        f[i, rng.choice(256, k, replace=False)] = rng.integers(
+            1, int(rng.choice([2, 50, 1 << 20])), k)
+    f[64, :100] = 7
+    f[65, ::2] = 1
+    f[66, 42] = 10
+    f[67, :40] = [2 ** min(i, 25) for i in range(40)]
+    f[68, :8] = 1 << 26
+    freqs = torch.as_tensor(f, device=cuda)
+    before = tg.launches
+    got = tg.gen_optimal_tables(freqs, sizes=True)
+    assert tg.launches == before + 1
+    bits, vals, ok = tg.gen_optimal_tables_plain(freqs)
+    want = (bits, vals, ok, tg.derive_codes(bits, vals)[1])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not bool(got[2][69]) and bool(got[2][66])
+    for a, b in zip(tg.gen_optimal_tables(freqs), want[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(device_scanopt=True), dict(deployment="local"),
+    dict(device_entropy=True, progressive=False, restart_interval=5),
+    dict(device_entropy=True, optimize_scans=False),
+    dict(trellis_num_loops=2, device_scanopt=True)])
+def test_device_engines_on_the_card_equal_cpu(cuda, kw):
+    """The device engines and the device-tablegen route (one tablegen
+    launch a trellis loop) on the card: the CPU path's bytes, and the
+    host engines' (which the CPU tests hold equal to them)."""
+    from mozjpeg_tpu_torch.codec import encoder as E
+    from mozjpeg_tpu_torch.ops import tablegen as tg
+    imgs = [_photo8(48, 64, 40 + i) for i in range(3)]
+    cfg = mjt.EncoderConfig(quality=75, **kw)
+    E.reset_host_routes()
+    tg.reset_launches()
+    card = mjt.encode_many(imgs, cfg)
+    assert tg.launches >= cfg.trellis_num_loops
+    assert card == mjt.encode_many(imgs, cfg, device="cpu")
+    plain = {k: v for k, v in kw.items()
+             if k not in ("device_scanopt", "device_entropy", "deployment")}
+    assert card == mjt.encode_many(imgs, mjt.EncoderConfig(quality=75,
+                                                           **plain))
+    assert E.engine_host_routes == {"emit": 0, "search": 0}
