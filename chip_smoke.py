@@ -156,16 +156,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      photo (48 MP, the batch limit) equal to the host search, with two
      tablegen launches and its peak memory under 40 GiB; no engine host
      route taken over these photos; sync_latency_ms();
- 14. the script's time, the kernels line (both instantiations of the AC
+ 14. the host render and the transfer codecs: encode_many of
+     phase 4's corpus with sparse_download, plane_pack, coef_transport
+     and all three, each equal to the dense route's bytes, with 3
+     trellis_ac and 1 tablegen launches a group and the packs each codec
+     must make (encoder.codec_routes), every launch of the all-codecs
+     run against its plain version; the 12-bit transport on phase 11's
+     photos (its <14, 16383> launches against the plain version); dense
+     noise at q95 reaching the transport's repack at capacity 32 and its
+     fall to the sparse pack (the route counts logged); the bytes each
+     codec moves (utils/xfer.py), the device time and kernels of each
+     pack on one group (torch.profiler) and of the download stage, and
+     encode_many MP/s beside the dense route (median of 3 in turns);
+     decode() and decode_many of a 768x512 and a 4032x3024 JPEG on the
+     card's render and through the host render (MJ_DEPLOYMENT=remote),
+     equal, median of 3 in turns; decode_many of eight 768x512 JPEGs and
+     the 12 MP one through the card, the host render and the packed
+     route with MJ_PLANEPACK 0 and 1, RGB and YUV equal to the card's,
+     with their bytes, MP/s, device time and kernels;
+ 15. the script's time, the kernels line (both instantiations of the AC
      kernel and the tablegen kernel), then {"ok": true, "device": ...} as
      the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
-phase 8, phase 11's 12-bit main path, each of phase 12's calls) and read
-just after it; the kernels line carries phase 4's count of the
-<10, 1023> instantiation with phase 12's counts beside it, and phase
-11's of the <14, 16383> one, and phase 4's count of tablegen with
-phase 13's per device-search group beside it. It needs
+phase 8, phase 11's 12-bit main path, each of phase 12's calls, each of
+phase 14's encode runs) and read just after it; the kernels line carries
+phase 4's count of the <10, 1023> instantiation with phase 12's and
+phase 14's counts beside it, and phase 11's of the <14, 16383> one with
+phase 14's, and phase 4's count of tablegen with phase 13's per
+device-search group and phase 14's beside it. It needs
 no network and imports no JAX.
 """
 import contextlib
@@ -1308,20 +1327,12 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
         phase trellises through encoder._finals, which then records each
         launch's arguments; each is held against the plain version."""
         nonlocal max_err
-        rec, finals = {}, encoder._finals
-
-        def recording(p1, ctx, dev_, b, times=None, record=None, *rest):
-            return finals(p1, ctx, dev_, b, times, rec, *rest)
-
+        rec = {}
         torch.cuda.synchronize()
         tac.reset_launches()
-        if check:
-            encoder._finals = recording
-        try:
+        with recording(rec) if check else contextlib.nullcontext():
             out = fn()
             torch.cuda.synchronize()
-        finally:
-            encoder._finals = finals
         launches[name] = tac.trellis_ac.launches_by_kmax[10]
         if tac.trellis_ac.launches_by_kmax[14]:
             raise SystemExit("%s launched the 12-bit instantiation" % name)
@@ -1575,6 +1586,27 @@ def dev_first_routes(group, ctx, dev):
     del os.environ["MJ_DEV_FIRST"]
 
 
+def tablegen_vs_plain(f, label):
+    """The tablegen kernel on the (T, 257) counts f against its plain
+    version, exactly (bits, values, ok and code lengths); raises where
+    they differ. -> the largest difference (0)."""
+    import torch
+    from mozjpeg_tpu_torch.ops import tablegen as tg
+    got = tg.gen_optimal_tables(f, sizes=True)
+    bits, vals, ok = tg.gen_optimal_tables_plain(f)
+    want = (bits, vals, ok, tg.derive_codes(bits, vals)[1])
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    log("tablegen kernel vs plain [%s] T=%d: exact=%s max_abs_err=%d"
+        % (label, f.shape[0], exact, err))
+    if not exact:
+        raise SystemExit("tablegen kernel disagrees with its plain "
+                         "version (%s)" % label)
+    return err
+
+
 def adversarial_freqs():
     """(T, 257) int32 histograms on which Annex-K implementations split:
     heavy ties, one symbol, 2-17 sparse symbols, skewed counts that force
@@ -1666,19 +1698,7 @@ def device_engines(kodak, odd, rec_k, rec_o, dev, smi, launches,
             ("adversarial", torch.as_tensor(adversarial_freqs(),
                                             device=dev)),
             ("sizes pass of one group of 8", sizes_freqs)):
-        got = tg.gen_optimal_tables(f, sizes=True)
-        bits, vals, ok = tg.gen_optimal_tables_plain(f)
-        want = (bits, vals, ok, tg.derive_codes(bits, vals)[1])
-        torch.cuda.synchronize()
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                  zip(got, want))
-        exact = all(torch.equal(a, b) for a, b in zip(got, want))
-        log("tablegen kernel vs plain [%s] T=%d: exact=%s max_abs_err=%d"
-            % (label, f.shape[0], exact, err))
-        if not exact:
-            raise SystemExit("tablegen kernel disagrees with its plain "
-                             "version (%s)" % label)
-        max_err = max(max_err, err)
+        max_err = max(max_err, tablegen_vs_plain(f, label))
 
     # times: the kernel held and with launch gaps, the plain version on
     # the card, the native host Annex K on the same tables, the bound
@@ -1885,6 +1905,265 @@ def device_engines(kodak, odd, rec_k, rec_o, dev, smi, launches,
             "library_ms": None, "host_annex_k_ms": host_ms,
             "sizes_pass_ms": s_ms, "sizes_pass_plain_ms": s_pms,
             "sizes_pass_bound_ms": s_bms, "sizes_pass_host_ms": s_host}
+
+
+@contextlib.contextmanager
+def environ(**kw):
+    """The environment variables kw set inside, restored after."""
+    keep = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def recording(rec):
+    """encode_many's trellis passes record into rec (encoder._finals
+    gets a record dict: each trellis_ac launch's arguments and each
+    tablegen launch's counts)."""
+    from mozjpeg_tpu_torch.codec import encoder
+    finals = encoder._finals
+
+    def record(p1, ctx, dev_, b, times=None, _=None, *rest):
+        return finals(p1, ctx, dev_, b, times, rec, *rest)
+    encoder._finals = record
+    try:
+        yield
+    finally:
+        encoder._finals = finals
+
+
+# phase 14: each transfer codec's EncoderConfig fields, and the first
+# pack it makes on every group (encoder.codec_routes; what follows an
+# overflow depends on the data and is logged)
+CODECS = [("sparse_download", dict(sparse_download=True), ("sparse",)),
+          ("plane_pack", dict(plane_pack=True), ("plane_pack",)),
+          ("coef_transport", dict(coef_transport=True), ("transport",)),
+          ("all three", dict(sparse_download=True, plane_pack=True,
+                             coef_transport=True),
+           ("plane_pack", "transport"))]
+
+
+def transfer_codecs(images, outs, ngroups, dev, smi, compare, h=3024,
+                    w=4032, hs=512, ws=768, n12=8):
+    """Phase 14: the transfer codecs on the card, each byte-equal to the
+    dense route on phase 4's corpus with its launches held (every launch
+    of the all-codecs run against the plain versions), the 12-bit
+    transport on n12 of phase 11's photos, the overflow routes on dense
+    noise, each codec's bytes moved, pack device time and kernels and
+    MP/s beside the dense route; the host render and the packed decode
+    route against the card's render on a 768x512 JPEG and an h x w one
+    (hs x ws: the 12-bit photos' and the noise's size).
+    -> the phase's launch counts for the kernels line."""
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec import encoder, pipeline_t
+    from mozjpeg_tpu_torch.ops import sparsepack, tablegen as tg
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac, transport
+    from mozjpeg_tpu_torch.utils import xfer
+    t_phase = time.perf_counter()
+    mp = sum(im.shape[0] * im.shape[1] for im in images) / 1e6
+    launches = {"<10>": 0, "<14>": 0, "tablegen": 0}
+
+    def run(imgs, cfg, rec=None):
+        """encode_many on the card, counts from 0 -> (outputs, launches
+        of <10>, <14> and tablegen, the routes, (H2D, D2H) bytes)."""
+        torch.cuda.synchronize()
+        tac.reset_launches()
+        tg.reset_launches()
+        encoder.reset_codec_routes()
+        snap = xfer.snapshot()
+        with recording(rec) if rec is not None else contextlib.nullcontext():
+            got = mjt.encode_many(imgs, cfg)
+        torch.cuda.synchronize()
+        n = (tac.trellis_ac.launches_by_kmax[10],
+             tac.trellis_ac.launches_by_kmax[14], tg.launches)
+        for k, v in zip(launches, n):
+            launches[k] += v
+        return got, n, dict(encoder.codec_routes), xfer.delta(snap)
+
+    # 1. each codec on phase 4's corpus: the dense route's bytes
+    moved = {}
+    _, _, _, moved["dense"] = run(images, mjt.EncoderConfig(quality=75))
+    for name, kw, packs in CODECS:
+        rec = {} if name == "all three" else None
+        got, n, routes, moved[name] = run(
+            images, mjt.EncoderConfig(quality=75, **kw), rec)
+        log("transfer codec [%s]: %d images, equal to the dense route=%s, "
+            "launches <10, 1023> %d, tablegen %d, routes %s, H2D %d B, "
+            "D2H %d B (dense: %d B, %d B)"
+            % (name, len(images), got == outs, n[0], n[2],
+               json.dumps(routes), moved[name][0], moved[name][1],
+               moved["dense"][0], moved["dense"][1]))
+        if got != outs:
+            raise SystemExit("the %s route changed the bytes" % name)
+        if n != (3 * ngroups, 0, ngroups) or any(
+                routes[k] != ngroups for k in packs):
+            raise SystemExit("the %s route should launch trellis_ac 3 times "
+                             "and tablegen once a group and pack %s once "
+                             "a group" % (name, " and ".join(packs)))
+        if rec is not None:
+            if (len(rec["trellis_ac"]) != n[0]
+                    or len(rec["tablegen"]) != n[2]):
+                raise SystemExit("recorded launches differ from counted")
+            for i, args in enumerate(rec["trellis_ac"]):
+                compare(args, "phase 14 %s launch %d" % (name, i))
+            for i, f in enumerate(rec["tablegen"]):
+                tablegen_vs_plain(f, "phase 14 %s launch %d" % (name, i))
+
+    # 2. the 12-bit transport on phase 11's photos
+    rng = np.random.default_rng(1200)
+    corpus12 = []
+    for i in range(n12):
+        hi = photo(hs, ws, 1200 + i).astype(np.uint16) << 4
+        corpus12.append(hi | rng.integers(0, 16, hi.shape, dtype=np.uint16))
+    dense12 = mjt.encode_many(corpus12, mjt.EncoderConfig(quality=75,
+                                                          precision=12))
+    rec = {}
+    got, n, routes, moved12 = run(corpus12, mjt.EncoderConfig(
+        quality=75, precision=12, coef_transport=True), rec)
+    log("transfer codec [12-bit coef_transport]: %d photos, equal to the "
+        "dense route=%s, launches <14, 16383> %d, routes %s, D2H %d B"
+        % (n12, got == dense12, n[1], json.dumps(routes), moved12[1]))
+    if got != dense12 or n[1] != 3 or routes["transport"] != 1:
+        raise SystemExit("the 12-bit transport route failed")
+    for i, args in enumerate(rec["trellis_ac"]):
+        compare(args, "phase 14 12-bit transport launch %d" % i)
+
+    # 3. the overflow routes: dense noise past every capacity
+    noise = np.random.default_rng(1401).integers(0, 256, (hs, ws, 3)) \
+        .astype(np.uint8)
+    want = mjt.encode_many([noise], mjt.EncoderConfig(quality=95))
+    got, n, routes, _ = run([noise], mjt.EncoderConfig(
+        quality=95, coef_transport=True))
+    log("transfer codec overflow routes [%dx%d noise, q95]: equal=%s, "
+        "packs made %s" % (ws, hs, got == want, json.dumps(routes)))
+    if (got != want or routes["transport_scap32"] != 1
+            or routes["sparse"] != 1):
+        raise SystemExit("the noise should reach the transport's retry "
+                         "and its fall to sparse")
+
+    # 4. each codec's pack on one group: device ms and kernels, and the
+    # download stage's wall time and bytes
+    ctx = encoder.resolve_group(images[0], mjt.EncoderConfig(quality=75))
+    p1 = encoder._batch_p1(images[:8], ctx, dev, batched=True)
+    finals, _ = encoder._finals(p1, ctx, dev, 8, loop_ris=False)
+    geom, *up, total = pipeline_t.pack_ycc_batch(images[:8], ctx.samp)
+    up = [torch.from_numpy(a.view(np.int32)).to(dev) for a in up]
+    for label, fn in (
+            ("dense pack", lambda: pipeline_t.pack_all_batch(finals, 8)),
+            ("sparse pack", lambda: sparsepack.pack_planes_exact(finals,
+                                                                 8)),
+            ("transport pack", lambda: transport.pack_batch(finals, 8)),
+            ("plane-pack expand (upload)",
+             lambda: pipeline_t.unpack_ycc_batch(*up, total))):
+        dms, nk, wall = profiled(fn)
+        held, gaps = cuda_ms(fn, 5), cuda_ms(fn, 5, hold=False)
+        log("transfer codec device work per 8x768x512 group [%s]: %.4f ms "
+            "of device time, %d kernels (torch.profiler), %.4f ms held and "
+            "%.4f ms with the host's gaps (CUDA events), %.3f ms wall (%s)"
+            % (label, dms, nk, held, gaps, wall, smi))
+    for name, kw, _ in [("dense", {}, None)] + CODECS[:3:2]:
+        cfg = mjt.EncoderConfig(quality=75, **kw).resolved()
+        snap = xfer.snapshot()
+        wall, walls = timed3(lambda: encoder._fetch_planes(
+            geom, finals, 8, encoder._dispatch_download(finals, 8, cfg)))
+        log("transfer codec download stage per group [%s]: median %.3f ms "
+            "(%s), %d B a group (%s)"
+            % (name, wall * 1e3, ", ".join("%.3f" % (v * 1e3)
+                                          for v in walls),
+               xfer.delta(snap)[1] // 3, smi))
+
+    # 5. MP/s of each codec beside the dense route, 3 reps in turns
+    mps = {}
+    for _ in range(3):
+        for name, kw, _ in [("dense", {}, None)] + CODECS:
+            cfg = mjt.EncoderConfig(quality=75, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mjt.encode_many(images, cfg)
+            torch.cuda.synchronize()
+            mps.setdefault(name, []).append(mp / (time.perf_counter() - t0))
+    for name, v in mps.items():
+        log("transfer codec encode_many MP/s [%s]: median %.3f (reps %s; "
+            "%s)" % (name, statistics.median(v),
+                     ", ".join("%.3f" % x for x in v), smi))
+
+    # 6. the host render and the packed route against the card's render
+    big = mjt.encode(photo(h, w, 1212), mjt.EncoderConfig(quality=75))
+    for label, data in (("%dx%d" % images[0].shape[1::-1], outs[0]),
+                        ("%dx%d" % (w, h), big)):
+        want = mjt.decode(data)
+        with environ(MJ_DEPLOYMENT="remote"):
+            host = mjt.decode(data)
+            host_many = mjt.decode_many([data])[0]
+        if not (same(host, want) and same(host_many, want)):
+            raise SystemExit("the host render differs from the card's (%s)"
+                             % label)
+        times = {}
+        for _ in range(3):
+            for name, dep in (("card", "local"), ("host", "remote")):
+                with environ(MJ_DEPLOYMENT=dep):
+                    for call, fn in (("decode", lambda: mjt.decode(data)),
+                                     ("decode_many",
+                                      lambda: mjt.decode_many([data]))):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        times.setdefault((call, name), []).append(
+                            time.perf_counter() - t0)
+        for (call, name), v in times.items():
+            log("host render [%s %s] %s: median %.3f ms (%s; equal=True; %s)"
+                % (call, label, name, statistics.median(v) * 1e3,
+                   ", ".join("%.3f" % (x * 1e3) for x in v), smi))
+    datas = outs[:8] + [big]
+    dmp = (sum(im.shape[0] * im.shape[1] for im in images[:8])
+           + h * w) / 1e6
+    want = {o: mjt.decode_many(datas, output=o) for o in ("rgb", "yuv")}
+    decode_routes = [("card", dict(MJ_DEPLOYMENT="local")),
+              ("host", dict(MJ_DEPLOYMENT="remote", MJ_HOST_ENGINE="1")),
+              ("packed", dict(MJ_DEPLOYMENT="remote", MJ_HOST_ENGINE="0",
+                              MJ_PLANEPACK="0")),
+              ("packed + plane pack", dict(
+                  MJ_DEPLOYMENT="remote", MJ_HOST_ENGINE="0",
+                  MJ_PLANEPACK="1"))]
+    for name, env in decode_routes:
+        for o in ("rgb", "yuv"):
+            with environ(**env):
+                snap = xfer.snapshot()
+                got = mjt.decode_many(datas, output=o)
+                b = xfer.delta(snap)
+            log("decode_many route [%s, %s, 8 images + %dx%d]: equal to "
+                "the card's=%s, H2D %d B, D2H %d B (counted transfers)"
+                % (name, o, w, h, same(got, want[o]), b[0], b[1]))
+            if not same(got, want[o]):
+                raise SystemExit("decode_many's %s route differs" % name)
+    walls = {}
+    for _ in range(3):
+        for name, env in decode_routes:
+            with environ(**env):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mjt.decode_many(datas)
+                torch.cuda.synchronize()
+                walls.setdefault(name, []).append(time.perf_counter() - t0)
+    for name, env in decode_routes:
+        with environ(**env):
+            dms, nk, _ = profiled(lambda: mjt.decode_many(datas), reps=1)
+        v = walls[name]
+        log("decode_many route [%s] MP/s: median %.3f (reps %s), device "
+            "%.3f ms, %d kernels a call (%s)"
+            % (name, dmp / statistics.median(v),
+               ", ".join("%.3f" % (dmp / x) for x in v), dms, nk, smi))
+    log("phase 14: %.1f s" % (time.perf_counter() - t_phase))
+    return launches
 
 
 def main():
@@ -2130,7 +2409,12 @@ def main():
     # ---- 13. the device engines ----
     k_tg = device_engines(kodak, odd, rec_k, rec_o, dev, smi, tg_launches)
 
-    # ---- 14. result lines ----
+    # ---- 14. the host render and the transfer codecs ----
+    l14 = transfer_codecs(images, outs, ngroups, dev, smi, compare)
+    k12["launches_phase14"] = l14["<14>"]
+    k_tg["launches_phase14"] = l14["tablegen"]
+
+    # ---- 15. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -2140,7 +2424,8 @@ def main():
         "ms": k_ms, "kernel_ms": k_ms, "ms_with_launch_gaps": k_un,
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
-        "dense_bound_ms": d_bound, "launches_phase12": l12}, k12, k_tg]}))
+        "dense_bound_ms": d_bound, "launches_phase12": l12,
+        "launches_phase14": l14["<10>"]}, k12, k_tg]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

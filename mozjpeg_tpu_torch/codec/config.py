@@ -97,7 +97,11 @@ class EncoderConfig:
     device_entropy: Optional[bool] = None
     device_scanopt: Optional[bool] = None
     deployment: str = "auto"
-    # the transfer codecs of the JAX package (not ported; None = off)
+    # the transfer codecs (ops/sparsepack.py, planepack.py, transport.py):
+    # the exact sparse coefficient download, the plane-packed upload and
+    # the Huffman transport download, byte-identical to the dense
+    # transfers. None = the environment (MJ_SPARSE_DL, MJ_PLANEPACK,
+    # MJ_COEF_TRANSPORT), else off (auto_backend_flag)
     sparse_download: Optional[bool] = None
     host_prep: Optional[bool] = None
     plane_pack: Optional[bool] = None
@@ -169,11 +173,23 @@ class EncoderConfig:
             device_scanopt=_engine_flag(self.device_scanopt,
                                         "MJ_DEVICE_SCANOPT",
                                         self.deployment),
-            sparse_download=bool(self.sparse_download),
+            sparse_download=auto_backend_flag(self.sparse_download,
+                                               "MJ_SPARSE_DL"),
             host_prep=pick(self.host_prep, True),
-            plane_pack=bool(self.plane_pack),
-            coef_transport=bool(self.coef_transport),
+            plane_pack=auto_backend_flag(self.plane_pack, "MJ_PLANEPACK"),
+            coef_transport=auto_backend_flag(self.coef_transport,
+                                              "MJ_COEF_TRANSPORT"),
         )
+
+
+def auto_backend_flag(flag, env_name: str) -> bool:
+    """A transfer codec's switch (the JAX package's _auto_backend_flag):
+    the flag, else the environment variable, else "auto", which the JAX
+    package turns on for a TPU backend only and so is off here."""
+    if flag is not None:
+        return bool(flag)
+    env = os.environ.get(env_name, "auto").lower()
+    return env in ("1", "true", "on")
 
 
 def _engine_flag(flag, env_name: str, deployment: str) -> bool:

@@ -7,22 +7,28 @@ host half is the shared C++ entropy decoders (entropy.cpp for Huffman,
 arith.cpp for arithmetic coding through codec/arith.py, in the port's own
 library); the pixel half is PyTorch on the device the caller names:
 
-  decode       parse, entropy decode, then `render` (the device branch of
-               the JAX package's render: block smoothing on the host,
-               then every component's IDCT (islow, ifast or float), the
-               upsampling and the colour conversion on the device: YCbCr
-               -> RGB, YCCK -> CMYK, and the null conversion of RGB and
-               CMYK streams);
-  decode_many  the JAX package's route for a locally attached device
-               (merged_local): every stream is parsed, entropy-decoded on
-               a thread pool, and the YCbCr or gray images of one
-               geometry are rendered together, GROUP at a time
-               (render_ycc_batch: upload the int16 zigzag planes and
-               per-image quant tables, render, download uint8 RGB). Other
-               colour spaces, images with active block smoothing and Cb/Cr
-               planes that differ in geometry or quant table go through
-               `render` one at a time. output="yuv" returns the
-               per-component sample planes (decode_raw_planes_parsed);
+  decode       parse, entropy decode, then `render`: on the card the
+               device branch of the JAX package's render (block smoothing
+               on the host, then every component's IDCT (islow, ifast or
+               float), the upsampling and the colour conversion on the
+               device: YCbCr -> RGB, YCCK -> CMYK, and the null
+               conversion of RGB and CMYK streams); on the CPU (and on
+               the card with MJ_DEPLOYMENT=remote) the host render first
+               (_render_host: native mj_host_render + mj_post_ycc, 8-bit
+               islow YCbCr or gray), as the JAX package does;
+  decode_many  every stream is parsed and entropy-decoded on a thread
+               pool; on a local device (attachment.is_local: the card)
+               the YCbCr or gray images of one geometry render together,
+               GROUP at a time (render_ycc_batch: upload the int16 zigzag
+               planes and per-image quant tables, render, download uint8
+               RGB), the rest through `render` one at a time; off a
+               local device, as the JAX package off a local TPU, each
+               image through the host render on a stage pool, or with
+               MJ_HOST_ENGINE=0 the packed route (_decode_chunk_packed:
+               a sparse coefficient upload, the render, the sample planes
+               down raw or plane-packed, upsampling and colour on the
+               host). output="yuv" returns the per-component sample
+               planes (decode_raw_planes_parsed, or the routes' own);
   decode_grayscale, decode_cropped, BufferedImage
                djpeg -grayscale, jpeg_crop_scanline and the buffered-image
                passes, on the same parts;
@@ -47,8 +53,9 @@ arrays, made on the host (torch's uint16 supports few operations);
 decode_many renders them one at a time, as the JAX package does.
 Lossless (SOF3) streams decode on the host (codec/lossless.py) through
 decode, decode_grayscale and decode_many, as there; the other entry
-points refuse them with ValueError. Nothing falls back to the CPU or to
-another route.
+points refuse them with ValueError. The routes are chosen from the
+stream, the device and the switches before any work; nothing falls back
+to the CPU or to another route after a failure.
 """
 from __future__ import annotations
 
@@ -61,9 +68,12 @@ import numpy as np
 import torch
 
 from ..entropy.huffman import derive_decode_table
-from ..native import CompPlane, i32p, i64p, lib, u8p
-from ..ops import color, dct, idct_scaled, layout, sample
+from ..native import CompPlane, i16p, i32p, i64p, lib, u8p, u32p
+from ..ops import (bitpack, color, dct, idct_scaled, layout, planepack,
+                   sample, sparsepack)
+from ..utils import attachment, xfer
 from . import arith, lossless, marker, smooth
+from .config import auto_backend_flag
 from .encoder import _device
 from .stages import stage
 
@@ -509,17 +519,137 @@ def _render_t(jp, planes, colorspace, fancy_upsample, dct_method,
                     fancy_upsample, jp.width)
 
 
+# mj_post_ycc's upsampling modes (native post.cpp)
+_POST_MODES = {"none": 0, "h2v1": 1, "h2v2": 2, "int": 3}
+
+
+def _host_engine_on() -> bool:
+    return os.environ.get("MJ_HOST_ENGINE", "1") != "0"
+
+
+def _host_matrix(jp, cs: str, block_smoothing: bool) -> bool:
+    """The host render's streams: 8 bits, YCbCr or gray, no active block
+    smoothing."""
+    return (jp.precision == 8 and cs in ("ycbcr", "grayscale")
+            and not _smoothing_active(jp, block_smoothing))
+
+
+def _host_plane(jp, planes, ci: int, ph: int, pw: int,
+                nthreads: int) -> np.ndarray:
+    """Component ci's dequant + islow IDCT on the host (native
+    mj_host_render) -> its (ph, pw) uint8 samples."""
+    bh, bw, _, _ = _comp_dims(jp, jp.components[ci])
+    qt = np.ascontiguousarray(_comp_qtable(jp, ci).reshape(64)
+                              .astype(np.int32))
+    zz = np.ascontiguousarray(planes[ci][:bh, :bw].astype(np.int16))
+    out = np.empty((ph, pw), np.uint8)
+    lib().mj_host_render(_ptr(zz, i16p), _ptr(qt, i32p), bw, bh, ph, pw,
+                         _ptr(out, u8p), nthreads)
+    return out
+
+
+def _render_host_yuv(jp, planes, raw_dims, nthreads: int = 1):
+    """The host render's per-component sample planes at
+    jpeg_read_raw_data dims (the JAX _render_host_yuv): decoded samples
+    out to the last block's edge, zeros past it; None outside the host
+    matrix or with MJ_HOST_ENGINE=0."""
+    if not _host_engine_on() or jp.precision != 8:
+        return None
+    if _jpeg_colorspace(jp) not in ("ycbcr", "grayscale"):
+        return None
+    out = []
+    for ci, (ph, pw) in enumerate(raw_dims):
+        bh, bw, _, _ = _comp_dims(jp, jp.components[ci])
+        rh, rw = min(ph, bh * 8), min(pw, bw * 8)
+        full = np.zeros((ph, pw), np.uint8)
+        full[:rh, :rw] = _host_plane(jp, planes, ci, rh, rw, nthreads)
+        out.append(full)
+    return out
+
+
+def _render_host(jp, planes, colorspace, fancy_upsample: bool,
+                 block_smoothing: bool, nthreads: Optional[int] = None):
+    """Decode on the host (the JAX _render_host): native mj_host_render's
+    dequant + islow IDCT per component, then mj_post_ycc's upsampling
+    and colour conversion, pixel-identical to the device render. None
+    outside its matrix (8 bits, YCbCr or gray, no active block
+    smoothing, the _POST_MODES upsamplings, Cb and Cr sampled alike) or
+    with MJ_HOST_ENGINE=0."""
+    if not _host_engine_on():
+        return None
+    cs = colorspace or _jpeg_colorspace(jp)
+    if not _host_matrix(jp, cs, block_smoothing):
+        return None
+    gray = cs == "grayscale"
+    ncomps = 1 if gray else 3
+    if len(jp.components) < ncomps:
+        return None
+    if not gray:
+        mode, hexp, vexp = _upsample_mode(jp, fancy_upsample)
+        c1, c2 = jp.components[1], jp.components[2]
+        if mode not in _POST_MODES or (c1.h, c1.v) != (c2.h, c2.v):
+            return None
+    nt = nthreads or max(1, os.cpu_count() or 4)
+    samples = []
+    for ci in range(ncomps):
+        _, _, ch, cw = _comp_dims(jp, jp.components[ci])
+        samples.append(_host_plane(jp, planes, ci, ch, cw, nt))
+    if gray:
+        return samples[0][:jp.height, :jp.width]
+    y, cb, cr = samples
+    rgb = np.empty((jp.height, jp.width, 3), np.uint8)
+    lib().mj_post_ycc(_ptr(y, u8p), y.shape[0], y.shape[1], _ptr(cb, u8p),
+                      _ptr(cr, u8p), cb.shape[0], cb.shape[1],
+                      _POST_MODES[mode], hexp, vexp, jp.height, jp.width,
+                      _ptr(rgb, u8p))
+    return rgb
+
+
+def _host_decode_one(jp, planes, fancy_upsample: bool,
+                     block_smoothing: bool, output: str):
+    """One image through the host render, for decode_many off a local
+    device (the JAX _host_decode_one; nthreads=1, the stage pool spreads
+    the images). None outside the host matrix."""
+    if output == "yuv":
+        if _smoothing_active(jp, block_smoothing):
+            return None
+        gray = _jpeg_colorspace(jp) == "grayscale"
+        return _render_host_yuv(jp, planes, _raw_dims(jp, 1 if gray else 3),
+                                nthreads=1)
+    return _render_host(jp, planes, None, fancy_upsample, block_smoothing,
+                        nthreads=1)
+
+
 def render(jp: marker.ParsedJpeg, planes: List[np.ndarray],
            colorspace: Optional[str] = None, fancy_upsample: bool = True,
            dct_method: str = "islow", block_smoothing: bool = True,
            device=None) -> np.ndarray:
-    """Coefficient planes -> pixels on `device`: RGB (H, W, 3), gray
-    (H, W), or CMYK (H, W, 4) for 4-component streams, uint8 or (above
-    8 bits) uint16 (the device branch of the JAX package's render: block
-    smoothing on the host, then every component's IDCT, the upsampling
-    and the colour conversion on the device)."""
+    """Coefficient planes -> pixels: RGB (H, W, 3), gray (H, W), or CMYK
+    (H, W, 4) for 4-component streams, uint8 or (above 8 bits) uint16.
+    On the card (device None or "cuda"), the device branch of the JAX
+    package's render: block smoothing on the host, then every
+    component's IDCT, the upsampling and the colour conversion on the
+    card. On the CPU, and on the card with MJ_DEPLOYMENT=remote, the
+    JAX package's order: the host render first (_render_host; islow,
+    unless MJ_HOST_ENGINE=0), the device branch for what it refuses."""
+    dev = _device(device)
+    if dct_method == "islow" and (dev.type == "cpu"
+                                  or not attachment.is_local(dev)):
+        host = _render_host(jp, planes, colorspace, fancy_upsample,
+                            block_smoothing)
+        if host is not None:
+            return host
     return _to_host(_render_t(jp, planes, colorspace, fancy_upsample,
-                              dct_method, block_smoothing, _device(device)))
+                              dct_method, block_smoothing, dev))
+
+
+def _raw_dims(jp, ncomps: int):
+    """(ph, pw) per component at jpeg_read_raw_data dims: the image
+    padded to the sampling grid, then each component's share."""
+    pw0 = -(-jp.width // jp.max_h) * jp.max_h
+    ph0 = -(-jp.height // jp.max_v) * jp.max_v
+    return [(ph0 * c.v // jp.max_v, pw0 * c.h // jp.max_h)
+            for c in jp.components[:ncomps]]
 
 
 def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
@@ -530,18 +660,17 @@ def decode_raw_planes_parsed(jp: marker.ParsedJpeg, planes,
     Deeper samples are stored into the uint8 planes as the JAX package
     stores them (their low 8 bits)."""
     dev = _device(device)
-    pw0 = -(-jp.width // jp.max_h) * jp.max_h
-    ph0 = -(-jp.height // jp.max_v) * jp.max_v
     out = []
-    for ci, c in enumerate(jp.components):
-        pw = pw0 * c.h // jp.max_h
-        ph = ph0 * c.v // jp.max_v
+    for ci, (c, (ph, pw)) in enumerate(zip(
+            jp.components, _raw_dims(jp, len(jp.components)))):
         bh, bw, _, _ = _comp_dims(jp, c)
         qt = _comp_qtable(jp, ci).astype(np.int32)
-        pl = render_planes(_to_device(planes[ci][None, :bh, :bw], dev),
-                           _to_device(qt[None], dev), min(ph, bh * 8),
-                           min(pw, bw * 8), "islow",
+        zz = planes[ci][None, :bh, :bw]
+        pl = render_planes(_to_device(zz, dev), _to_device(qt[None], dev),
+                           min(ph, bh * 8), min(pw, bw * 8), "islow",
                            jp.precision)[0].cpu().numpy()
+        xfer.add_h2d(zz.nbytes + qt.nbytes)
+        xfer.add_d2h(pl.nbytes)
         full = np.zeros((ph, pw), np.uint8)
         full[:pl.shape[0], :pl.shape[1]] = pl
         out.append(full)
@@ -1101,13 +1230,195 @@ def render_group(key: GroupKey, jps, planes_list, dev, times=None,
             [_comp_qtable(jp, 0) for jp in jps]).astype(np.int32), dev))
         args.append(None if key.gray else _to_device(np.stack(
             [_comp_qtable(jp, 1) for jp in jps]).astype(np.int32), dev))
+    xfer.add_h2d(sum(a.numel() * a.element_size() for a in args
+                     if a is not None))
     if record is not None:
         record["render_ycc_batch"] = tuple(args) + (key,)
     with stage(times, "render", dev):
         res = render_ycc_batch(*args, key)
     with stage(times, "download", dev):
         res = res.cpu().numpy()
+    xfer.add_d2h(res.nbytes)
     return list(res)
+
+
+def _fast_decode_key(jp, planes, fancy_upsample: bool,
+                     block_smoothing: bool):
+    """The packed route's group key (the JAX _fast_decode_key): (width,
+    height, gray, mode, hexp, vexp, dims), or None for the merged or
+    per-image render: a stream outside the host matrix, an upsampling
+    mj_post_ycc lacks, Cb and Cr planes that differ in geometry or
+    quant table, or luma smaller than the image (4:4:0 and the like)."""
+    cs = _jpeg_colorspace(jp)
+    if planes is None or not _host_matrix(jp, cs, block_smoothing):
+        return None
+    gray = cs == "grayscale"
+    if gray:
+        mode, hexp, vexp = "none", 1, 1
+    else:
+        mode, hexp, vexp = _upsample_mode(jp, fancy_upsample)
+        if mode not in _POST_MODES:
+            return None
+    dims = [_comp_dims(jp, c) for c in jp.components[:1 if gray else 3]]
+    if gray:
+        dims = [dims[0], (0, 0, 0, 0)]
+    elif dims[1] != dims[2]:
+        return None
+    else:
+        dims = dims[:2]
+        if dims[0][2] != jp.height or dims[0][3] != jp.width:
+            return None
+        if not np.array_equal(_comp_qtable(jp, 1), _comp_qtable(jp, 2)):
+            return None
+    return (jp.width, jp.height, gray, mode, hexp, vexp, tuple(dims))
+
+
+def render_packed(masks, lo, esc, qty, qtc, b: int, dims, nt: int,
+                  n_tot: int, gray: bool):
+    """The packed route's render (the JAX _render_packed): the uploaded
+    masks and value bytes expand on the device (sparsepack.expand_flat_dev)
+    and render to per-component uint8 sample planes, no upsampling or
+    colour -> (y,) or (y, cb, cr) stacks of (B, ch, cw). dims: ((bh, bw,
+    ch, cw) luma, (...) chroma); qty, qtc (B, 8, 8) int32."""
+    (lbh, lbw, lch, lcw), (cbh, cbw, cch, ccw) = dims
+    dense = sparsepack.expand_flat_dev(masks, lo, esc, nt)
+    per = dense[:, :b * n_tot].reshape(64, b, n_tot).permute(1, 2, 0)
+    ny, nc = lbh * lbw, cbh * cbw
+    py = render_planes(per[:, :ny].reshape(b, lbh, lbw, 64), qty, lch, lcw)
+    if gray:
+        return (py,)
+    pc = render_planes(torch.cat([
+        per[:, ny:ny + nc].reshape(b, cbh, cbw, 64),
+        per[:, ny + nc:].reshape(b, cbh, cbw, 64)]), torch.cat([qtc, qtc]),
+        cch, ccw)
+    return py, pc[:b], pc[b:]
+
+
+def render_packed_pp(res, nst: int):
+    """render_packed's planes -> one plane-packed stream for the group
+    (the JAX _render_packed_pp; images back to back, each [Y | Cb | Cr])
+    -> (words (nst * 4 + 4,) int32, width words (nwh,) int32, the word
+    count 0-d int32)."""
+    b = res[0].shape[0]
+    stream = torch.cat([r[i].reshape(-1) for i in range(b) for r in res])
+    words, widths, nw = planepack.pack_stream(stream, nst, nst * 4 + 4)
+    return (bitpack.words_i32(words),
+            bitpack.words_i32(planepack.widths_to_words(widths)),
+            nw.to(torch.int32))
+
+
+# total samples of a group -> its last word count (the speculative fetch)
+_PP_EST: dict = {}
+
+
+def _pp_enabled() -> bool:
+    """MJ_PLANEPACK on the decode download (as on the encode upload)."""
+    return auto_backend_flag(None, "MJ_PLANEPACK")
+
+
+def _pp_fetch_planes(res, plane_shapes):
+    """The plane-packed download (the JAX _pp_fetch_planes): pack on the
+    device, one transfer of [word count | width words | the words up to
+    the running estimate] (a second, exact one only when it fell short),
+    then one native expansion (mj_plane_expand) -> per image the uint8
+    sample planes."""
+    b = res[0].shape[0]
+    total = b * sum(ph * pw for ph, pw in plane_shapes)
+    nst = -(-total // planepack.T)
+    nwh = -(-nst // 8)
+    words, ww, nw = render_packed_pp(res, nst)
+    est = _PP_EST.get(total, max(1, total // 5))
+    bucket = min(nst * 4 + 4, -(-int(est * 1.04) // 8192) * 8192)
+    buf = torch.cat([nw.reshape(1), ww, words[:bucket]]).cpu().numpy()
+    xfer.add_d2h(buf.nbytes)
+    need = int(buf[0])
+    _PP_EST[total] = need
+    if need <= bucket:
+        words_h = buf[1 + nwh:1 + nwh + need].view(np.uint32)
+    else:
+        bucket = min(nst * 4 + 4, -(-need // 8192) * 8192)
+        words_h = words[:bucket].cpu().numpy().view(np.uint32)
+        xfer.add_d2h(words_h.nbytes)
+    ww_h = buf[1:1 + nwh].view(np.uint32)
+    wb = np.stack([(ww_h >> np.uint32(28 - 4 * k)) & np.uint32(15)
+                   for k in range(8)], axis=1).reshape(-1)[:nst]
+    wb = np.ascontiguousarray(wb.astype(np.uint8))
+    words_h = np.ascontiguousarray(words_h)
+    stream = np.empty(total, np.uint8)
+    rc = lib().mj_plane_expand(_ptr(wb, u8p), words_h.ctypes.data_as(
+        u32p), nst, total, _ptr(stream, u8p))
+    if rc != 0:
+        raise ValueError("malformed plane-packed download")
+    out, off = [], 0
+    for _ in range(b):
+        planes = []
+        for ph, pw in plane_shapes:
+            planes.append(stream[off:off + ph * pw].reshape(ph, pw))
+            off += ph * pw
+        out.append(planes)
+    return out
+
+
+def _decode_chunk_packed(key, idxs, jps, planes_list, out, output: str,
+                         dev):
+    """One same-key chunk through the packed route (the JAX
+    _decode_chunk_packed_inner; its retry recovers from XLA jit-cache
+    faults, which eager PyTorch does not have): the coefficients go up
+    sparse (masks + value bytes), render to sample planes on the device,
+    come down plane-packed (MJ_PLANEPACK) or raw, and finish on the
+    host: mj_post_ycc's upsampling and colour for RGB, or the planes at
+    jpeg_read_raw_data dims for YUV."""
+    w, h, gray, mode, hexp, vexp, dims = key
+    ncomp = 1 if gray else 3
+    raw_dims = None
+    if output == "yuv":
+        raw_dims = _raw_dims(jps[idxs[0]], ncomp)
+        dims_r = [(bh, bw, min(ph, bh * 8), min(pw, bw * 8))
+                  for (bh, bw, _, _), (ph, pw) in zip(
+                      [dims[0]] + [dims[1]] * (ncomp - 1), raw_dims)]
+        dims = (dims_r[0], (0, 0, 0, 0) if gray else dims_r[1])
+    (lbh, lbw, lch, lcw), (cbh, cbw, cch, ccw) = dims
+    b = len(idxs)
+    flat = np.concatenate([np.ascontiguousarray(
+        planes_list[i][ci][:bh, :bw]).reshape(-1, 64)
+        for i in idxs for ci, (bh, bw) in enumerate(
+            [(lbh, lbw)] + [(cbh, cbw)] * (ncomp - 1))])
+    masks, lo, esc, nt, _, _ = sparsepack.pack_flat_host(flat)
+    xfer.add_h2d(masks.nbytes + lo.nbytes + esc.nbytes)
+    qty = _to_device(np.stack([_comp_qtable(jps[i], 0)
+                               for i in idxs]).astype(np.int32), dev)
+    qtc = None if gray else _to_device(np.stack(
+        [_comp_qtable(jps[i], 1) for i in idxs]).astype(np.int32), dev)
+    res = render_packed(_to_device(masks, dev), _to_device(lo, dev),
+                        _to_device(esc, dev), qty, qtc, b, dims, nt,
+                        nt // b, gray)
+    plane_shapes = [(lch, lcw)] + [(cch, ccw)] * (ncomp - 1)
+    if _pp_enabled():
+        per_planes = _pp_fetch_planes(res, plane_shapes)
+    else:
+        stacks = [xfer.to_host(r) for r in res]
+        xfer.add_d2h(sum(st.nbytes for st in stacks))
+        per_planes = [[st[bi] for st in stacks] for bi in range(b)]
+    for bi, i in enumerate(idxs):
+        planes = per_planes[bi]
+        if output == "yuv":
+            out[i] = []
+            for pl, (ph, pw) in zip(planes, raw_dims):
+                full = np.zeros((ph, pw), np.uint8)
+                full[:pl.shape[0], :pl.shape[1]] = pl
+                out[i].append(full)
+        elif gray:
+            out[i] = planes[0][:h, :w].copy()
+        else:
+            py, pcb, pcr = (np.ascontiguousarray(p) for p in planes)
+            rgb = np.empty((h, w, 3), np.uint8)
+            lib().mj_post_ycc(_ptr(py, u8p), lch, lcw, _ptr(pcb, u8p),
+                              _ptr(pcr, u8p), cch, ccw, _POST_MODES[mode],
+                              hexp, vexp, h, w, _ptr(rgb, u8p))
+            out[i] = rgb
+
+
+STAGE_WORKERS = 6     # the JAX package's decode stage pool
 
 
 def decode_many(datas, fancy_upsample: bool = True,
@@ -1115,17 +1426,26 @@ def decode_many(datas, fancy_upsample: bool = True,
                 device=None) -> List:
     """Decode a list of JPEGs, pixel-identical to mozjpeg_tpu.decode_many.
     The host entropy decode (Huffman or arithmetic) runs on a thread
-    pool; as soon as GROUP YCbCr or gray images of one geometry are ready
-    they render in one batch on the device while the pool goes on; the
-    others (RGB, CMYK, YCCK, active block smoothing, samples over 8 bits)
-    render one at a time on the device. output="rgb" gives (H, W, 3),
-    gray (H, W) or CMYK (H, W, 4), uint8 (uint16 above 8 bits), per
-    image; output="yuv" the per-component sample planes at
-    jpeg_read_raw_data dims; output="rgb565" decode_rgb565's (H, W)
-    uint16, one image at a time. Lossless streams decode on the host
-    (lossless.decode_lossless); they have no YUV output (ValueError).
-    device: None or "cuda" (the default, the GPU; raises without one) or
-    "cpu"."""
+    pool; then, as the JAX package routes by its attachment
+    (attachment.is_local: the card unless MJ_DEPLOYMENT=remote, not the
+    CPU unless MJ_DEPLOYMENT=local):
+      local: as soon as GROUP YCbCr or gray images of one geometry are
+        ready they render in one batch on the device while the pool goes
+        on (render_group); the others (RGB, CMYK, YCCK, active block
+        smoothing, samples over 8 bits) render one at a time;
+        output="yuv" renders each image's planes (decode_raw_planes_
+        parsed);
+      not local: each image in the host render's matrix goes through it
+        on a stage pool (_host_decode_one), unless MJ_HOST_ENGINE=0,
+        which sends the groups of one key through the packed route
+        (_decode_chunk_packed); the others as on a local device.
+    output="rgb" gives (H, W, 3), gray (H, W) or CMYK (H, W, 4), uint8
+    (uint16 above 8 bits), per image; output="yuv" the per-component
+    sample planes at jpeg_read_raw_data dims; output="rgb565"
+    decode_rgb565's (H, W) uint16, one image at a time. Lossless streams
+    decode on the host (lossless.decode_lossless); they have no YUV
+    output (ValueError). device: None or "cuda" (the default, the GPU;
+    raises without one) or "cpu"."""
     if output not in ("rgb", "yuv", "rgb565"):
         raise ValueError("output must be rgb, yuv or rgb565")
     dev = _device(device)
@@ -1136,16 +1456,36 @@ def decode_many(datas, fancy_upsample: bool = True,
     for jp in jps:
         if not jp.lossless:
             _check_slice(jp)
+    local = attachment.is_local(dev)
+    host_decode = not local and _host_engine_on()
     out: List = [None] * len(datas)
     planes_list: List = [None] * len(datas)
     nthreads = min(8, max(2, os.cpu_count() or 4))
+    pending: dict = {}
+    packed: dict = {}
 
     def entropy(jp, d):
         return None if jp.lossless else _entropy(jp, d)
 
-    with ThreadPoolExecutor(max_workers=nthreads) as pool:
+    def merged(i):
+        """The local route of image i."""
+        if output == "yuv":
+            out[i] = decode_raw_planes_parsed(jps[i], planes_list[i], dev)
+            return
+        key = group_key(jps[i], planes_list[i], fancy_upsample,
+                        block_smoothing)
+        if key is None:
+            out[i] = render(jps[i], planes_list[i], None, fancy_upsample,
+                            "islow", block_smoothing, dev)
+            return
+        pending.setdefault(key, []).append(i)
+        if len(pending[key]) == GROUP:
+            _render_into(out, key, pending.pop(key), jps, planes_list, dev)
+
+    with ThreadPoolExecutor(max_workers=nthreads) as pool, \
+            ThreadPoolExecutor(max_workers=STAGE_WORKERS) as stage_pool:
         futs = [pool.submit(entropy, jp, d) for jp, d in zip(jps, datas)]
-        pending: dict = {}
+        host_jobs, jobs = [], []
         for i, f in enumerate(futs):
             planes_list[i] = f.result()
             if jps[i].lossless:
@@ -1154,21 +1494,30 @@ def decode_many(datas, fancy_upsample: bool = True,
                         "yuv output requires a lossy (DCT) stream")
                 out[i] = lossless.decode_lossless(jps[i], datas[i])
                 continue
-            if output == "yuv":
-                out[i] = decode_raw_planes_parsed(jps[i], planes_list[i],
-                                                  dev)
+            if host_decode:
+                host_jobs.append((i, stage_pool.submit(
+                    _host_decode_one, jps[i], planes_list[i],
+                    fancy_upsample, block_smoothing, output)))
                 continue
-            key = group_key(jps[i], planes_list[i], fancy_upsample,
-                            block_smoothing)
+            key = (None if local else _fast_decode_key(
+                jps[i], planes_list[i], fancy_upsample, block_smoothing))
             if key is None:
-                out[i] = render(jps[i], planes_list[i], None,
-                                fancy_upsample, "islow", block_smoothing,
-                                dev)
+                merged(i)
                 continue
-            pending.setdefault(key, []).append(i)
-            if len(pending[key]) == GROUP:
-                _render_into(out, key, pending.pop(key), jps, planes_list,
-                             dev)
+            packed.setdefault(key, []).append(i)
+            if len(packed[key]) == GROUP:
+                jobs.append(stage_pool.submit(
+                    _decode_chunk_packed, key, packed.pop(key), jps,
+                    planes_list, out, output, dev))
+        jobs += [stage_pool.submit(_decode_chunk_packed, key, idxs, jps,
+                                   planes_list, out, output, dev)
+                 for key, idxs in packed.items()]
+        for i, job in host_jobs:
+            out[i] = job.result()
+            if out[i] is None:              # outside the host matrix
+                merged(i)
+        for job in jobs:
+            job.result()
         for key, idxs in pending.items():
             _render_into(out, key, idxs, jps, planes_list, dev)
     return out

@@ -1,13 +1,15 @@
-"""Encode: prep -> device p1 -> device trellis -> dense download -> host
-scan search or scan emission, and marker assembly.
+"""Encode: prep -> device p1 -> device trellis -> coefficient download ->
+host scan search or scan emission, and marker assembly.
 
 Port of mozjpeg_tpu/codec/encoder.py: encode() and encode_many.
 encode_many groups the images by shape into batches of up to 8 (fewer
 for large frames) and runs each group through (encode_group)
 
-  _batch_p1    host prep (native mj_prep_ycc, YCbCr without smoothing) or
-               device prep (colour conversion, smoothing, downsampling),
-               one upload, p1 on the device;
+  _batch_p1    host prep (native mj_prep_ycc, YCbCr without smoothing;
+               with plane_pack on the batched route its buffers go up
+               plane-packed and expand on the device) or device prep
+               (colour conversion, smoothing, downsampling), one upload,
+               p1 on the device;
   _batch_rest  the trellis passes: the AC-first histograms come down, the
                host builds the rate tables, and the device runs lambda,
                the rate LUT, the AC trellis kernel, the EOB-run DP and the
@@ -16,8 +18,11 @@ for large frames) and runs each group through (encode_group)
                trellis_num_loops regather histograms on the device and
                download them once per pass; or, for the arithmetic
                trellis, arith_trellis (row by row, the coder on the host);
-  _batch_host  one dense download, iMCU dummy blocks on the host, then
-               per image on a thread pool (which overlaps the next group's
+  _batch_host  the coefficient download (dense, or on the batched route
+               the transfer codecs' chain: coef_transport's Huffman
+               transport, sparse_download's exact sparse pack; see
+               _fetch_planes), iMCU dummy blocks on the host, then per
+               image on a thread pool (which overlaps the next group's
                device work) the native scan search, the script's scans
                emitted one by one or arithmetic-coded, and the markers.
 
@@ -51,7 +56,8 @@ import torch
 from .. import consts, native
 from ..entropy import encode as entenc
 from ..entropy.huffman import HuffTable, derive_codes
-from ..ops import bitpack, tablegen
+from ..ops import bitpack, sparsepack, tablegen, transport
+from ..utils import xfer
 from . import (arith, host_engine, marker, pipeline_t, report, scanopt,
                scanopt_dev, scans, trellis)
 from .config import (CS_INFO, EncoderConfig, Profile, ResolvedConfig,
@@ -111,8 +117,8 @@ class GroupCtx(NamedTuple):
 def resolve_group(image, config: Optional[EncoderConfig] = None,
                   **overrides) -> GroupCtx:
     """The context of a group of images shaped like `image` (the JAX
-    package's _resolve); raises NotImplementedError for what this slice
-    does not carry."""
+    package's _resolve); raises ValueError for samples the configuration
+    cannot take."""
     if config is None:
         config = EncoderConfig(**overrides)
     cfg = config.resolved()
@@ -145,20 +151,14 @@ def resolve_group(image, config: Optional[EncoderConfig] = None,
 
 
 def _check_slice(image, cfg):
-    """Refuse what this slice does not carry, naming the ROADMAP.md item
-    (queue 1) that brings it."""
-    def no(what, item):
-        raise NotImplementedError(
-            "mozjpeg_tpu_torch: %s is not ported yet (ROADMAP.md queue 1 "
-            "item %s)" % (what, item))
-
+    """Refuse sample types the configuration cannot take (ValueError);
+    what the port does not carry on one device is refused by
+    _check_rows."""
     if image.dtype not in (np.uint8, np.uint16):
         raise ValueError("expected uint8 or uint16 samples, got %s"
                          % image.dtype)
     if image.dtype == np.uint16 and cfg.precision == 8:
         raise ValueError("uint16 samples need precision=12")
-    if cfg.sparse_download or cfg.plane_pack or cfg.coef_transport:
-        no("the transfer codecs", "8")
 
 
 def _over_batch_limit(image) -> bool:
@@ -331,7 +331,7 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
         per_image = not batchable(ctx)
     if per_image:
         report.add_passes(b * (2 if cfg.trellis_quant else 1))
-    p1 = _batch_p1(images, ctx, dev, times)
+    p1 = _batch_p1(images, ctx, dev, times, batched=not per_image)
     if per_image:
         for _ in range(b):
             report.pass_done("main")
@@ -351,8 +351,9 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
             return _Searched(_done(o) for o in outs)
         except scanopt_dev.FallbackNeeded:
             count_host_route("search")
+    codec = None if per_image else _dispatch_download(finals, b, cfg)
     return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
-                       qtables, entropy_passes=not per_image)
+                       qtables, entropy_passes=not per_image, codec=codec)
 
 
 class _Searched(list):
@@ -398,7 +399,12 @@ def _finals(p1, ctx: GroupCtx, dev, b: int, times=None, record=None,
     return finals, qtables
 
 
-def _batch_p1(images, ctx: GroupCtx, dev, times=None):
+def _batch_p1(images, ctx: GroupCtx, dev, times=None,
+              batched: bool = False):
+    """Prep, the upload and p1 of one group -> (geom, merged, smalls,
+    norms). With plane_pack the batched route's host-prepped buffers go
+    up plane-packed (the JAX run_p1_batch_packed, taken under its
+    conditions) and expand on the device, bit for bit."""
     cfg = ctx.cfg
     h, w = images[0].shape[:2]
     geom = geometry(w, h, ctx.samp)
@@ -411,17 +417,31 @@ def _batch_p1(images, ctx: GroupCtx, dev, times=None):
         # mj_prep_ycc downsamples exactly at 2x2, 2x1 and 1x1 only (other
         # ratios would take its 1x1 branch, which picks a sample instead
         # of averaging), so they take the device prep
+        packed = batched and cfg.plane_pack
         with stage(times, "prep", dev):
-            geom, bufs = pipeline_t.prep_ycc_batch(images, ctx.samp)
-            bufs_t = torch.from_numpy(bufs).to(dev)
+            if packed:
+                count_codec_route("plane_pack")
+                geom, *up, total = pipeline_t.pack_ycc_batch(images,
+                                                             ctx.samp)
+                xfer.add_h2d(sum(a.nbytes for a in up))
+                up = [torch.from_numpy(a.view(np.int32)).to(dev)
+                      for a in up]
+            else:
+                geom, bufs = pipeline_t.prep_ycc_batch(images, ctx.samp)
+                xfer.add_h2d(bufs.nbytes)
+                bufs_t = torch.from_numpy(bufs).to(dev)
         with stage(times, "p1", dev):
+            if packed:
+                bufs_t = pipeline_t.unpack_ycc_batch(*up, total)
             merged, smalls, norms = pipeline_t.p1_batch_pre(
                 bufs_t, tuple(geom[2]), ctx.qtables,
                 cfg.overshoot_deringing, dctm, ris,
                 qt_slots(cfg, ctx.cs, ctx.ncomps))
     else:
         with stage(times, "prep", dev):
-            imgs_t = pipeline_t.to_samples(np.stack(images), dev)
+            stack = np.stack(images)
+            xfer.add_h2d(stack.nbytes)
+            imgs_t = pipeline_t.to_samples(stack, dev)
         with stage(times, "p1", dev):
             merged, smalls, norms = pipeline_t.p1_batch(
                 imgs_t, geom, ctx.cs, ctx.qtables,
@@ -723,15 +743,17 @@ def arith_trellis(p1, ctx: GroupCtx, b: int, times=None):
 
 
 def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
-                times=None, qtables=None, entropy_passes: bool = True):
-    """Download, dummy blocks, then each image's entropy stage on the
-    pool, each task in a copy of the caller's context (its reporter);
-    qtables: each image's own table list (trellis_q_opt), else the
-    group's. entropy_passes counts one pass per image (the batched
-    route's)."""
+                times=None, qtables=None, entropy_passes: bool = True,
+                codec=None):
+    """Download (through `codec`, _dispatch_download's), dummy blocks,
+    then each image's entropy stage on the pool, each task in a copy of
+    the caller's context (its reporter); qtables: each image's own table
+    list (trellis_q_opt), else the group's. entropy_passes counts one
+    pass per image (the batched route's)."""
     b = len(images)
     with stage(times, "download", dev):
-        per_image = _entropy_planes(geom, finals, b, ctx.cfg.device_entropy)
+        per_image = _entropy_planes(geom, finals, b, ctx.cfg.device_entropy,
+                                    codec, ctx.cfg.precision)
     # one image per pool thread; a lone image threads its own search
     nthreads = (os.cpu_count() or 1) if b == 1 else 1
     if entropy_passes:
@@ -802,16 +824,66 @@ class DualPlane(np.ndarray):
     dev = None
 
 
-def _entropy_planes(geom, finals, b: int, twins: bool = False):
-    """The group's final planes in one download -> per image the padded
-    (bh_pad, bw_pad, 64) int16 planes of the host entropy stage, iMCU
-    dummy blocks added on the host; with `twins` (device_entropy) each a
-    DualPlane whose twin stays on the device."""
+def _dispatch_download(finals, b: int, cfg):
+    """The batched route's coefficient download codec, packed on the
+    device as soon as the trellis is done (the tail of the JAX
+    _batch_rest): the Huffman transport with coef_transport, else the
+    exact sparse pack with sparse_download, else None (dense)."""
+    if cfg.coef_transport:
+        count_codec_route("transport")
+        return "transport", transport.pack_batch(finals, b,
+                                                 precision=cfg.precision)
+    if cfg.sparse_download:
+        count_codec_route("sparse")
+        return "sparse", sparsepack.pack_planes_exact(finals, b)
+    return None
+
+
+def _fetch_planes(geom, finals, b: int, codec=None, precision: int = 8):
+    """The JAX _batch_fetch's download chain -> per image the real-block
+    (bh, bw, 64) int16 planes of each component: the transport; where
+    its header flags an overflow, one pack again at the larger capacity
+    (scap 32); where that overflows too, the exact sparse pack; where
+    that overflows (or with no codec), the dense planes. Which step
+    delivers follows from the data, and each pack made is counted in
+    codec_routes."""
     comps = geom[2]
-    flat = pipeline_t.pack_all_batch(finals, b).cpu().numpy()
+    if codec is not None and codec[0] == "transport":
+        fetched = transport.fetch(codec[1])
+        if fetched is None:
+            count_codec_route("transport_scap32")
+            fetched = transport.fetch(transport.pack_batch(
+                finals, b, scap=32, precision=precision))
+        planes = (None if fetched is None else
+                  transport.decode_to_planes(*fetched, b, comps, precision))
+        if planes is not None:
+            return planes
+        count_codec_route("sparse")
+        codec = "sparse", sparsepack.pack_planes_exact(finals, b)
+    if codec is not None:
+        header, words, nt, _ = codec[1]
+        fetched = sparsepack.fetch_exact(header, words, nt)
+        planes = (None if fetched is None else
+                  sparsepack.expand_flat_to_planes(*fetched[:3], nt, b,
+                                                   comps))
+        if planes is not None:
+            return planes
+    count_codec_route("dense")
+    flat = xfer.to_host(pipeline_t.pack_all_batch(finals, b))
+    xfer.add_d2h(flat.nbytes)
+    return pipeline_t.split_flat_batch(geom, flat, b)
+
+
+def _entropy_planes(geom, finals, b: int, twins: bool = False, codec=None,
+                    precision: int = 8):
+    """The group's final planes downloaded (_fetch_planes) -> per image
+    the padded (bh_pad, bw_pad, 64) int16 planes of the host entropy
+    stage, iMCU dummy blocks added on the host; with `twins`
+    (device_entropy) each a DualPlane whose twin stays on the device."""
+    comps = geom[2]
     out = [[pipeline_t.add_dummy_blocks_host(p, g)
             for p, g in zip(planes, comps)]
-           for planes in pipeline_t.split_flat_batch(geom, flat, b)]
+           for planes in _fetch_planes(geom, finals, b, codec, precision)]
     if twins:
         dev_planes = pipeline_t.planes_t(finals, geom, b)
         for i, planes in enumerate(out):
@@ -839,6 +911,11 @@ class ScanResult(NamedTuple):
 # scan emission whose table is absent, a device scan search that needed
 # the host search (chip_smoke.py holds both to 0 on its photos)
 engine_host_routes = {"emit": 0, "search": 0}
+# the transfer routes taken, one count a pack made: the plane-packed
+# upload, the transport download, its repack at the larger capacity,
+# the exact sparse download and the dense download (_fetch_planes)
+codec_routes = {"plane_pack": 0, "transport": 0, "transport_scap32": 0,
+                "sparse": 0, "dense": 0}
 _ROUTES_LOCK = threading.Lock()
 
 
@@ -850,6 +927,16 @@ def count_host_route(kind: str):
 def reset_host_routes():
     for k in engine_host_routes:
         engine_host_routes[k] = 0
+
+
+def count_codec_route(kind: str):
+    with _ROUTES_LOCK:
+        codec_routes[kind] += 1
+
+
+def reset_codec_routes():
+    for k in codec_routes:
+        codec_routes[k] = 0
 
 
 def _emit_scan_device(sg, dc_tbls, ac_tbls, dc_tables, ac_tables,

@@ -7,11 +7,15 @@ block of a group of same-shape images at once, per component:
   float) -> quantize -> clip +-(2^(precision+2)-1) -> zigzag; norm sums;
   AC-first histograms (segmented at the trellis's restart intervals).
 
-Its planes come one of two ways, as in the JAX package's _batch_p1:
+Its planes come one of three ways, as in the JAX package's _batch_p1:
   - host prep (run_p1_batch_pre): the native mj_prep_ycc converts and
     downsamples each RGB image into one uint8 buffer [Y | Cb | Cr] of
     edge-padded planes, and the group's buffers go up in one upload
     (YCbCr without smoothing);
+  - host prep plane-packed (run_p1_batch_packed, plane_pack): the same
+    buffers, each packed by the native mj_plane_pack (ops/planepack.py's
+    format), go up as one stream of words and expand on the device into
+    the same buffers;
   - device prep (run_p1_batch -> _p1): the raw images go up, and the
     colour conversion (YCbCr, gray, YCCK, or none for RGB and CMYK),
     padding, input smoothing and downsampling run on the device.
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 from .. import consts, native
-from ..ops import color, dct, dering, layout, quant, sample, symbols
+from ..ops import (bitpack, color, dct, dering, layout, planepack, quant,
+                   sample, symbols)
 from .pipeline import CompGeom, geometry
 
 
@@ -61,6 +66,41 @@ def prep_ycc_batch(images, samp):
                        cbp.ctypes.data_as(native.u8p),
                        crp.ctypes.data_as(native.u8p), nt)
     return (mcus_x, mcus_y, geom), bufs
+
+
+def pack_ycc_batch(images, samp):
+    """Host prep as prep_ycc_batch, then each image's buffer plane-packed
+    (native mj_plane_pack) -> (geom, hdrs (B, nwh) uint32 width words,
+    flat (capt,) uint32 payloads back to back, bases (B,) int32 each
+    image's first word, total samples an image)."""
+    geom, bufs = prep_ycc_batch(images, samp)
+    b, total = bufs.shape
+    nst = -(-total // planepack.T)
+    nt = max(1, (os.cpu_count() or 4) - 1)
+    so = native.lib()
+    widths = np.empty((b, nst), np.uint8)
+    words = np.empty((b, nst * 4 + 4), np.uint32)
+    nws = [int(so.mj_plane_pack(bufs[i].ctypes.data_as(native.u8p), total,
+                                widths[i].ctypes.data_as(native.u8p),
+                                words[i].ctypes.data_as(native.u32p), nt))
+           for i in range(b)]
+    bases = np.zeros(b, np.int32)
+    bases[1:] = np.cumsum(nws[:-1])
+    # one bucket a group, as the JAX package sizes its upload
+    flat = np.zeros(max(1, -(-sum(nws) // 8192) * 8192), np.uint32)
+    for i in range(b):
+        flat[bases[i]:bases[i] + nws[i]] = words[i, :nws[i]]
+    return geom, planepack.widths_to_words_host(widths), flat, bases, total
+
+
+def unpack_ycc_batch(hdrs: torch.Tensor, flat: torch.Tensor,
+                     bases: torch.Tensor, total: int) -> torch.Tensor:
+    """The uploaded plane-packed group on the device -> (B, total) uint8
+    host-prepped buffers, exactly prep_ycc_batch's."""
+    nst = -(-total // planepack.T)
+    widths = planepack.widths_from_words(bitpack.words_i64(hdrs), nst)
+    return planepack.expand_stream(bitpack.words_i64(flat), widths, total,
+                                   bases.to(torch.int64))
 
 
 def norm_seq(raw_zz: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,13 @@ mj_arith_train_rows, and the scan decoders mj_arith_decode_{seq,dc_first,
 dc_refine,ac_first,ac_refine}), the colour quantizers (quant.cpp:
 mj_quantize_colors, mj_quantize_onepass, mj_quantize_to_map) and the
 image codecs (imageio.cpp: mj_gif_lzw_encode, mj_gif_lzw_decode,
-mj_tga_rle_decode, mj_png_unfilter) and the lossless coder (lossless.cpp:
-mj_lossless_encode, mj_lossless_decode); see build.py for the sources.
+mj_tga_rle_decode, mj_png_unfilter), the lossless coder (lossless.cpp:
+mj_lossless_encode, mj_lossless_decode), the host decode render
+(mj_host_render in hostenc.cpp, mj_post_ycc in post.cpp) and the host
+halves of the transfer codecs (mj_sparse_count and mj_sparse_pack in
+post.cpp, mj_sparse_expand_flat and mj_transport_decode in entropy.cpp,
+mj_plane_pack and mj_plane_expand in planepack.cpp); see build.py for
+the sources.
 """
 from __future__ import annotations
 
@@ -229,4 +234,29 @@ def _bind(so):
     so.mj_lossless_decode.argtypes = [
         u8p, lng, vpp, cint, cint, cint, cint, cint, cint, i32p, *tabs,
         ctypes.c_uint]
+
+    # the host decode render (hostenc.cpp, post.cpp)
+    so.mj_host_render.restype = lng
+    so.mj_host_render.argtypes = [i16p, i32p, cint, cint, cint, cint, u8p,
+                                  cint]
+    so.mj_post_ycc.restype = None
+    so.mj_post_ycc.argtypes = [u8p, lng, lng, u8p, u8p, lng, lng, cint, cint,
+                               cint, lng, lng, u8p]
+
+    # the transfer codecs' host halves (post.cpp, entropy.cpp,
+    # planepack.cpp)
+    so.mj_sparse_count.restype = lng
+    so.mj_sparse_count.argtypes = [i16p, lng, cint, i32p]
+    so.mj_sparse_pack.restype = lng
+    so.mj_sparse_pack.argtypes = [i16p, lng, cint, cint, u32p, i16p]
+    so.mj_sparse_expand_flat.restype = lng
+    so.mj_sparse_expand_flat.argtypes = [u32p, u8p, i16p, lng, lng, lng,
+                                         i16p]
+    so.mj_transport_decode.restype = lng
+    so.mj_transport_decode.argtypes = [u32p, lng, i32p, cint, lng, *tabs,
+                                       *tabs, i16p]
+    so.mj_plane_pack.restype = lng
+    so.mj_plane_pack.argtypes = [u8p, lng, u8p, u32p, cint]
+    so.mj_plane_expand.restype = lng
+    so.mj_plane_expand.argtypes = [u8p, u32p, lng, lng, u8p]
     return so

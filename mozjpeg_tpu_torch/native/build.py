@@ -5,11 +5,14 @@ sources where they stay (mozjpeg_tpu/native/*.cpp, read as files, never
 imported) into a library of its own under mozjpeg_tpu_torch/_build/.
 Only the sources the encode and decode paths call are built:
 
-  entropy.cpp     mj_gen_optimal_table, the scan encoders and decoders
+  entropy.cpp     mj_gen_optimal_table, the scan encoders and decoders,
+                  and the transfer codecs' host halves (mj_sparse_expand_flat,
+                  mj_transport_decode)
   scansearch.cpp  mj_scan_search (the jpegrescan candidate sweep)
   prep.cpp        mj_prep_ycc (RGB -> YCbCr + chroma downsampling)
   hostenc.cpp     the host engine: p1, AC-first histograms, the AC and DC
-                  trellis, and the arithmetic trellis's row steps
+                  trellis, the arithmetic trellis's row steps, and the
+                  host decode render's dequant + islow IDCT (mj_host_render)
   arith.cpp       the arithmetic scan encoders and the coder context the
                   arithmetic trellis trains (rates, restarts, training)
   quant.cpp       the colour quantizers of djpeg -colors and -map (one-
@@ -18,6 +21,11 @@ Only the sources the encode and decode paths call are built:
                   image writers and readers (utils/gif.py, utils/targa.py)
   lossless.cpp    the lossless (SOF3) predictor coder and decoder
                   (codec/lossless.py)
+  post.cpp        the host decode's upsampling + colour conversion
+                  (mj_post_ycc) and the superblock sparse pack
+                  (mj_sparse_count, mj_sparse_pack)
+  planepack.cpp   the sample-plane pack and expand of the transfer codecs
+                  (mj_plane_pack, mj_plane_expand; ops/planepack.py)
 
 The flags are a copy of mozjpeg_tpu/native/build.py's: -ffp-contract=off
 keeps every f32 product rounded before it feeds an add, and
@@ -35,7 +43,8 @@ SRC_DIR = os.path.join(os.path.dirname(PKG_DIR), "mozjpeg_tpu", "native")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 SOURCES = ("entropy.cpp", "scansearch.cpp", "prep.cpp", "hostenc.cpp",
-           "arith.cpp", "quant.cpp", "imageio.cpp", "lossless.cpp")
+           "arith.cpp", "quant.cpp", "imageio.cpp", "lossless.cpp",
+           "post.cpp", "planepack.cpp")
 LIB_NAME = "libmjport.so"
 
 BASE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",

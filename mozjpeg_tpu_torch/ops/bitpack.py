@@ -45,6 +45,17 @@ from .symbols import nbits
 M32 = 0xFFFFFFFF
 DC = slice(0, 1)
 
+
+def words_i32(w: torch.Tensor) -> torch.Tensor:
+    """int64 words of 32 bits -> int32 tensors of the same bits: the
+    4-byte wire word of a download, read as uint32 on the host."""
+    return torch.where(w > 0x7FFFFFFF, w - (1 << 32), w).to(torch.int32)
+
+
+def words_i64(w: torch.Tensor) -> torch.Tensor:
+    """32-bit wire words (int32 bits) -> int64 in [0, 2**32)."""
+    return w.to(torch.int64) & M32
+
 # A packer's live temporaries take about LANE_BYTES for each lane of its
 # chunk (122 measured on the card at a 16.7M-lane chunk). A chunk takes a
 # quarter of the card's memory that its allocator has not handed out, at

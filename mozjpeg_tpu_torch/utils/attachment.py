@@ -16,6 +16,13 @@ resolves through deployment_local():
             ROADMAP.md) calls for the engines.
 
 sync_latency_ms() is the probe's measurement, kept for that crossover.
+
+is_local(dev) is the counterpart of the JAX is_local_tpu, which routes
+decode_many: MJ_DEPLOYMENT "local" or "remote" where it is set, else
+True for a CUDA device (the card sits on PCIe, the port's reading of a
+local attachment) and False for the CPU, which takes the JAX package's
+route for a device that is not a local TPU (the host render, or the
+packed coefficient route).
 """
 from __future__ import annotations
 
@@ -50,3 +57,15 @@ def deployment_local(deployment: str = "auto") -> bool:
     if d == "auto":
         d = os.environ.get("MJ_DEPLOYMENT", "").lower()
     return d == "local"
+
+
+def is_local(dev) -> bool:
+    """Whether decode_many treats `dev` as a locally attached device
+    (see above)."""
+    env = os.environ.get("MJ_DEPLOYMENT", "").lower()
+    if env == "local":
+        return True
+    if env == "remote":
+        return False
+    import torch
+    return torch.device(dev).type == "cuda"

@@ -16,7 +16,7 @@ from mozjpeg_tpu.cli import jpegyuv as jjpegyuv
 from mozjpeg_tpu_torch.cli import djpeg as tdjpeg
 from mozjpeg_tpu_torch.cli import jpegyuv as tjpegyuv
 from mozjpeg_tpu_torch.utils import gif as tgif
-from test_torch_decode import _photo, _truncate
+from test_torch_decode import _photo, _truncate, on_torch_render
 
 
 def _enc(im, **kw):
@@ -58,11 +58,13 @@ def files(tmp_path_factory):
 
 def _run_both(argv, tmp_path, device="cpu"):
     """(exit codes, output bytes) of the JAX and the port's djpeg; -outfile
-    and -icc paths get one file per side."""
+    and -icc paths get one file per side. The port's runs on its PyTorch
+    render (torch_render)."""
     res = []
     for side, main in (("jax", jdjpeg.main), ("port", tdjpeg.main)):
         a = [v.replace("@", str(tmp_path / side)) for v in argv]
-        rc = main(a) if side == "jax" else main(a, device=device)
+        rc = (main(a) if side == "jax" else
+              on_torch_render(main, a, device=device))
         outs = {}
         for name in ("out", "icc"):
             p = tmp_path / ("%s.%s" % (side, name))

@@ -21,7 +21,12 @@ and yuvjpeg's main(device="cuda") against device="cpu"; and the device
 engines: the Annex-K tablegen kernel against its plain version, and
 device_scanopt, deployment="local", device_entropy and the
 device-tablegen trellis route on the card against the CPU path and the
-host engines. They skip without a GPU; run them on one with
+host engines; and the transfer codecs: their device ops (sparse pack and
+expands, plane pack and expand, the transport pack at 8 and 12 bits)
+and encode_many with each codec flag on the card against the CPU, and
+the remote decode routes (host render, packed with and without the plane
+pack) against the card's default. They skip without a GPU; run them on
+one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -578,3 +583,106 @@ def test_device_engines_on_the_card_equal_cpu(cuda, kw):
     assert card == mjt.encode_many(imgs, mjt.EncoderConfig(quality=75,
                                                            **plain))
     assert E.engine_host_routes == {"emit": 0, "search": 0}
+
+
+def _codec_blocks(kind, nt=600, seed=3):
+    """(nt, 64) int16 zigzag blocks: JPEG-like, all zero, one dense block
+    past 48 nonzeros, or int16 extremes."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((nt, 64), np.int16)
+    if kind == "zero":
+        return a
+    keep = rng.random((nt, 64)) < 0.2
+    a[keep] = rng.integers(-200, 200, int(keep.sum()))
+    if kind == "dense":
+        a[3] = 9
+    elif kind == "extremes":
+        a[5], a[6] = 32767, -32768
+    return a
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "dense", "extremes"])
+def test_transfer_codec_ops_on_the_card_equal_cpu(cuda, kind):
+    """The transfer codecs' device halves on the card against the CPU:
+    the sparse pack and both sparse expands, the plane pack and expand,
+    the transport pack at 8 and 12 bits and three capacities."""
+    from mozjpeg_tpu_torch.ops import planepack, sparsepack, transport
+    a = _codec_blocks(kind)
+    flat = torch.from_numpy(a.T.copy())
+    for x, y in zip(sparsepack.pack_exact(flat.to(cuda)),
+                    sparsepack.pack_exact(flat)):
+        assert torch.equal(x.cpu(), y)
+    masks, lo, esc, nt = sparsepack.pack_flat_host(a)[:4]
+    up = [torch.from_numpy(v) for v in (masks, lo, esc)]
+    assert torch.equal(sparsepack.expand_flat_dev(
+        *(u.to(cuda) for u in up), nt).cpu(),
+        sparsepack.expand_flat_dev(*up, nt))
+    packed = sparsepack.pack_host(a)
+    if packed is not None:
+        m, v, nt, cap = packed
+        m, v = torch.from_numpy(m), torch.from_numpy(v)
+        assert torch.equal(sparsepack.expand_dev(m.to(cuda), v.to(cuda), nt,
+                                                 cap).cpu(),
+                           sparsepack.expand_dev(m, v, nt, cap))
+    samples = torch.from_numpy((a.reshape(-1)[:5000] & 255).astype(np.uint8))
+    nst = -(-samples.numel() // 16)
+    got = planepack.pack_stream(samples.to(cuda), nst, nst * 4 + 4)
+    want = planepack.pack_stream(samples, nst, nst * 4 + 4)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(planepack.expand_stream(
+        got[0], got[1], samples.numel()).cpu(), samples)
+    for precision in (8, 12):
+        for scap in (12, 32, 1):
+            args = (2, 300, -(-600 * scap // 512) * 512, 13 * 300 + 2,
+                    precision)
+            for x, y in zip(transport.pack_transport(flat.to(cuda), *args),
+                            transport.pack_transport(flat, *args)):
+                assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sparse_download=True), dict(plane_pack=True),
+    dict(coef_transport=True), dict(coef_transport=True, precision=12),
+    dict(sparse_download=True, plane_pack=True, coef_transport=True)])
+def test_transfer_codecs_on_the_card_equal_cpu(cuda, kw):
+    """encode_many with each transfer codec on the card: the CPU path's
+    bytes with the same flags, and the dense route's; the codec's route
+    taken."""
+    from mozjpeg_tpu_torch.codec import encoder as E
+    twelve = kw.get("precision") == 12
+    imgs = [(_photo12 if twelve else _photo8)(48, 64, 50 + i)
+            for i in range(3)]
+    cfg = mjt.EncoderConfig(quality=75, **kw)
+    E.reset_codec_routes()
+    card = mjt.encode_many(imgs, cfg)
+    routes = dict(E.codec_routes)
+    assert card == mjt.encode_many(imgs, cfg, device="cpu")
+    dense = {k: v for k, v in kw.items() if k == "precision"}
+    assert card == mjt.encode_many(imgs, mjt.EncoderConfig(quality=75,
+                                                           **dense))
+    if kw.get("coef_transport"):
+        assert routes["transport"] == 1
+    elif kw.get("sparse_download"):
+        assert routes["sparse"] == 1
+    assert routes["plane_pack"] == int(bool(kw.get("plane_pack")))
+
+
+@pytest.mark.parametrize("env", [("1", "0"), ("0", "0"), ("0", "1")],
+                         ids=["host", "packed", "packed-planepack"])
+@pytest.mark.parametrize("output", ["rgb", "yuv"])
+def test_remote_decode_routes_on_the_card_equal_cpu(cuda, port_jpegs,
+                                                    monkeypatch, env,
+                                                    output):
+    """MJ_DEPLOYMENT=remote on the card: decode_many through the host
+    render, or (MJ_HOST_ENGINE=0) the packed route with MJ_PLANEPACK 0
+    and 1, and decode() through the host render, equal the card's
+    default."""
+    datas = port_jpegs * 3
+    want = mjt.decode_many(datas, output=output)
+    one = mjt.decode(datas[0])
+    monkeypatch.setenv("MJ_DEPLOYMENT", "remote")
+    monkeypatch.setenv("MJ_HOST_ENGINE", env[0])
+    monkeypatch.setenv("MJ_PLANEPACK", env[1])
+    assert _same(mjt.decode_many(datas, output=output), want)
+    assert _same(mjt.decode(datas[0]), one)

@@ -8,7 +8,12 @@ points against the JAX package, and NotImplementedError for every
 stream and option outside the slice.
 
 The streams come from the JAX package's host encoder (mozjpeg_tpu.encode),
-which needs no device compile."""
+which needs no device compile. The port's calls run under torch_render(),
+which holds them on its PyTorch render (the card's route) on the CPU,
+where the port would otherwise render on the host first, as the JAX
+package does; tests/test_torch_decode_host.py holds the host routes."""
+import contextlib
+import os
 import struct
 
 import numpy as np
@@ -22,6 +27,34 @@ from mozjpeg_tpu.utils import attachment
 from mozjpeg_tpu_torch.codec import decoder as tdec
 from mozjpeg_tpu_torch.codec import marker as tmarker
 from mozjpeg_tpu_torch.codec import smooth as tsmooth
+
+
+_PINS = {"MJ_HOST_ENGINE": "0", "MJ_DEPLOYMENT": "local"}
+
+
+@contextlib.contextmanager
+def torch_render():
+    """The port's decode calls inside run on its PyTorch render, the
+    card's route: MJ_HOST_ENGINE=0 keeps render() off the native host
+    render that the CPU takes first, and MJ_DEPLOYMENT=local keeps
+    decode_many on its merged render. Set around the port's calls only,
+    so that the JAX oracle keeps its own route."""
+    keep = {k: os.environ.get(k) for k in _PINS}
+    os.environ.update(_PINS)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def on_torch_render(fn, *args, **kw):
+    """fn(*args, **kw) under torch_render()."""
+    with torch_render():
+        return fn(*args, **kw)
 
 
 def _photo(h, w, seed):
@@ -107,9 +140,10 @@ def test_inputs_cover_the_paths(streams):
                      "q80_4x1_37x29": "int"}
     jp = tmarker.parse(streams["dqt_between_scans"])
     assert not np.array_equal(jp.scan_qtables[1][0], jp.scan_qtables[0][0])
-    np.testing.assert_array_equal(
-        mjt.decode(streams["dqt_between_scans"], device="cpu"),
-        mjt.decode(streams["q75_420_64x48"], device="cpu"))
+    with torch_render():
+        np.testing.assert_array_equal(
+            mjt.decode(streams["dqt_between_scans"], device="cpu"),
+            mjt.decode(streams["q75_420_64x48"], device="cpu"))
 
 
 def _equal_outputs(got, want):
@@ -155,17 +189,19 @@ def test_decode_coefficients_equal(streams, name):
 @pytest.mark.parametrize("host_engine", ["1", "0"])
 def test_decode_equals_jax(streams, monkeypatch, host_engine):
     """MJ_HOST_ENGINE=1 is the JAX package's native host render, 0 its
-    device render; both are pinned to djpeg."""
+    device render; both are pinned to djpeg. The port's PyTorch render
+    is held against each."""
     monkeypatch.setenv("MJ_HOST_ENGINE", host_engine)
     for name in NAMES:
         data = streams[name]
         try:
             want = mj.decode(data)
         except ValueError:
-            with pytest.raises(ValueError):
+            with pytest.raises(ValueError), torch_render():
                 mjt.decode(data, device="cpu")
             continue
-        _equal_outputs(mjt.decode(data, device="cpu"), want)
+        _equal_outputs(on_torch_render(mjt.decode, data, device="cpu"),
+                       want)
 
 
 def test_decode_garbage_raises():
@@ -194,7 +230,7 @@ def test_decode_many_equals_jax(streams, monkeypatch, merged):
     datas = _mixed(streams)
     assert len(datas) > 2 * tdec.GROUP
     want = mj.decode_many(datas)
-    got = mjt.decode_many(datas, device="cpu")
+    got = on_torch_render(mjt.decode_many, datas, device="cpu")
     _equal_outputs(got, want)
 
 
@@ -204,19 +240,21 @@ def test_no_fancy_upsample_equals_jax(streams):
     for name in names:
         want = mj.decode(streams[name], fancy_upsample=False,
                          block_smoothing=False)
-        got = mjt.decode(streams[name], fancy_upsample=False,
-                         block_smoothing=False, device="cpu")
+        got = on_torch_render(mjt.decode, streams[name],
+                              fancy_upsample=False, block_smoothing=False,
+                              device="cpu")
         _equal_outputs(got, want)
     datas = [streams[n] for n in names]
-    _equal_outputs(mjt.decode_many(datas, fancy_upsample=False,
-                                   device="cpu"),
+    _equal_outputs(on_torch_render(mjt.decode_many, datas,
+                                   fancy_upsample=False, device="cpu"),
                    mj.decode_many(datas, fancy_upsample=False))
 
 
 def test_yuv_equals_jax(streams):
     datas = _mixed(streams)
     want = mj.decode_many(datas, output="yuv")
-    got = mjt.decode_many(datas, output="yuv", device="cpu")
+    got = on_torch_render(mjt.decode_many, datas, output="yuv",
+                          device="cpu")
     assert all(len(g) == (1 if d is streams["gray_64x48"] else 3)
                for g, d in zip(got, datas))
     _equal_outputs(got, want)
@@ -252,11 +290,11 @@ def _same_result(port, jax):
     try:
         want = jax()
     except ValueError as e:
-        with pytest.raises(ValueError) as got:
+        with pytest.raises(ValueError) as got, torch_render():
             port()
         assert str(got.value) == str(e)
         return
-    _equal_outputs(port(), want)
+    _equal_outputs(on_torch_render(port), want)
 
 
 @pytest.mark.parametrize("case", ["arithmetic", "lossless", "12-bit",
@@ -313,5 +351,6 @@ def test_out_of_slice_options_raise(streams):
                  jdec.decode_cropped(data, 0, 16))
     assert got[1:] == want[1:]
     _equal_outputs(got[0], want[0])
-    _equal_outputs(list(tdec.BufferedImage(data, device="cpu")),
+    _equal_outputs(on_torch_render(list,
+                                   tdec.BufferedImage(data, device="cpu")),
                    list(jdec.BufferedImage(data)))

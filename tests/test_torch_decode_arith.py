@@ -21,7 +21,7 @@ from mozjpeg_tpu.codec import marker as jmarker
 from mozjpeg_tpu_torch.codec import arith as tarith
 from mozjpeg_tpu_torch.codec import decoder as tdec
 from mozjpeg_tpu_torch.codec import marker as tmarker
-from test_torch_decode import _photo, _truncate
+from test_torch_decode import _photo, _truncate, on_torch_render
 
 IMG = _photo(48, 64, 31)
 IMG_ODD = _photo(29, 37, 32)
@@ -110,7 +110,8 @@ def test_inputs_cover_the_paths(streams):
             cond.update(c)
         assert cond[(0, 0)] == (5 << 4) | 2 and cond[(1, 0)] == 9
         img = IMG if name == "seq_conditioned" else IMG_ODD
-        got = mjt.decode(streams[name], device="cpu").astype(np.float64)
+        got = on_torch_render(mjt.decode, streams[name],
+                              device="cpu").astype(np.float64)
         mse = np.mean((got - img) ** 2)
         assert 10 * np.log10(255.0 ** 2 / mse) > 25.0
     # the truncated stream is one that block smoothing acts on
@@ -145,7 +146,8 @@ def test_decode_arith_equals_jax(streams, name):
     data = streams[name]
     for smooth in (True, False):
         want = mj.decode(data, block_smoothing=smooth)
-        got = mjt.decode(data, block_smoothing=smooth, device="cpu")
+        got = on_torch_render(mjt.decode, data, block_smoothing=smooth,
+                              device="cpu")
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
 

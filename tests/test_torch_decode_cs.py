@@ -15,7 +15,7 @@ from mozjpeg_tpu.ops import color as jcolor
 from mozjpeg_tpu_torch.codec import decoder as tdec
 from mozjpeg_tpu_torch.codec import marker as tmarker
 from mozjpeg_tpu_torch.ops import color as tcolor
-from test_torch_decode import _photo, _truncate, _with_sof
+from test_torch_decode import _photo, _truncate, _with_sof, on_torch_render
 
 
 def _seeded(seed, channels):
@@ -118,5 +118,6 @@ def test_decode_many_equals_jax(streams, output):
     ycc = mjt.encode(_photo(48, 64, 69), mjt.EncoderConfig(quality=75),
                      device="cpu")
     datas = [ycc] + [streams[n] for n in NAMES] + [ycc]
-    _equal(mjt.decode_many(datas, output=output, device="cpu"),
+    _equal(on_torch_render(mjt.decode_many, datas, output=output,
+                           device="cpu"),
            mj.decode_many(datas, output=output))

@@ -7,7 +7,9 @@ replicating upsampling, a truncated progressive stream), BufferedImage
 (every render_pass and __iter__, Huffman and arithmetic, sequential and
 progressive, a truncated progressive stream, the float IDCT), and
 decode's positional order (the JAX package's). Lossless and 12-bit
-streams still raise NotImplementedError from each of them."""
+streams still raise NotImplementedError from each of them. The port's
+calls that reach render() run under torch_render(), on its PyTorch
+render (the card's route)."""
 import numpy as np
 import pytest
 
@@ -16,7 +18,8 @@ import mozjpeg_tpu_torch as mjt
 from mozjpeg_tpu.codec import decoder as jdec
 from mozjpeg_tpu_torch.codec import decoder as tdec
 from mozjpeg_tpu_torch.codec import marker as tmarker
-from test_torch_decode import _photo, _truncate, _with_sof
+from test_torch_decode import (_photo, _truncate, _with_sof,
+                               on_torch_render, torch_render)
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +101,7 @@ def test_decode_cropped_equals_jax(streams, name):
     width = tmarker.parse(data).width
     for x, w in _crops(width):
         want = jdec.decode_cropped(data, x, w)
-        got = mjt.decode_cropped(data, x, w, device="cpu")
+        got = on_torch_render(mjt.decode_cropped, data, x, w, device="cpu")
         assert got[1:] == want[1:]
         _equal(got[0], want[0])
     for fancy, smooth in ((False, True), (True, False)):
@@ -130,12 +133,12 @@ def test_buffered_image_equals_jax(streams, name, method):
     assert got.num_scans == want.num_scans
     assert got.progressive == want.progressive
     passes_w = list(want)
-    passes_g = list(got)
+    passes_g = on_torch_render(list, got)
     assert len(passes_g) == len(passes_w) == want.num_scans
     for g, w in zip(passes_g, passes_w):
         _equal(g, w)
     for k in range(1, want.num_scans + 1):
-        _equal(got.render_pass(k), want.render_pass(k))
+        _equal(on_torch_render(got.render_pass, k), want.render_pass(k))
     for k in (0, want.num_scans + 1):
         with pytest.raises(ValueError, match="pass out of range"):
             got.render_pass(k)
@@ -149,10 +152,11 @@ def test_decode_positional_order_is_jax(streams):
                mj.decode(data, True, "ifast"))
         _equal(mjt.decode(data, False, "float", False, "cpu"),
                mj.decode(data, False, "float", False))
-        assert not np.array_equal(mjt.decode(data, True, "ifast", True,
-                                             "cpu"),
-                                  mjt.decode(data, True, "islow", True,
-                                             "cpu"))
+        with torch_render():
+            assert not np.array_equal(mjt.decode(data, True, "ifast", True,
+                                                 "cpu"),
+                                      mjt.decode(data, True, "islow", True,
+                                                 "cpu"))
 
 
 @pytest.mark.parametrize("case,item", [("lossless", "6.10"),

@@ -14,7 +14,7 @@ import mozjpeg_tpu as mj
 import mozjpeg_tpu_torch as mjt
 from mozjpeg_tpu.ops import dct as jdct
 from mozjpeg_tpu_torch.ops import dct as tdct
-from test_torch_decode import _corrupt, _photo, _truncate
+from test_torch_decode import _corrupt, _photo, _truncate, on_torch_render
 from test_torch_decode_ops import _coeffs
 
 
@@ -121,7 +121,7 @@ def test_inputs_cover_the_paths(streams):
     for name in ("q1_wide_odd", "corrupt_wide_odd"):
         jp = tmarker.parse(streams[name])
         assert max(int(t.max()) for t in jp.qtables.values()) > 255
-    mjt.decode(streams["corrupt_wide_odd"], device="cpu")
+    on_torch_render(mjt.decode, streams["corrupt_wide_odd"], device="cpu")
     from mozjpeg_tpu_torch.codec import decoder as tdec
     assert tdec.last_warnings() > 0
 

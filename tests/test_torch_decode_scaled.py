@@ -27,7 +27,7 @@ from mozjpeg_tpu_torch.codec import decoder as tdec
 from mozjpeg_tpu_torch.codec import marker as tmarker
 from mozjpeg_tpu_torch.ops import dct as tdct
 from mozjpeg_tpu_torch.ops import idct_scaled as tscaled
-from test_torch_decode import _photo, _truncate
+from test_torch_decode import _photo, _truncate, on_torch_render
 
 ALL_M = tuple(range(1, 17))
 
@@ -161,7 +161,7 @@ def test_decode_scaled_options_equal_jax(streams):
                                  device="cpu"),
                jdec.decode_scaled(data, m, 8, colorspace="grayscale"))
     _equal(mjt.decode_scaled(data, 8, 8, device="cpu"),
-           mjt.decode(data, device="cpu"))
+           on_torch_render(mjt.decode, data, device="cpu"))
 
 
 def test_scale_above_two_raises(streams):

@@ -104,18 +104,14 @@ def test_shared_config_and_tables_match(kw):
     (dict(coef_transport=True), np.zeros((16, 16), np.uint8)),
 ])
 def test_out_of_slice_configs_raise(kw, image):
-    """What the port does not carry raises NotImplementedError naming its
-    ROADMAP.md item; 12-bit precision and the device engines, ported
-    since, equal the JAX package instead (uint8 samples at precision=12;
-    the device engines on an image whose planes carry iMCU dummy blocks,
-    which the device scan search hands to the host search in both)."""
+    """Each configuration an earlier slice refused with
+    NotImplementedError is ported since and equals the JAX package:
+    12-bit precision (uint8 samples at precision=12), the device engines
+    (on an image whose planes carry iMCU dummy blocks, which the device
+    scan search hands to the host search in both) and the transfer
+    codecs (sparse_download, plane_pack, coef_transport)."""
     img = IMAGES[2] if image is None else image
-    if kw.get("precision") == 12 or "device_entropy" in kw \
-            or "device_scanopt" in kw:
-        assert_byte_identical([img], **kw)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mjt.encode_many([img], mjt.EncoderConfig(**kw), device="cpu")
+    assert_byte_identical([img], **kw)
 
 
 @pytest.mark.parametrize("host_engine", ["1", "0"])

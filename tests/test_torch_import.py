@@ -33,7 +33,12 @@ def test_import_leaves_jax_and_jax_package_unloaded():
             "mozjpeg_tpu_torch.cli.cjpeg, mozjpeg_tpu_torch.cli.jpegtran, "
             "mozjpeg_tpu_torch.cli.yuvjpeg, mozjpeg_tpu_torch.cli.rdjpgcom, "
             "mozjpeg_tpu_torch.cli.wrjpgcom, "
-            "mozjpeg_tpu_torch.cli.rdswitch\n"
+            "mozjpeg_tpu_torch.cli.rdswitch, "
+            "mozjpeg_tpu_torch.ops.sparsepack, "
+            "mozjpeg_tpu_torch.ops.planepack, "
+            "mozjpeg_tpu_torch.ops.transport, "
+            "mozjpeg_tpu_torch.utils.xfer, "
+            "mozjpeg_tpu_torch.utils.attachment\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'mozjpeg_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'mozjpeg_tpu.')))\n"
@@ -63,7 +68,9 @@ def test_no_module_imports_jax_or_the_jax_package():
                 "cli/rdjpgcom.py", "cli/wrjpgcom.py", "cli/rdswitch.py",
                 "native/__init__.py", "ops/color.py", "ops/dct.py",
                 "ops/idct_scaled.py", "ops/trellis_ac.py", "utils/bmp.py",
-                "utils/gif.py", "utils/ppm.py", "utils/targa.py"):
+                "utils/gif.py", "utils/ppm.py", "utils/targa.py",
+                "ops/sparsepack.py", "ops/planepack.py", "ops/transport.py",
+                "utils/xfer.py", "utils/attachment.py"):
         assert os.path.join("mozjpeg_tpu_torch", rel) in scanned
     bad = []
     for path in _py_files():

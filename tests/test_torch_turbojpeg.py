@@ -12,7 +12,7 @@ import torch
 
 from mozjpeg_tpu import turbojpeg as jtj
 from mozjpeg_tpu_torch import turbojpeg as ttj
-from test_torch_decode import _photo
+from test_torch_decode import _photo, on_torch_render
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +109,8 @@ def test_decompress_pixel_formats_equal_jax(jpegs, name):
     a, b = _pair()
     for pf in PFS:
         _same_or_raise(lambda: a.decompress(jpegs[name], pf),
-                       lambda: b.decompress(jpegs[name], pf))
+                       lambda: on_torch_render(b.decompress, jpegs[name],
+                                               pf))
 
 
 def test_decompress_scaled_cropped_bottomup_equal_jax(jpegs):
@@ -122,7 +123,8 @@ def test_decompress_scaled_cropped_bottomup_equal_jax(jpegs):
             if crop:
                 t.set_cropping_region(*crop)
         _same_or_raise(lambda: a.decompress(jpegs["420"], jtj.TJPF_BGRX),
-                       lambda: b.decompress(jpegs["420"], ttj.TJPF_BGRX))
+                       lambda: on_torch_render(b.decompress, jpegs["420"],
+                                               ttj.TJPF_BGRX))
     with pytest.raises(ttj.TJError):
         ttj.TJ(device="cpu").set_scaling_factor(3, 7)
 
