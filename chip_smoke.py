@@ -138,7 +138,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and on one sizes pass of the device scan search, with its time per
      call held and with launch gaps, its plain version's, the native
      host Annex K's on the same tables and its bound (the bytes and the
-     integer operations Annex K needs, at the INT32 rate);
+     integer operations Annex K needs, at the INT32 rate); also on the
+     kernel's edges (live sums at 2^23 - 1, 2^23 and
+     2^23 + 1, where its keys switch from 32 to 64 bits; all 257 counts
+     equal; sums and counts at 2^30) and on the step sweep, T = 24
+     tables of 2, 17, 65, 129, 193 and 257 present symbols, whose held
+     times give the time a merge step (the slope);
      encode_many(device_entropy=True) of a 768x512 and the 1021x683
      image equal to the host emission (sequential, with restart_in_rows,
      the simple progressive script, a custom script with AC refinement,
@@ -1610,7 +1615,12 @@ def tablegen_vs_plain(f, label):
 def adversarial_freqs():
     """(T, 257) int32 histograms on which Annex-K implementations split:
     heavy ties, one symbol, 2-17 sparse symbols, skewed counts that force
-    the length limiting, Fibonacci depth, counts of 2^26, dense random."""
+    the length limiting, Fibonacci depth, counts of 2^26, dense random;
+    then the kernel's edges (tablegen.edge_freqs: live sums at 2^23 - 1,
+    2^23 and 2^23 + 1 with ties at the least count, where the kernel
+    switches from 32-bit to 64-bit keys; all 257 counts equal; a sum of
+    2^30 - 1, a merge reaching 2^30, a count past it)."""
+    from mozjpeg_tpu_torch.ops import tablegen as tg
     rng = np.random.default_rng(7)
     cases = []
     for _ in range(8):
@@ -1635,7 +1645,22 @@ def adversarial_freqs():
     cases.append(f)
     out = np.stack(cases).astype(np.int32)
     out[:, 256] = 0
-    return out
+    return np.concatenate([out, tg.edge_freqs()])
+
+
+SWEEP_N = (2, 17, 65, 129, 193, 257)
+
+
+def sweep_freqs(n, t=24, seed=1200):
+    """(t, 257) int32 tables for the step sweep, each with n - 1 of the
+    256 symbols present (the pseudo-symbol is the n-th, so n - 1 merges),
+    seeded counts 1-4,999."""
+    rng = np.random.default_rng(seed + n)
+    f = np.zeros((t, 257), np.int32)
+    for i in range(t):
+        f[i, rng.choice(256, n - 1, replace=False)] = rng.integers(
+            1, 5000, n - 1)
+    return f
 
 
 def tablegen_bound(freqs):
@@ -1723,6 +1748,20 @@ def device_engines(kodak, odd, rec_k, rec_o, dev, smi, launches,
             "ms, bound %.5f ms (%.3g ops, %d bytes, by %s), %.2f%% of the "
             "bound; %s" % (label, f.shape[0], k_ms, k_un, p_ms, host_ms,
                            b_ms, ops, nbytes, b_by, 100 * b_ms / k_ms, smi))
+
+    # the step latency: T = 24 tables of n present symbols make n - 1
+    # merges each; the slope of the held time over n - 1
+    sweep = {}
+    for n in SWEEP_N:
+        f = torch.as_tensor(sweep_freqs(n), device=dev)
+        max_err = max(max_err, tablegen_vs_plain(f, "sweep n=%d" % n))
+        sweep[n] = cuda_ms(lambda: tg.gen_optimal_tables(f, sizes=True), 20)
+    step_ms, zero_ms = np.polyfit([n - 1 for n in SWEEP_N],
+                                  [sweep[n] for n in SWEEP_N], 1)
+    log("tablegen step sweep (T=24, held ms by present symbols n): %s; "
+        "%.4f us a merge step, %.4f ms at 0 merges; %s"
+        % (", ".join("n=%d %.4f" % (n, sweep[n]) for n in SWEEP_N),
+           step_ms * 1e3, zero_ms, smi))
 
     # device entropy: the host emission's bytes
     encoder.reset_host_routes()
@@ -1903,6 +1942,8 @@ def device_engines(kodak, odd, rec_k, rec_o, dev, smi, launches,
             "exact": max_err == 0, "ms": k_ms, "ms_with_launch_gaps": k_un,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "host_annex_k_ms": host_ms,
+            "ms_per_merge_step": float(step_ms),
+            "sweep_ms": {str(n): sweep[n] for n in SWEEP_N},
             "sizes_pass_ms": s_ms, "sizes_pass_plain_ms": s_pms,
             "sizes_pass_bound_ms": s_bms, "sizes_pass_host_ms": s_host}
 

@@ -209,6 +209,45 @@ def derive_codes(bits: torch.Tensor, vals: torch.Tensor):
     return co, si.to(torch.int32)
 
 
+PACKED_BELOW = 1 << 23  # the kernel's 32-bit keys hold live sums below this
+
+
+def edge_freqs() -> np.ndarray:
+    """(T, 257) int32 counts at the kernel's edges, for the tests and the
+    smoke alike: live sums (the pseudo-symbol's 1 included) of
+    PACKED_BELOW - 1, PACKED_BELOW and PACKED_BELOW + 1, each once with
+    110 tied least counts and two large ones and once with 256 tied
+    counts (the remainder on symbol 255); all 257 counts equal; a sum of
+    BIG - 1; a merge that reaches BIG; a count of BIG or more (present,
+    never merged) beside small ones."""
+    cases = []
+    for total in (PACKED_BELOW - 1, PACKED_BELOW, PACKED_BELOW + 1):
+        f = np.zeros(NSYM, np.int64)
+        f[:110] = 3
+        rest = total - 1 - int(f.sum())
+        f[200], f[201] = rest // 2, rest - rest // 2
+        cases.append(f)
+        f = np.zeros(NSYM, np.int64)
+        f[:256] = (total - 1) // 256
+        f[255] += total - 1 - int(f.sum())
+        cases.append(f)
+    f = np.zeros(NSYM, np.int64)
+    f[:256] = 1
+    cases.append(f)
+    f = np.zeros(NSYM, np.int64)
+    f[:4] = (1 << 28) - 1
+    f[4] = 2
+    cases.append(f)
+    f = np.zeros(NSYM, np.int64)
+    f[:3] = (1 << 29) + 5
+    f[9] = 4
+    cases.append(f)
+    f = np.zeros(NSYM, np.int64)
+    f[7], f[8], f[9] = BIG + 5, 5, 5
+    cases.append(f)
+    return np.stack(cases).astype(np.int32)
+
+
 def _trellis_prime() -> np.ndarray:
     """+1 for every (run, size < 12) symbol, size 0 included: the rate
     smoothing of the trellis's statistics (trellis_tables_from_hist)."""

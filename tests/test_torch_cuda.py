@@ -530,23 +530,37 @@ def test_cjpeg_and_yuvjpeg_on_the_card_equal_cpu(cuda, tmp_path):
     assert outs[0] == outs[1]
 
 
-def test_tablegen_kernel_equals_plain_on_the_card(cuda):
-    """The Annex-K kernel (csrc/tablegen.cu) against its plain version:
-    ties, sparse and dense histograms, counts of 2^20, an empty and a
-    one-symbol histogram, with and without the code lengths."""
+def _tablegen_cases(kind):
+    """(T, 257) int32 counts: `mixed` (ties, sparse and dense histograms,
+    counts of 2^20, an empty and a one-symbol histogram), `edges`
+    (tablegen.edge_freqs: the live sums around 2^23 where the kernel's
+    keys switch width, all 257 counts equal, sums and counts at 2^30) or
+    `T=1136` (a sizes pass's batch: seeded sparse histograms)."""
     from mozjpeg_tpu_torch.ops import tablegen as tg
-    rng = np.random.default_rng(31)
-    f = np.zeros((70, 257), np.int32)
-    for i in range(64):
-        k = int(rng.integers(1, 257))
+    if kind == "edges":
+        return tg.edge_freqs()
+    rng = np.random.default_rng(31 if kind == "mixed" else 32)
+    t, rows, top = (70, 64, 257) if kind == "mixed" else (1136, 1136, 40)
+    f = np.zeros((t, 257), np.int32)
+    for i in range(rows):
+        k = int(rng.integers(1, top))
         f[i, rng.choice(256, k, replace=False)] = rng.integers(
             1, int(rng.choice([2, 50, 1 << 20])), k)
-    f[64, :100] = 7
-    f[65, ::2] = 1
-    f[66, 42] = 10
-    f[67, :40] = [2 ** min(i, 25) for i in range(40)]
-    f[68, :8] = 1 << 26
-    freqs = torch.as_tensor(f, device=cuda)
+    if kind == "mixed":
+        f[64, :100] = 7
+        f[65, ::2] = 1
+        f[66, 42] = 10
+        f[67, :40] = [2 ** min(i, 25) for i in range(40)]
+        f[68, :8] = 1 << 26
+    return f
+
+
+@pytest.mark.parametrize("kind", ["mixed", "edges", "T=1136"])
+def test_tablegen_kernel_equals_plain_on_the_card(cuda, kind):
+    """The Annex-K kernel (csrc/tablegen.cu) against its plain version,
+    with and without the code lengths, on _tablegen_cases(kind)."""
+    from mozjpeg_tpu_torch.ops import tablegen as tg
+    freqs = torch.as_tensor(_tablegen_cases(kind), device=cuda)
     before = tg.launches
     got = tg.gen_optimal_tables(freqs, sizes=True)
     assert tg.launches == before + 1
@@ -555,7 +569,8 @@ def test_tablegen_kernel_equals_plain_on_the_card(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert not bool(got[2][69]) and bool(got[2][66])
+    if kind == "mixed":
+        assert not bool(got[2][69]) and bool(got[2][66])
     for a, b in zip(tg.gen_optimal_tables(freqs), want[:3]):
         assert torch.equal(a, b)
 

@@ -7,6 +7,11 @@ port does not carry (ROADMAP.md: left out on purpose).
 
 The plain version runs here; the CUDA kernel (csrc/tablegen.cu) is held
 against it on the card (chip_smoke.py phase 13, tests/test_torch_cuda.py).
+The kernel cannot run without a card, so kernel_model below holds its
+order of work here (the per-lane keys and their two least, the two warp
+minima a merge, the 32-bit and 64-bit key paths and the switch between
+them, the relabel, the counting ranks), against the plain version and
+the JAX function; change it with the kernel.
 """
 import os
 
@@ -53,15 +58,72 @@ def _all_cases():
     return np.stack(cases).astype(np.int32)
 
 
+def _model_groups():
+    """The kernel model's cases by group: seeded random, tie-heavy, the
+    key switch's thresholds (tablegen.edge_freqs), sparse, length-limited
+    and int32-edge histograms, and the trellis route's primed counts."""
+    rng = np.random.default_rng(12)
+    edges = tg.edge_freqs()
+
+    def rand(n_tab, lo, hi, top):
+        f = np.zeros((n_tab, 257), np.int32)
+        for i in range(n_tab):
+            k = int(rng.integers(lo, hi))
+            f[i, rng.choice(256, k, replace=False)] = rng.integers(1, top, k)
+        return f
+
+    def rows(*tabs):
+        f = np.zeros((len(tabs), 257), np.int64)
+        for i, (sl, v) in enumerate(tabs):
+            f[i, sl] = v
+        return f.astype(np.int32)
+
+    fib = [1, 1]
+    while len(fib) < 30:
+        fib.append(min(fib[-1] + fib[-2], 1 << 29))
+    hists = rng.integers(0, 3000, (3, 256)).astype(np.int32)
+    hists[1, rng.random(256) < 0.7] = 0
+    return {
+        "random dense": rand(4, 180, 257, 5000),
+        "random counts to 2^20": rand(4, 2, 257, 1 << 20),
+        "ties of 1 and 2": rand(3, 100, 257, 3),
+        "all equal": rows((slice(0, 256), 1), (slice(0, 256), 7),
+                          (slice(0, 128), 3)),
+        "threshold 2^23 - 1": edges[0:2],
+        "threshold 2^23": edges[2:4],
+        "threshold 2^23 + 1": edges[4:6],
+        "sparse": rows((slice(0, 0), 0), (slice(42, 43), 10),
+                       (slice(7, 9), 4), (slice(3, 12, 3), 9),
+                       (slice(0, 17), 2)),
+        "length-limited": rows((slice(0, 40),
+                                [2 ** min(i, 25) for i in range(40)]),
+                               (slice(0, 30), fib)),
+        "int32 edges": np.concatenate([edges[6:], rows(
+            (slice(0, 8), 1 << 26))]),
+        "trellis route": tg.trellis_freqs(torch.as_tensor(hists)).numpy(),
+    }
+
+
+MODEL_GROUPS = _model_groups()
+
+
 @pytest.fixture(scope="module")
 def tables():
-    freqs = _all_cases()
+    """_all_cases() and then the model's groups, through the wrapper (the
+    plain version here)."""
+    freqs = np.concatenate([_all_cases()] + list(MODEL_GROUPS.values()))
     return freqs, tg.gen_optimal_tables(torch.as_tensor(freqs), sizes=True)
 
 
-def test_gen_optimal_tables_matches_jax(tables):
+@pytest.fixture(scope="module")
+def jax_tables(tables):
+    """The JAX gen_optimal_tables_t on the same counts: one compile."""
+    return tuple(np.asarray(a) for a in jtg.gen_optimal_tables_t(tables[0]))
+
+
+def test_gen_optimal_tables_matches_jax(tables, jax_tables):
     freqs, (bits, vals, ok, si) = tables
-    jb, jv, jok = (np.asarray(a) for a in jtg.gen_optimal_tables_t(freqs))
+    jb, jv, jok = jax_tables
     np.testing.assert_array_equal(bits.numpy(), jb)
     np.testing.assert_array_equal(vals.numpy(), jv)
     np.testing.assert_array_equal(ok.numpy(), jok)
@@ -75,7 +137,7 @@ def test_gen_optimal_tables_matches_jax(tables):
 def test_gen_optimal_tables_matches_native(tables):
     freqs, (bits, vals, ok, si) = tables
     co, _ = tg.derive_codes(bits, vals)
-    for i, f in enumerate(freqs):
+    for i, f in enumerate(freqs[:len(_all_cases())]):
         assert bool(ok[i])
         tbl = entenc.gen_optimal_table(f.astype(np.int64))
         np.testing.assert_array_equal(bits[i, 1:].numpy(), tbl.bits[1:])
@@ -190,3 +252,143 @@ def test_port_imports_no_softfloat():
         for f in files:
             if f.endswith(".py"):
                 assert "softfloat" not in open(os.path.join(d, f)).read(), f
+
+
+# ---- a model of csrc/tablegen.cu's order of work ----
+
+LANES, SLOTS = 32, 9
+DEAD32, DEAD64 = (1 << 32) - 1, (1 << 64) - 1
+
+
+def _warp_min(b, packed):
+    """The warp minimum of the lanes' keys: one __reduce_min_sync on the
+    32-bit keys; on the 64-bit keys the counts' minimum, then the least
+    511 - symbol among the lanes on that count."""
+    if packed:
+        return min(b)
+    c = [min(k >> 9, DEAD32) for k in b]
+    m = min(c)
+    return m << 9 | min(k & 511 if ci == m else 511 for k, ci in zip(b, c))
+
+
+def _top_two(keys):
+    return tuple(sorted(keys)[:2])
+
+
+def kernel_model(freq):
+    """One table as the kernel's warp computes it: 32 lanes x 9 slots of
+    keys count << 9 | (511 - symbol), 32-bit when the live counts sum
+    below tablegen.PACKED_BELOW (each lane's sum capped there before the
+    warp's) and 64-bit otherwise; per merge two warp minima, over the
+    lanes' least keys and then with c1's lane offering its second least,
+    then the two least refreshed only in the lanes that own c1 and c2
+    (asserting that every other lane's are still its own two least, so
+    that the kernel's lockstep recomputation changes nothing there); the
+    relabel of the code sizes by root symbol; counting ranks for the
+    values, a round of 32 symbols at a time; the length limiting.
+    -> (bits (17,), vals (256,), ok, the key path: "packed" or "wide")."""
+    sym = np.arange(LANES)[:, None] + 32 * np.arange(SLOTS)[None, :]
+    v = np.where(sym < 256, np.append(freq, 0)[np.minimum(sym, 257)], 0)
+    v = np.where(sym == 256, 1, v).astype(np.int64)
+    pres = v > 0
+    live = pres & (v < tg.BIG)
+    lane_sums = np.where(live, v, 0).sum(1)
+    packed = int(np.minimum(lane_sums, tg.PACKED_BELOW).sum()) \
+        < tg.PACKED_BELOW
+    dead = DEAD32 if packed else DEAD64
+    key = [[int(v[ln, k]) << 9 | (511 - int(sym[ln, k])) if live[ln, k]
+            else dead for k in range(SLOTS)] for ln in range(LANES)]
+    grp, cs = sym.copy(), np.zeros_like(sym)
+    top = [_top_two(row) for row in key]
+    n_live = int(live.sum())
+    for _ in range(256):
+        if n_live < 2:
+            break
+        m1 = _warp_min([t[0] for t in top], packed)
+        c1 = 511 - (m1 & 511)
+        m2 = _warp_min([t[1] if ln == c1 % 32 else t[0]
+                        for ln, t in enumerate(top)], packed)
+        c2 = 511 - (m2 & 511)
+        merged = (m1 >> 9) + (m2 >> 9)
+        gone = merged >= tg.BIG
+        if packed:
+            assert max(m1, m2) < DEAD32 and not gone
+        key[c1 % 32][c1 // 32] = dead if gone else merged << 9 | (511 - c1)
+        key[c2 % 32][c2 // 32] = dead
+        for ln in {c1 % 32, c2 % 32}:
+            top[ln] = _top_two(key[ln])
+        assert top == [_top_two(row) for row in key]
+        member = (grp == c1) | (grp == c2)
+        cs += member
+        grp[grp == c2] = c1
+        n_live -= 1 + int(gone)
+
+    # counting ranks, a round of 32 symbols at a time
+    hist = np.zeros(257, np.int64)
+    pos = np.zeros_like(sym)
+    absent_before = 0
+    for k in range(SLOTS):
+        p = pres[:, k]
+        absent = (sym[:, k] < 257) & ~p
+        for ln in range(LANES):
+            if p[ln]:
+                same = p[:ln] & (cs[:ln, k] == cs[ln, k])
+                pos[ln, k] = hist[cs[ln, k]] + same.sum()
+            else:
+                pos[ln, k] = absent_before + absent[:ln].sum()
+        np.add.at(hist, cs[p, k], 1)
+        absent_before += int(absent.sum())
+    n_present = int(pres.sum())
+    ok = n_present >= 2 and not (pres & (cs > 32)).any()
+    below = np.cumsum(hist) - hist
+    vals = np.full(256, -1, np.int64)
+    for ln in range(LANES):
+        for k in range(SLOTS):
+            s = int(sym[ln, k])
+            if s < 257:
+                r = below[cs[ln, k]] + pos[ln, k] if pres[ln, k] \
+                    else n_present + pos[ln, k]
+                if r < 256:
+                    vals[r] = 0 if s == 256 else s
+    bits = np.zeros(33, np.int64)
+    bits[:32] = hist[:32]
+    bits[32] = hist[32:].sum()
+    bits[0] = 0
+    for i in range(32, 16, -1):
+        for _ in range(129):
+            if bits[i] <= 0:
+                break
+            j = max([ln for ln in range(i - 1) if bits[ln] > 0], default=0)
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    last = max([ln for ln in range(17) if bits[ln] > 0], default=0)
+    bits[last] -= int(ok)
+    return bits[:17], vals, ok, "packed" if packed else "wide"
+
+
+@pytest.mark.parametrize("group", list(MODEL_GROUPS))
+def test_kernel_model_matches_plain_and_jax(tables, jax_tables, group):
+    """The model of the kernel's order of work, table by table, against
+    the plain version and the JAX gen_optimal_tables_t (the rows of this
+    group in the shared fixture); the threshold groups take the key path
+    their live sums call for."""
+    freqs, (bits, vals, ok, _) = tables
+    jb, jv, jok = jax_tables
+    start = len(_all_cases())
+    for name, g in MODEL_GROUPS.items():
+        if name == group:
+            break
+        start += len(g)
+    paths = set()
+    for i in range(start, start + len(MODEL_GROUPS[group])):
+        mb, mv, mok, path = kernel_model(freqs[i])
+        paths.add(path)
+        for a, b, c in ((mb, bits[i].numpy(), jb[i]),
+                        (mv, vals[i].numpy(), jv[i])):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        assert mok == bool(ok[i]) == bool(jok[i])
+    if group.startswith("threshold"):
+        assert paths == {"packed" if group.endswith("- 1") else "wide"}
