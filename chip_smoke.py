@@ -179,18 +179,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      the 12 MP one through the card, the host render and the packed
      route with MJ_PLANEPACK 0 and 1, RGB and YUV equal to the card's,
      with their bytes, MP/s, device time and kernels;
- 15. the script's time, the kernels line (both instantiations of the AC
+ 15. multi-device encode (mozjpeg_tpu_torch/parallel/) on one card, a
+     mesh of four "cuda:0" entries: the dry run; encode_batch of eight
+     768x512 photos with the host and the device entropy, equal to the
+     one-entry mesh's bytes; encode_row_sharded, _trellis, _progressive
+     and _scanopt of a 768x512 photo, each equal to encode() of its
+     configuration with restart_in_rows=1 on the card; the full width,
+     one 8192x6144 photo (50.3 MP, over the 48 MP batch limit) through
+     encode_row_sharded_scanopt, equal to encode_many of it (the
+     per-image route on one card); every trellis_ac launch of each
+     row-sharded call held exact against its plain version and counted
+     (4 shards x 3 components); wall s, MP/s and peak memory of the
+     sharded and the per-image encode; a one-rank NCCL group running
+     encode_row_sharded_scanopt_multihost, and two gloo processes on
+     cuda:0 (tests/torch_multihost_worker.py) running
+     encode_row_sharded_multihost and _scanopt_multihost, each equal to
+     the one-process bytes;
+ 16. the script's time, the kernels line (both instantiations of the AC
      kernel and the tablegen kernel), then {"ok": true, "device": ...} as
      the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
 phase 8, phase 11's 12-bit main path, each of phase 12's calls, each of
-phase 14's encode runs) and read just after it; the kernels line carries
-phase 4's count of the <10, 1023> instantiation with phase 12's and
-phase 14's counts beside it, and phase 11's of the <14, 16383> one with
-phase 14's, and phase 4's count of tablegen with phase 13's per
-device-search group and phase 14's beside it. It needs
-no network and imports no JAX.
+phase 14's encode runs, each of phase 15's row-sharded calls) and read
+just after it; the kernels line carries phase 4's count of the <10,
+1023> instantiation with phase 12's, phase 14's and phase 15's counts
+beside it, and phase 11's of the <14, 16383> one with phase 14's, and
+phase 4's count of tablegen with phase 13's per device-search group and
+phase 14's beside it. It needs no network and imports no JAX.
 """
 import contextlib
 import io
@@ -1965,19 +1981,26 @@ def environ(**kw):
 
 @contextlib.contextmanager
 def recording(rec):
-    """encode_many's trellis passes record into rec (encoder._finals
-    gets a record dict: each trellis_ac launch's arguments and each
-    tablegen launch's counts)."""
-    from mozjpeg_tpu_torch.codec import encoder
-    finals = encoder._finals
+    """encode_many's trellis passes and the row-sharded encoders' trellis
+    record into rec (encoder._finals and trellis.trellis_all get a record
+    dict: each trellis_ac launch's arguments and each tablegen launch's
+    counts)."""
+    from mozjpeg_tpu_torch.codec import encoder, trellis
+    finals, trellis_all = encoder._finals, trellis.trellis_all
 
     def record(p1, ctx, dev_, b, times=None, _=None, *rest):
         return finals(p1, ctx, dev_, b, times, rec, *rest)
+
+    def record_all(*args, **kw):
+        kw["record"] = rec
+        return trellis_all(*args, **kw)
     encoder._finals = record
+    trellis.trellis_all = record_all
     try:
         yield
     finally:
         encoder._finals = finals
+        trellis.trellis_all = trellis_all
 
 
 # phase 14: each transfer codec's EncoderConfig fields, and the first
@@ -2205,6 +2228,216 @@ def transfer_codecs(images, outs, ngroups, dev, smi, compare, h=3024,
                ", ".join("%.3f" % (dmp / x) for x in v), dms, nk, smi))
     log("phase 14: %.1f s" % (time.perf_counter() - t_phase))
     return launches
+
+
+# phase 15: the row-sharded encoders and the single-device configuration
+# each is byte-exact against (restart_in_rows=1 added), EncoderConfig
+# fields by name
+ROW_ENCODERS = [
+    ("baseline", "encode_row_sharded",
+     dict(profile="FASTEST", progressive=False, optimize_coding=True,
+          optimize_scans=False, trellis_quant=False,
+          overshoot_deringing=False)),
+    ("trellis", "encode_row_sharded_trellis",
+     dict(progressive=False, optimize_scans=False, trellis_quant=True,
+          overshoot_deringing=True, optimize_coding=True)),
+    ("progressive", "encode_row_sharded_progressive",
+     dict(progressive=True, optimize_scans=False, trellis_quant=True,
+          overshoot_deringing=True, optimize_coding=True)),
+    ("scanopt", "encode_row_sharded_scanopt", {})]
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def sharded_run(fn, compare, label, nshards):
+    """fn() under recording, launch counts from 0 -> (its bytes, wall s,
+    peak GiB, launches, max error of its launches against the plain
+    version). Fails unless the trellis launched once per shard and
+    component (0 times where fn has no trellis) and every recorded launch
+    agrees with the plain version."""
+    import torch
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tac.reset_launches()
+    t0 = time.perf_counter()
+    with recording(rec):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = tac.trellis_ac.launches_by_kmax[10]
+    calls = rec.get("trellis_ac", [])
+    if n != len(calls) or n not in (0, 3 * nshards):
+        raise SystemExit("%s: %d trellis_ac launches, %d recorded, expected "
+                         "0 or %d" % (label, n, len(calls), 3 * nshards))
+    err = 0.0
+    for i, args in enumerate(calls):
+        err = max(err, compare(args, "phase 15 %s launch %d" % (label, i)))
+    return out, wall, peak, n, err
+
+
+def multi_device(kodak, dev, smi, compare, h=6144, w=8192):
+    """Phase 15: the port's multi-device encode on one card, every entry
+    of a mesh on cuda:0 -> (its launch counts by run, the max error of
+    its launches against the plain version)."""
+    import torch
+    import torch.distributed as dist
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.codec.config import EncoderConfig, Profile
+    from mozjpeg_tpu_torch.parallel import batch as pbatch
+    from mozjpeg_tpu_torch.parallel import dryrun, multihost
+    from mozjpeg_tpu_torch.parallel import rows as prows
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    nshards = 4
+    mesh = pbatch.make_mesh([card] * nshards)
+
+    # (a) the dry run
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(nshards, device=card)
+    log("phase 15 dry run on %d cuda:0 entries: ok (%.1f s)"
+        % (nshards, time.perf_counter() - t0))
+
+    # (b) the one-process encoders at 768x512
+    imgs = np.stack(kodak[:8])
+    ref = pbatch.encode_batch(imgs, 75.0, pbatch.make_mesh([card]))
+    for de in (False, True):
+        t0 = time.perf_counter()
+        got = pbatch.encode_batch(imgs, 75.0, mesh, device_entropy=de)
+        torch.cuda.synchronize()
+        log("phase 15 encode_batch 8x768x512 on %d entries, device_entropy="
+            "%s: equal to one entry's=%s (%.3f s)"
+            % (nshards, de, got == ref, time.perf_counter() - t0))
+        if got != ref:
+            raise SystemExit("encode_batch differs from the one-entry mesh")
+    img = kodak[0]
+    launches, err, single = {}, 0.0, {}
+    for kind, name, kw in ROW_ENCODERS:
+        kw = dict(kw)
+        if "profile" in kw:
+            kw["profile"] = Profile[kw["profile"]]
+        want = mjt.encode(img, EncoderConfig(quality=75, restart_in_rows=1,
+                                             **kw))
+        fn = getattr(prows, name)
+        got, wall, peak, n, e = sharded_run(
+            lambda: fn(img, 75.0, mesh, restart_rows=1), compare,
+            "768x512 " + kind, nshards)
+        launches["768x512 " + kind] = n
+        err = max(err, e)
+        single[kind] = want
+        log("phase 15 %s 768x512 on %d entries: equal to encode()=%s, %d "
+            "bytes, %.3f s, peak %.2f GiB, trellis_ac launches %d"
+            % (name, nshards, got == want, len(got), wall, peak, n))
+        if got != want:
+            raise SystemExit("%s differs from the single-device bytes"
+                             % name)
+
+    # (b) the full width: one 8192x6144 photo over the 48 MP batch limit
+    big = photo(h, w, 300)
+    mp = h * w / 1e6
+
+    def sharded():
+        return prows.encode_row_sharded_scanopt(big, 75.0, mesh,
+                                                restart_rows=1)
+
+    def per_image():
+        return mjt.encode_many([big], EncoderConfig(quality=75,
+                                                    restart_in_rows=1))[0]
+
+    got, wall, peak, n, e = sharded_run(sharded, compare,
+                                        "%dx%d scanopt" % (w, h), nshards)
+    launches["%dx%d scanopt" % (w, h)] = n
+    err = max(err, e)
+    # then in turns: per-image, per-image, sharded
+    walls = {"sharded": [wall], "per-image": []}
+    peaks = {"sharded": [peak], "per-image": []}
+    for name, fn in (("per-image", per_image), ("per-image", per_image),
+                     ("sharded", sharded)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+        peaks[name].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        if out != got:
+            raise SystemExit("the sharded full-width encode differs from "
+                             "the per-image route")
+    for name in ("sharded", "per-image"):
+        log("phase 15 %dx%d (%.1f MP) %s, %s: %s s (%s MP/s), peak %s GiB"
+            % (w, h, mp, name, smi,
+               " / ".join("%.3f" % v for v in walls[name]),
+               " / ".join("%.3f" % (mp / v) for v in walls[name]),
+               " / ".join("%.2f" % v for v in peaks[name])))
+    log("phase 15 %dx%d: encode_row_sharded_scanopt on %d cuda:0 entries "
+        "equal to encode_many's per-image route: True (%d bytes), "
+        "trellis_ac launches %d" % (w, h, nshards, len(got), n))
+    del big, got, out
+
+    # (c) a one-rank NCCL group, then two gloo processes sharing the card
+    t0 = time.perf_counter()
+    multihost.init("127.0.0.1:%d" % free_port(), 1, 0,
+                   devices=[card] * nshards)
+    gm = multihost.global_mesh("rows", devices=[card] * nshards)
+    backend = dist.get_backend()
+    try:
+        got = multihost.encode_row_sharded_scanopt_multihost(
+            img, 75.0, restart_rows=1, mesh=gm)
+    finally:
+        dist.destroy_process_group()
+    log("phase 15 one-rank group (%s), sums on %s: "
+        "encode_row_sharded_scanopt_multihost equal=%s (%.1f s)"
+        % (backend, gm.reduce_device, got == single["scanopt"],
+           time.perf_counter() - t0))
+    if gm.reduce_device.type != "cuda" or got != single["scanopt"]:
+        raise SystemExit("the one-rank NCCL run failed")
+    t0 = time.perf_counter()
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "torch_multihost_worker.py")
+    modes = ("rows", "scanopt")
+    with tempfile.TemporaryDirectory() as tmp:
+        inpath = os.path.join(tmp, "in.npz")
+        np.savez(inpath, batch=imgs[:2], image=img)
+        coord = "127.0.0.1:%d" % free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, worker, coord, "2", str(r), str(nshards),
+             "cuda:0", inpath, os.path.join(tmp, "out"), *modes],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, e) in enumerate(zip(procs, errs)):
+            if p.returncode != 0:
+                raise SystemExit("gloo rank %d failed:\n%s"
+                                 % (r, e.decode()[-4000:]))
+        for mode, kind in zip(modes, ("baseline", "scanopt")):
+            outs = []
+            for r in range(2):
+                with open(os.path.join(tmp, "out.%s.%d.0.jpg" % (mode, r)),
+                          "rb") as f:
+                    outs.append(f.read())
+            ok = outs == [single[kind]] * 2
+            log("phase 15 two gloo processes on cuda:0 (%d entries each), "
+                "%s: both equal to the single-device bytes=%s"
+                % (nshards, mode, ok))
+            if not ok:
+                raise SystemExit("the two-process %s run differs" % mode)
+    log("phase 15 two-process run: %.1f s" % (time.perf_counter() - t0))
+    log("phase 15: %.1f s" % (time.perf_counter() - t_phase))
+    return launches, err
 
 
 def main():
@@ -2455,7 +2688,11 @@ def main():
     k12["launches_phase14"] = l14["<14>"]
     k_tg["launches_phase14"] = l14["tablegen"]
 
-    # ---- 15. result lines ----
+    # ---- 15. multi-device encode ----
+    l15, err15 = multi_device(kodak, dev, smi, compare)
+    max_err = max(max_err, err15)
+
+    # ---- 16. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -2466,7 +2703,8 @@ def main():
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
         "dense_bound_ms": d_bound, "launches_phase12": l12,
-        "launches_phase14": l14["<10>"]}, k12, k_tg]}))
+        "launches_phase14": l14["<10>"], "launches_phase15": l15},
+        k12, k_tg]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

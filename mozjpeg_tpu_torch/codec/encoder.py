@@ -38,8 +38,9 @@ standard Huffman tables or arithmetic coding; every trellis option;
 quant tables and slots, ICC and density; 8-bit samples (uint8) and
 12-bit ones (uint16, precision=12: the AC trellis kernel at 14 bit
 lengths, Huffman only, SOF1 when sequential). Lossless SOF3 is
-codec/lossless.py. What it does not carry raises NotImplementedError
-naming the ROADMAP.md item that brings it.
+codec/lossless.py. Images over MJ_BATCH_MAX_MP megapixels take the
+per-image route one at a time or, in the rows profile on two or more
+devices, the iMCU-row sharding of parallel/rows.py (_route_rows).
 """
 from __future__ import annotations
 
@@ -151,9 +152,7 @@ def resolve_group(image, config: Optional[EncoderConfig] = None,
 
 
 def _check_slice(image, cfg):
-    """Refuse sample types the configuration cannot take (ValueError);
-    what the port does not carry on one device is refused by
-    _check_rows."""
+    """Refuse sample types the configuration cannot take (ValueError)."""
     if image.dtype not in (np.uint8, np.uint16):
         raise ValueError("expected uint8 or uint16 samples, got %s"
                          % image.dtype)
@@ -168,24 +167,29 @@ def _over_batch_limit(image) -> bool:
     return image.shape[0] * image.shape[1] > max_mp * 1e6
 
 
-def _check_rows(image, config, overrides, dev):
-    """Refuse what the JAX package row-shards across devices
-    (_route_rows): an RGB image over the batch limit, in the rows profile
-    (the default with restart_in_rows), with two or more devices. On one
-    device such images take the per-image route instead."""
+def _route_rows(img, config, overrides, dev) -> Optional[bytes]:
+    """A huge single on several devices: the JAX package's route through
+    parallel/rows.py's iMCU-row sharding, taken for an RGB image in the
+    rows profile (the default with restart_in_rows set and a numeric
+    quality: shard independence needs the restart markers, so another
+    configuration's bytes would differ) with two or more devices of dev's
+    kind (parallel/batch.device_count). Byte-exact against the
+    per-image route; None where not taken."""
+    from ..parallel import batch as pbatch
+    from ..parallel import rows as prows
+    if img.ndim != 3 or img.shape[2] != 3 or pbatch.device_count(dev) < 2:
+        return None
     cfg = config if config is not None else EncoderConfig()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     rr = cfg.restart_in_rows
-    if (dev.type == "cuda" and torch.cuda.device_count() > 1
-            and image.ndim == 3 and rr
-            and isinstance(cfg.quality, (int, float))
-            and cfg == EncoderConfig(quality=cfg.quality,
-                                     restart_in_rows=rr)):
-        raise NotImplementedError(
-            "mozjpeg_tpu_torch: row sharding of images over "
-            "MJ_BATCH_MAX_MP megapixels across several GPUs is not ported "
-            "yet (ROADMAP.md queue 1 item 9)")
+    if not rr or not isinstance(cfg.quality, (int, float)):
+        return None
+    if cfg != EncoderConfig(quality=cfg.quality, restart_in_rows=rr):
+        return None
+    return prows.encode_row_sharded_scanopt(
+        img, float(cfg.quality), pbatch.make_mesh(pbatch.local_devices(dev)),
+        restart_rows=rr)
 
 
 def _device(device) -> torch.device:
@@ -275,8 +279,14 @@ def _encode_many(images, config, dev, overrides) -> List[bytes]:
         # route: the host engine on the CPU where it serves, else one at
         # a time through the per-image route
         big = _over_batch_limit(img0)
-        if big:
-            _check_rows(img0, config, overrides, dev)
+        routed = big and _route_rows(img0, config, overrides, dev)
+        if routed:
+            # the route's conditions hold for every image of the shape
+            out[idxs[0]] = routed
+            for i in idxs[1:]:
+                out[i] = _route_rows(np.asarray(images[i]), config,
+                                     overrides, dev)
+            continue
         if dev.type == "cpu" and (big or not batchable(ctx)) and \
                 _host_engine_serves(ctx):
             host += [(i, ctx) for i in idxs]

@@ -130,13 +130,13 @@ def to_samples(images: np.ndarray, dev) -> torch.Tensor:
     return bits.to(torch.int32) & 0xFFFF
 
 
-def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
-            dering_on: bool, batch: int, dct_method: str = "islow",
-            ri: int = 0, precision: int = 8):
-    """One component of a group: plane (B, >= bh*8, >= bw*8) samples
-    (uint8, or int32 above 8 bits) -> (q_zz (64, B*n) int16, raw_zz
-    (64, B*n) int32, norm (B*n,) f32, AC-first histograms (B, 256)
-    int32)."""
+def quantize_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
+                  dering_on: bool, dct_method: str = "islow",
+                  precision: int = 8):
+    """The real blocks of one component's planes (B, >= bh*8, >= bw*8)
+    samples (uint8, or int32 above 8 bits) -> (q_zz (64, B*n), raw_zz
+    (64, B*n) int32): [dering], FDCT, quantization, the post-dering
+    clamp, zigzag."""
     dev = plane.device
     qtbl = np.asarray(qtbl)
     q0 = int(qtbl.reshape(64)[0])
@@ -168,8 +168,18 @@ def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
         # post-dering clamp (jcdctmgr.c:706,764)
         maxc = (1 << (precision + 2)) - 1
         qz = torch.clamp(qz, -maxc, maxc)
-    q_zz = layout.to_zigzag_t(qz)
-    raw_zz = layout.to_zigzag_t(coeffs)
+    return layout.to_zigzag_t(qz), layout.to_zigzag_t(coeffs)
+
+
+def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
+            dering_on: bool, batch: int, dct_method: str = "islow",
+            ri: int = 0, precision: int = 8):
+    """One component of a group: plane (B, >= bh*8, >= bw*8) samples
+    (uint8, or int32 above 8 bits) -> (q_zz (64, B*n) int16, raw_zz
+    (64, B*n) int32, norm (B*n,) f32, AC-first histograms (B, 256)
+    int32)."""
+    q_zz, raw_zz = quantize_comp(plane, g, qtbl, dering_on, dct_method,
+                                 precision)
     return (q_zz, raw_zz, norm_seq(raw_zz),
             symbols.ac_first_histograms_t(q_zz, batch, ri))
 
@@ -324,23 +334,14 @@ def split_flat_batch(geom, flat: np.ndarray, b: int):
 
 def planes_t(finals, geom, b: int):
     """Per component (64, B*n) planes -> (B, bh_pad, bw_pad, 64) on their
-    device, with the iMCU dummy blocks of add_dummy_blocks_host."""
+    device, with the iMCU dummy blocks (layout.add_dummy_blocks)."""
     out = []
     for q, g in zip(finals, geom[2]):
         p = q.reshape(64, b, g.bh, g.bw).permute(1, 2, 3, 0)
-        if g.bw == g.bw_pad and g.bh == g.bh_pad:
-            out.append(p.contiguous())
-            continue
-        full = torch.zeros((b, g.bh_pad, g.bw_pad, 64), dtype=p.dtype,
-                           device=p.device)
-        full[:, :g.bh, :g.bw] = p
-        if g.bw < g.bw_pad:
-            full[:, :g.bh, g.bw:, 0] = p[:, :, g.bw - 1, 0:1]
-        if g.bh < g.bh_pad:
-            src = full[:, g.bh - 1, :, 0].reshape(b, g.bw_pad // g.h,
-                                                   g.h)[:, :, -1]
-            full[:, g.bh:, :, 0] = src.repeat_interleave(g.h, 1)[:, None, :]
-        out.append(full)
+        p = torch.nn.functional.pad(
+            p, (0, 0, 0, g.bw_pad - g.bw, 0, g.bh_pad - g.bh))
+        out.append(layout.add_dummy_blocks(p, g.bw, g.bh, g.h, g.v)
+                   .contiguous())
     return out
 
 

@@ -36,6 +36,7 @@ import torch
 from ..entropy.huffman import HuffTable
 from ..ops import bitpack, tablegen
 from ..ops import scanopt_kernels as sk
+from ..ops.symbols import dc_hist
 from . import marker, report, scans
 from .scanopt import (SearchLayout, _file_header, _frame_header,
                       _run_selection, display_order)
@@ -183,7 +184,7 @@ class _Pass:
             h = 0
             for ci in scan.comps:
                 if (0 if ci == 0 else 1) == slot:
-                    h = h + sk.dc_hist(_dc_deltas(
+                    h = h + dc_hist(_dc_deltas(
                         self.planes[ci], self.comps[ci], self.b,
                         self.mcus_x, self.mcus_y, len(scan.comps) > 1))
             out.append(h)

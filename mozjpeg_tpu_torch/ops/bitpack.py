@@ -271,8 +271,10 @@ def _pack_segments(planes, dc_tab, ac_tab, geoms, mcus_x: int, mcus_y: int,
 
 
 def as_dev(p) -> torch.Tensor:
-    """A plane's device twin (DualPlane.dev) where the encoder attached
-    one, else the host array as a CPU tensor."""
+    """A plane as a tensor: itself, its device twin (DualPlane.dev) where
+    the encoder attached one, else the host array as a CPU tensor."""
+    if isinstance(p, torch.Tensor):
+        return p
     d = getattr(p, "dev", None)
     return d if d is not None else torch.from_numpy(np.ascontiguousarray(p))
 

@@ -1,10 +1,11 @@
 """Blockification and zigzag reordering in coefficient-major layout.
 
 Port of mozjpeg_tpu/ops/layout.py (pad_plane, blockify_t, to_zigzag_t,
-from_zigzag_t): blocks live as (8, 8, N) / (64, N) tensors with the block
-index last, N in raster block order (image-major for a batch). The
-decoder's from_zigzag and unblockify keep the block-major layout of
-decoded planes, (..., bh, bw, 64) and (..., bh, bw, S, S).
+from_zigzag_t, add_dummy_blocks, add_dummy_blocks_t): blocks live as
+(8, 8, N) / (64, N) tensors with the block index last, N in raster block
+order (image-major for a batch). The decoder's from_zigzag and
+unblockify, and the encoder's planes with their iMCU dummy blocks, keep
+the block-major layout, (..., bh, bw, 64) and (..., bh, bw, S, S).
 """
 from __future__ import annotations
 
@@ -70,3 +71,39 @@ def unblockify(blocks: torch.Tensor) -> torch.Tensor:
     back into a plane."""
     *lead, bh, bw, sh, sw = blocks.shape
     return blocks.movedim(-2, -3).reshape(*lead, bh * sh, bw * sw)
+
+
+def add_dummy_blocks(zz: torch.Tensor, real_bw: int, real_bh: int,
+                     h_samp: int, v_samp: int) -> torch.Tensor:
+    """(..., bh, bw, 64) zigzag planes whose blocks past (real_bh,
+    real_bw) hold anything -> the same shape with those blocks the iMCU
+    dummy blocks of compress_first_pass (jccoefct.c:300-347): a dummy
+    column copies the DC of its row's last real block, a dummy row per
+    MCU column the DC of the row above's last in-MCU block, AC zero."""
+    bh, bw = zz.shape[-3], zz.shape[-2]
+    if real_bw == bw and real_bh == bh:
+        return zz
+    out = torch.zeros_like(zz)
+    out[..., :real_bh, :real_bw, :] = zz[..., :real_bh, :real_bw, :]
+    if real_bw < bw:
+        out[..., :real_bh, real_bw:, 0] = zz[..., :real_bh,
+                                             real_bw - 1:real_bw, 0]
+    if real_bh < bh:
+        # every dummy row repeats the first: the copy chain through
+        # identical rows is a fixed point
+        src = out[..., real_bh - 1, :, 0].reshape(
+            *zz.shape[:-3], bw // h_samp, h_samp)[..., -1]
+        out[..., real_bh:, :, 0] = \
+            src.repeat_interleave(h_samp, -1).unsqueeze(-2)
+    return out
+
+
+def add_dummy_blocks_t(zz: torch.Tensor, real_bw: int, real_bh: int,
+                       bw: int, bh: int, h_samp: int, v_samp: int
+                       ) -> torch.Tensor:
+    """(64, real_bh*real_bw) zigzag coefficients of one plane -> (64,
+    bh*bw) with the iMCU dummy blocks of add_dummy_blocks."""
+    z = zz.reshape(64, real_bh, real_bw).permute(1, 2, 0)
+    z = torch.nn.functional.pad(z, (0, 0, 0, bw - real_bw, 0, bh - real_bh))
+    return add_dummy_blocks(z, real_bw, real_bh, h_samp, v_samp) \
+        .permute(2, 0, 1).reshape(64, bh * bw)

@@ -16,22 +16,12 @@ chunk of one candidate's symbols, not a hundred candidates':
     schedule from the native mj_ac_refine_schedule on the host, a
     serial O(blocks) loop that the JAX package runs as a lax.scan; hist
     and pack);
-  - DC first: dc_hist here and bitpack._pack_dc_first;
+  - DC first: ops/symbols.dc_hist and bitpack._pack_dc_first;
   - stuffed_size: the byte length of each finished segment.
 """
 from __future__ import annotations
 
 import torch
-
-from .symbols import nbits
-
-
-def dc_hist(deltas: torch.Tensor) -> torch.Tensor:
-    """(S, m) DC differences -> (S, 256) int64 size-category counts."""
-    size = nbits(deltas.abs()).long()
-    hist = torch.zeros((deltas.shape[0], 256), dtype=torch.int64,
-                       device=deltas.device)
-    return hist.scatter_add_(1, size, torch.ones_like(size))
 
 
 def stuffed_size(words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

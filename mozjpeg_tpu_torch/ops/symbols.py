@@ -1,11 +1,18 @@
-"""Progressive AC-first symbol statistics in coefficient-major layout.
+"""Symbol statistics of whole coefficient planes.
 
-Port of mozjpeg_tpu/ops/symbols.py (ac_first_histogram_t and
-_ac_first_hist_seg): the exact phuff AC-first gather counts of mozjpeg
-jcphuff.c encode_mcu_AC_first, including the cross-block EOB runs, the
-0x7FFF forced flush and the flush at restart boundaries, as whole-tensor
-ops. Every count is an exact integer
-bincount; a batch axis computes one histogram per image at once.
+Port of mozjpeg_tpu/ops/symbols.py:
+  - ac_first_histogram_t and _ac_first_hist_seg: the exact phuff
+    AC-first gather counts of mozjpeg jcphuff.c encode_mcu_AC_first in
+    coefficient-major layout, including the cross-block EOB runs, the
+    0x7FFF forced flush and the flush at restart boundaries;
+  - ac_histogram, dc_histogram_interleaved and dc_histogram_restart: the
+    sequential scan's dc_counts / ac_counts of the reference's gather
+    pass (jchuff.c:886-944) in block-major layout, which the sharded
+    encoders (parallel/) sum over their shards.
+All as whole-tensor ops; every count is an exact integer bincount, and a
+batch axis computes one histogram per image (or sums the images') at
+once. The AC-first counts at a point transform Al and the AC-refinement
+counts are ops/bitpack.py's AcFirst.hist and AcRefine.hist.
 """
 from __future__ import annotations
 
@@ -109,3 +116,54 @@ def ac_first_histograms_t(zz: torch.Tensor, batch: int, ri: int = 0,
     if n > nfull * ri:
         hist = hist + _ac_first_hist_seg(zb[:, :, nfull * ri:], Ss, Se)
     return hist.to(torch.int32)
+
+
+def dc_hist(deltas: torch.Tensor) -> torch.Tensor:
+    """(S, m) DC differences -> (S, 256) int64 size-category counts."""
+    size = nbits(deltas.abs()).long()
+    hist = torch.zeros((deltas.shape[0], 256), dtype=torch.int64,
+                       device=deltas.device)
+    return hist.scatter_add_(1, size, torch.ones_like(size))
+
+
+def ac_histogram(zz: torch.Tensor) -> torch.Tensor:
+    """(N, 64) zigzag blocks -> (256,) int32 sequential-scan AC counts:
+    per block, (run >> 4) ZRLs and ((run & 15) << 4 | nbits) before each
+    nonzero AC coefficient, and one EOB unless position 63 is nonzero."""
+    ac = zz[:, 1:].to(torch.int64)                     # (N, 63)
+    nz = ac != 0
+    pos = torch.arange(1, 64, device=zz.device)[None, :]
+    prev_incl = torch.where(nz, pos, 0).cummax(1).values
+    prev_excl = torch.cat([torch.zeros_like(prev_incl[:, :1]),
+                           prev_incl[:, :-1]], 1)
+    run = pos - prev_excl - 1                          # zeros before pos
+    sym = ((run & 15) << 4) | nbits(ac.abs())
+    hist = torch.bincount(sym[nz], minlength=256)
+    hist[0xF0] += torch.where(nz, run >> 4, 0).sum()
+    hist[0x00] += (ac[:, -1] == 0).sum()
+    return hist.to(torch.int32)
+
+
+def dc_histogram_restart(plane: torch.Tensor, h: int, v: int, mcus_x: int,
+                         mcus_y: int, r: int, Al: int = 0) -> torch.Tensor:
+    """DC size-category counts in interleaved-MCU order with the
+    predictor reset every r MCUs (jchuff.c emit_restart); Al > 0 is the
+    point transform of a progressive DC-first scan (arithmetic shift).
+    plane: (..., bh_pad, bw_pad, 64) zigzag coefficients; a leading axis
+    sums the images' counts, each image with its own predictor chain.
+    -> (256,) int32."""
+    dc = plane[..., 0].to(torch.int64) >> Al
+    m = dc.reshape(-1, mcus_y, v, mcus_x, h)
+    seq = m.permute(0, 1, 3, 2, 4).reshape(m.shape[0], -1)
+    prev = torch.cat([torch.zeros_like(seq[:, :1]), seq[:, :-1]], 1)
+    idx = torch.arange(seq.shape[1], device=seq.device)[None, :]
+    prev = torch.where(idx % (r * h * v) == 0, 0, prev)
+    return dc_hist(seq - prev).sum(0).to(torch.int32)
+
+
+def dc_histogram_interleaved(plane: torch.Tensor, h: int, v: int,
+                             mcus_x: int, mcus_y: int) -> torch.Tensor:
+    """dc_histogram_restart with one predictor chain over the whole
+    plane (no restart interval)."""
+    return dc_histogram_restart(plane, h, v, mcus_x, mcus_y,
+                                mcus_x * mcus_y)

@@ -100,10 +100,12 @@ def gen_optimal_tables(freqs: torch.Tensor, sizes: bool = False):
     si = (torch.empty((t, 256), dtype=torch.int32, device=dev)
           if sizes else None)
     if t:
-        rc = lib.mj_tablegen(
-            freqs.data_ptr(), t, bits.data_ptr(), vals.data_ptr(),
-            ok.data_ptr(), si.data_ptr() if sizes else None,
-            torch.cuda.current_stream(dev).cuda_stream)
+        # the launch goes to the current device: the tensors' card's
+        with torch.cuda.device(dev):
+            rc = lib.mj_tablegen(
+                freqs.data_ptr(), t, bits.data_ptr(), vals.data_ptr(),
+                ok.data_ptr(), si.data_ptr() if sizes else None,
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError("tablegen kernel launch failed: CUDA error %d"
                                % rc)

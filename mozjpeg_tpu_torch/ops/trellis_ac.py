@@ -126,10 +126,13 @@ def trellis_ac(raw, qtbl_zz, ltbl, rate_luts, lam, Ss: int, Se: int,
     new_band = torch.empty((64, n), dtype=torch.int32, device=raw.device)
     ei = torch.empty((8, n), dtype=torch.float32, device=raw.device)
     stream = torch.cuda.current_stream(raw.device).cuda_stream
-    rc = lib.mj_trellis_ac(
-        raw.data_ptr(), qtbl_zz.data_ptr(), ltbl.data_ptr(),
-        rate_luts.data_ptr(), lam.data_ptr(), new_band.data_ptr(),
-        ei.data_ptr(), n, n_img, Ss, Se, INSTANCES[(kmax, maxq)], stream)
+    # the launch goes to the current device: the tensors' card's
+    with torch.cuda.device(raw.device):
+        rc = lib.mj_trellis_ac(
+            raw.data_ptr(), qtbl_zz.data_ptr(), ltbl.data_ptr(),
+            rate_luts.data_ptr(), lam.data_ptr(), new_band.data_ptr(),
+            ei.data_ptr(), n, n_img, Ss, Se, INSTANCES[(kmax, maxq)],
+            stream)
     if rc != 0:
         raise RuntimeError("trellis_ac kernel launch failed: CUDA error %d"
                            % rc)

@@ -127,19 +127,3 @@ def test_images_over_the_batch_limit_encode_like_jax(monkeypatch,
     assert tenc._over_batch_limit(imgs[0])
     assert not tenc._over_batch_limit(imgs[1])
     assert_byte_identical(imgs, quality=75)
-
-
-def test_row_sharding_across_gpus_raises(monkeypatch):
-    """What the JAX package row-shards (an RGB image over the batch limit
-    in the rows profile, two or more devices) stays item 9 on two GPUs;
-    the same image and config on the CPU take the per-image route."""
-    import torch
-    monkeypatch.setenv("MJ_BATCH_MAX_MP", "0.002")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    cfg = mjt.EncoderConfig(quality=75, restart_in_rows=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mjt.encode_many([IMAGES[0]], cfg, device="cuda")
-    monkeypatch.setenv("MJ_HOST_ENGINE", "0")
-    out = mjt.encode_many([IMAGES[0]], cfg, device="cpu")
-    assert out[0][:2] == b"\xff\xd8" and out[0][-2:] == b"\xff\xd9"
