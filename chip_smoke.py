@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # about two to four minutes
+    python3 chip_smoke.py            # about eleven minutes
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit (nvidia-smi);
@@ -195,18 +195,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      cuda:0 (tests/torch_multihost_worker.py) running
      encode_row_sharded_multihost and _scanopt_multihost, each equal to
      the one-process bytes;
- 16. the script's time, the kernels line (both instantiations of the AC
+ 16. the port on its own and its two tools: a copy of mozjpeg_tpu_torch/
+     (without _build/) in a temp dir, run by
+     tests/torch_standalone_worker.py in a child whose sys.path holds
+     only the copy and the interpreter's own paths, the JAX package not
+     findable, an audit hook failing any open, listdir, scandir, dlopen
+     or Popen naming a path under the checkout's mozjpeg_tpu/: it builds
+     the host library and both CUDA kernels from the copy (build seconds
+     logged) and encodes a 768x512 photo on the card, byte-equal to this
+     process, with 3 trellis_ac and 1 tablegen launches; the port's
+     tjbench on a 4032x3024 photo at q95 4:2:0, plain and -progressive
+     -optimize (compress and decompress MP/s, no kernel launch), and
+     -tile at 768x512 for 4:4:4 and gray (every tile size exact, the
+     JPEG's size equal to the same call without -tile on the CPU); the
+     port's rd_collect over that photo and phase 4's sixteen 768x512
+     ones at -q 50,75,95 -average -plot (3 trellis_ac and 1 tablegen
+     launches an encode), its 768x512 rows equal to the CPU's, every
+     launch of its first (4032x3024) encode against the plain versions;
+ 17. the script's time, the kernels line (both instantiations of the AC
      kernel and the tablegen kernel), then {"ok": true, "device": ...} as
      the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
 phase 8, phase 11's 12-bit main path, each of phase 12's calls, each of
-phase 14's encode runs, each of phase 15's row-sharded calls) and read
-just after it; the kernels line carries phase 4's count of the <10,
-1023> instantiation with phase 12's, phase 14's and phase 15's counts
-beside it, and phase 11's of the <14, 16383> one with phase 14's, and
-phase 4's count of tablegen with phase 13's per device-search group and
-phase 14's beside it. It needs no network and imports no JAX.
+phase 14's encode runs, each of phase 15's row-sharded calls, each of
+phase 16's tool runs) and read just after it; the kernels line carries
+phase 4's count of the <10, 1023> instantiation with phase 12's, phase
+14's, phase 15's and phase 16's rd_collect counts beside it, and phase
+11's of the <14, 16383> one with phase 14's, and phase 4's count of
+tablegen with phase 13's per device-search group, phase 14's and phase
+16's beside it. It needs no network and imports no JAX.
 """
 import contextlib
 import io
@@ -1279,6 +1297,13 @@ def precision_phase(kodak8, jpegs8, dev, compare):
             "dense_bound_ms": d_bound}
 
 
+def write_ppm(path, img):
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h) + img.tobytes())
+    return path
+
+
 def write_png(path, img):
     """An 8-bit RGB PNG, every row with filter 0, IDAT at zlib level 1."""
     def chunk(tag, body):
@@ -1337,8 +1362,7 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     d = tmp.name
     ppm_path, png_path = os.path.join(d, "in.ppm"), os.path.join(d, "in.png")
-    with open(ppm_path, "wb") as f:
-        f.write(b"P6\n%d %d\n255\n" % (w, h) + big.tobytes())
+    write_ppm(ppm_path, big)
     write_png(png_path, big)
     launches = {}
     max_err = 0.0
@@ -2440,6 +2464,182 @@ def multi_device(kodak, dev, smi, compare, h=6144, w=8192):
     return launches, err
 
 
+# phase 16: the port from a copy of its package with the JAX package out of
+# reach, then its tjbench and rd_collect on the card
+def run_tool(main, argv, device):
+    """main(argv, device=device) of a port tool, synchronised -> (its
+    standard output, its standard error); fails unless it returns 0."""
+    import torch
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv, device=device)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit("%s %s exited %d" % (main.__module__, argv, rc))
+    return out.getvalue(), err.getvalue()
+
+
+def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
+    """Phase 16: (1) a copy of mozjpeg_tpu_torch/ (without _build/) run by
+    tests/torch_standalone_worker.py in a child whose sys.path holds the
+    copy and the interpreter's own paths only, under an audit hook on
+    every path under the checkout's mozjpeg_tpu/: it builds the host
+    library and both kernels from the copy and encodes kodak[0] on the
+    card, byte-equal to this process; (2) the port's tjbench on an h x w
+    photo at q95 4:2:0, plain and -progressive -optimize, and -tile at
+    768x512 for 4:4:4 and gray, every tile exact and the JPEG's size equal
+    to the same call without -tile on the CPU; (3) the port's rd_collect
+    over the h x w photo and phase 4's sixteen 768x512 ones at
+    -q 50,75,95 -average -plot, the 768x512 rows equal to the CPU's and
+    every kernel launch of its first (h x w) encode against the plain
+    versions. -> (the <10, 1023> and tablegen launches of its runs, the
+    largest difference of each kernel from its plain version)."""
+    import importlib.util
+    import torch
+    import mozjpeg_tpu_torch as mjt
+    from mozjpeg_tpu_torch.cli import rd_collect, tjbench
+    from mozjpeg_tpu_torch.ops import tablegen as tg
+    from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_16_")
+    d = tmp.name
+
+    def counts_from_0():
+        torch.cuda.synchronize()
+        tac.reset_launches()
+        tg.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return (tac.trellis_ac.launches_by_kmax[10],
+                tac.trellis_ac.launches_by_kmax[14], tg.launches)
+
+    # 1. the port from a copy of its package
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_standalone_worker",
+        os.path.join(repo, "tests", "torch_standalone_worker.py"))
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    copy_dir = os.path.join(d, "copy")
+    os.makedirs(copy_dir)
+    rc, out, res = worker.run(repo, copy_dir, "cuda", [kodak[0]],
+                              timeout=600)
+    if rc != 0 or res is None:
+        raise SystemExit("the standalone copy failed (exit %d):\n%s"
+                         % (rc, out[-4000:]))
+    want = mjt.encode(kodak[0], mjt.EncoderConfig(quality=75), device=dev)
+    ok = (res["encode"] == [want] and not res["violations"]
+          and res["launches"] == {"trellis_ac": 3, "tablegen": 1})
+    log("phase 16 standalone copy (sys.path: the copy and the "
+        "interpreter's own; audit hook on the checkout's JAX package): "
+        "built %s from the copy in %.1f s, first encode %.1f s, encode() "
+        "of a 768x512 photo %.3f s with trellis_ac %d, tablegen %d "
+        "launches, audit violations %d, bytes equal to this process=%s "
+        "(%.1f s)"
+        % (", ".join(res["built"]), res["build_s"], res["warm_s"],
+           res["encode_s"],
+           res["launches"]["trellis_ac"], res["launches"]["tablegen"],
+           len(res["violations"]), res["encode"] == [want],
+           time.perf_counter() - t0))
+    if not ok:
+        raise SystemExit("the standalone copy differs from the checkout's "
+                         "port, reached the JAX package or missed a kernel")
+
+    # 2. tjbench: 12 MP throughput, then tiles at 768x512
+    big = photo(h, w, 1212)
+    big_path = write_ppm(os.path.join(d, "big.ppm"), big)
+    paths = [write_ppm(os.path.join(d, "kodak%02d.ppm" % i), im)
+             for i, im in enumerate(kodak)]
+    for flags in ([], ["-progressive", "-optimize"]):
+        t0 = time.perf_counter()
+        counts_from_0()
+        res = json.loads(run_tool(tjbench.main, [
+            big_path, "95", "-subsamp", "420", "-reps", "3", "-warmup", "1",
+            "-json"] + flags, dev)[0])
+        n = counts()
+        log("phase 16 tjbench %dx%d q95 4:2:0%s on %s: compress %.3f MP/s, "
+            "decompress %.3f MP/s (3 reps after 1), %d bytes; launches "
+            "trellis_ac %d, tablegen %d (%.1f s)"
+            % (w, h, "".join(" " + f for f in flags), smi,
+               res["compress_mps"], res["decompress_mps"], res["jpeg_bytes"],
+               n[0] + n[1], n[2], time.perf_counter() - t0))
+        if n != (0, 0, 0):
+            raise SystemExit("tjbench launched a kernel: TurboJPEG's "
+                             "defaults have no trellis")
+    for sub in ("444", "gray"):
+        t0 = time.perf_counter()
+        argv = [paths[0], "95", "-subsamp", sub, "-reps", "1", "-warmup",
+                "0", "-json"]
+        counts_from_0()
+        card = json.loads(run_tool(tjbench.main, argv + ["-tile"], dev)[0])
+        n = counts()
+        cpu = json.loads(run_tool(tjbench.main, argv, "cpu")[0])
+        tiles = {k: v for k, v in card.items() if k.startswith("tile_")}
+        ok = (len(tiles) == len(tjbench.tile_sizes(sub))
+              and all(v["exact"] for v in tiles.values())
+              and (card["jpeg_bytes"], card["ratio"])
+              == (cpu["jpeg_bytes"], cpu["ratio"]) and n == (0, 0, 0))
+        log("phase 16 tjbench -tile 768x512 q95 %s on %s: %s; jpeg_bytes "
+            "%d (cpu %d); launches %d (%.1f s)"
+            % (sub, smi, json.dumps(tiles), card["jpeg_bytes"],
+               cpu["jpeg_bytes"], sum(n), time.perf_counter() - t0))
+        if not ok:
+            raise SystemExit("tjbench -tile: a tile is not exact, the JPEG "
+                             "differs from the CPU's or a kernel launched")
+
+    # 3. rd_collect: the 768x512 rows on the CPU, then the card's run with
+    # the 12 MP photo first, its rows kept before -average folds them
+    t0 = time.perf_counter()
+    quals = "50,75,95"
+    cpu_rows = json.loads(run_tool(rd_collect.main, paths + [
+        "-q", quals, "-json"], "cpu")[0])
+    cpu_s = time.perf_counter() - t0
+    folded = []
+    average_rows = rd_collect.average_rows
+
+    def keep(rows):
+        folded.extend(rows)
+        return average_rows(rows)
+    svg = os.path.join(d, "rd.svg")
+    rec = {}
+    t0 = time.perf_counter()
+    counts_from_0()
+    rd_collect.average_rows = keep
+    try:
+        with recording(rec):
+            avg = json.loads(run_tool(rd_collect.main, [big_path] + paths + [
+                "-q", quals, "-average", "-plot", svg, "-json"], dev)[0])
+        n = counts()
+    finally:
+        rd_collect.average_rows = average_rows
+    card_s = time.perf_counter() - t0
+    encodes = 3 * (1 + len(paths))
+    rows_k = [r for r in folded if r["image"] != big_path]
+    ok = (n == (3 * encodes, 0, encodes) and rows_k == cpu_rows
+          and len(avg) == 3 and os.path.getsize(svg) > 0)
+    log("phase 16 rd_collect -q %s -average -plot over a %dx%d photo and "
+        "%d 768x512 ones on %s: %d encodes in %.1f s (the CPU's 768x512 "
+        "rows %.1f s), launches trellis_ac<10, 1023> %d, tablegen %d; the "
+        "768x512 rows equal to the CPU's=%s; averages %s; %dx%d rows %s"
+        % (quals, w, h, len(paths), smi, encodes, card_s, cpu_s, n[0], n[2],
+           rows_k == cpu_rows, json.dumps(avg),
+           w, h, json.dumps([r for r in folded if r["image"] == big_path])))
+    if not ok:
+        raise SystemExit("rd_collect on the card: rows differ from the "
+                         "CPU's, or not 3 trellis_ac and 1 tablegen "
+                         "launches an encode")
+    err = max(compare(args, "phase 16 rd_collect %dx%d q50 launch %d"
+                      % (w, h, i))
+              for i, args in enumerate(rec["trellis_ac"][:3]))
+    tg_err = tablegen_vs_plain(rec["tablegen"][0],
+                               "phase 16 rd_collect %dx%d q50" % (w, h))
+    tmp.cleanup()
+    log("phase 16: %.1f s" % (time.perf_counter() - t_phase))
+    return {"<10>": n[0], "tablegen": n[2]}, err, tg_err
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2692,7 +2892,14 @@ def main():
     l15, err15 = multi_device(kodak, dev, smi, compare)
     max_err = max(max_err, err15)
 
-    # ---- 16. result lines ----
+    # ---- 16. the standalone copy, tjbench and rd_collect ----
+    l16, err16, tg_err16 = standalone_and_tools(kodak, dev, smi, compare)
+    max_err = max(max_err, err16)
+    k_tg["launches_phase16"] = l16["tablegen"]
+    k_tg["max_abs_err"] = max(k_tg["max_abs_err"], float(tg_err16))
+    k_tg["exact"] = k_tg["max_abs_err"] == 0
+
+    # ---- 17. result lines ----
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -2703,7 +2910,8 @@ def main():
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "dense_ms": d_ms, "dense_plain_ms": dp_ms,
         "dense_bound_ms": d_bound, "launches_phase12": l12,
-        "launches_phase14": l14["<10>"], "launches_phase15": l15},
+        "launches_phase14": l14["<10>"], "launches_phase15": l15,
+        "launches_phase16": l16["<10>"]},
         k12, k_tg]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

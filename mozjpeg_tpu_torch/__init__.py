@@ -4,8 +4,8 @@ Byte-identical to mozjpeg_tpu for the encode configurations it carries
 (see codec/encoder.py) and pixel-identical for the streams it decodes (see
 codec/decoder.py); it imports neither jax nor mozjpeg_tpu. The AC trellis
 runs as a hand-written CUDA kernel (csrc/trellis_ac.cu); the rest of the
-device work is PyTorch, and the host work is the shared C++ engine built
-into the port's own library.
+device work is PyTorch, and the host work is the port's own copy of the
+C++ engine (native/*.cpp) built into its own library.
 
     import mozjpeg_tpu_torch as mjt
     jpegs = mjt.encode_many(images, mjt.EncoderConfig(quality=75))

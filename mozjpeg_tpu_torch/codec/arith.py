@@ -1,7 +1,7 @@
 """Arithmetic-coded scans, encode and decode.
 
 Port of mozjpeg_tpu/codec/arith.py: Python glue over the native QM coder
-(mozjpeg_tpu/native/arith.cpp, built into the port's library). The
+(native/arith.cpp, built into the port's library). The
 encoder's conditioning is mozjpeg's default, L = 0 and U = 1 for DC and
 Kx = 5 for AC (jcparam.c:414-419), written in every scan's DAC marker;
 the decoder takes each scan's conditioning from the DAC segments seen

@@ -3,7 +3,7 @@ IDCT, upsampling and colour conversion on a device.
 
 Port of mozjpeg_tpu/codec/decoder.py, pixel-identical to the JAX
 package's decode entry points (whose outputs are pinned to djpeg). The
-host half is the shared C++ entropy decoders (entropy.cpp for Huffman,
+host half is the port's C++ entropy decoders (entropy.cpp for Huffman,
 arith.cpp for arithmetic coding through codec/arith.py, in the port's own
 library); the pixel half is PyTorch on the device the caller names:
 
@@ -40,7 +40,7 @@ library); the pixel half is PyTorch on the device the caller names:
   decode_raw_planes
                jpeg_read_raw_data (jpegyuv);
   quantize_colors, read_color_map, quantize_to_map
-               djpeg -colors and -map: the shared C++ quantizers
+               djpeg -colors and -map: the port's C++ quantizers
                (quant.cpp) on the host.
 
 The slice is Huffman or arithmetic-coded, sequential and progressive

@@ -2,7 +2,7 @@
 on the host's cores.
 
 Port of mozjpeg_tpu/codec/host_engine.py: native prep, islow FDCT,
-deringing and the trellis (mozjpeg_tpu/native/hostenc.cpp, threaded over
+deringing and the trellis (native/hostenc.cpp, threaded over
 block rows, built into the port's library), the arithmetic trellis with
 its adaptive coder context (native/arith.cpp), then the port's host
 entropy stage (encoder.entropy_image). Byte-identical to the device

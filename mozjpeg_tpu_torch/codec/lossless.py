@@ -1,7 +1,7 @@
 """Lossless JPEG (process 14, SOF3): encode and decode on the host.
 
 Port of mozjpeg_tpu/codec/lossless.py (encode_lossless, decode_lossless),
-over the shared C++ coder (mozjpeg_tpu/native/lossless.cpp, built into
+over the port's C++ coder (native/lossless.cpp, built into
 the port's own library): predictors 1-7, a point transform, restart
 intervals, 8 to 16-bit samples, gray or RGB (three 1x1 components that
 stay RGB, jcparam.c jpeg_enable_lossless and the lossless branch of

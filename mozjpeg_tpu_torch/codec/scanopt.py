@@ -2,7 +2,7 @@
 
 Port of mozjpeg_tpu/codec/scanopt.py. With Huffman coding the whole
 candidate sweep, greedy selection and stitching run in C++
-(mozjpeg_tpu/native/scansearch.cpp mj_scan_search, GIL released), each
+(native/scansearch.cpp mj_scan_search, GIL released), each
 candidate scan with its own restart interval; Python writes the frame
 header around the stitched scans (encode_optimize_scans_native). With
 the arithmetic coder, which the native search does not carry, or with

@@ -3,7 +3,7 @@ native engine.
 
 Port of mozjpeg_tpu/entropy/encode.py (ScanGeometry, encode_scan,
 gen_optimal_table): Python picks the scan's geometry and tables, and the
-shared C++ sources (mozjpeg_tpu/native/entropy.cpp mj_encode_seq,
+port's C++ sources (native/entropy.cpp mj_encode_seq,
 mj_encode_{dc,ac}_{first,refine} and mj_gen_optimal_table, the Annex-K.2
 code-length assignment with libjpeg's tie-breaking) built into the
 port's own library gather the symbol counts or emit the scan.

@@ -22,8 +22,9 @@ mj_lossless_encode, mj_lossless_decode), the host decode render
 (mj_host_render in hostenc.cpp, mj_post_ycc in post.cpp) and the host
 halves of the transfer codecs (mj_sparse_count and mj_sparse_pack in
 post.cpp, mj_sparse_expand_flat and mj_transport_decode in entropy.cpp,
-mj_plane_pack and mj_plane_expand in planepack.cpp); see build.py for
-the sources.
+mj_plane_pack and mj_plane_expand in planepack.cpp). The sources are
+the port's own copy, taken from mozjpeg_tpu/native at commit 0d0dbf6,
+beside this module; see build.py.
 """
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ _LOCK = threading.Lock()
 
 
 def lib():
-    """The loaded library, compiled from the shared sources if stale."""
+    """The loaded library, compiled from the port's own copy of the
+    sources (beside this module) if stale."""
     global _LIB
     with _LOCK:
         if _LIB is None:

@@ -1,9 +1,10 @@
 """Build recipe for the port's native host library.
 
-The port does not fork the C++ host engine: it compiles the JAX package's
-sources where they stay (mozjpeg_tpu/native/*.cpp, read as files, never
-imported) into a library of its own under mozjpeg_tpu_torch/_build/.
-Only the sources the encode and decode paths call are built:
+The port keeps its own copy of the C++ host engine: the .cpp files beside
+this module, taken byte for byte from the JAX package's mozjpeg_tpu/native
+at commit 0d0dbf6, compile into a library of the port's own under
+mozjpeg_tpu_torch/_build/. Nothing outside the port's package is read.
+The sources:
 
   entropy.cpp     mj_gen_optimal_table, the scan encoders and decoders,
                   and the transfer codecs' host halves (mj_sparse_expand_flat,
@@ -39,7 +40,7 @@ import subprocess
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_DIR = os.path.join(os.path.dirname(PKG_DIR), "mozjpeg_tpu", "native")
+SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 SOURCES = ("entropy.cpp", "scansearch.cpp", "prep.cpp", "hostenc.cpp",

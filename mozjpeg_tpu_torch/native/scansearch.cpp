@@ -1,0 +1,482 @@
+// Whole-image jpegrescan scan search in one native call.
+//
+// The Python orchestration of the search (codec/scanopt.py) costs ~0.4 ms
+// of interpreter time per candidate — ~28 ms per image across the 64-scan
+// script — and holds the GIL, so batched encodes stopped scaling across
+// host threads. This runs the complete search — candidate gather, optimal
+// table generation, emission, the greedy selection state machine with its
+// skip-ahead early exits, and the display-order stitch — as one
+// GIL-releasing call, reusing the byte-exact encoders in entropy.cpp.
+//
+// Semantics mirror /root/reference/jcmaster.c:773-962 (select_scans),
+// jcparam.c:734-852 (jpeg_search_progression) and are kept in lockstep
+// with codec/scanopt.py (tests/test_scansearch_native.py pins parity).
+
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+struct CompPlane {
+  const int16_t* coef;
+  int32_t bw, bh, stride;
+  int32_t h, v;
+  int32_t dc_tbl, ac_tbl;
+};
+
+extern "C" {
+long mj_encode_dc_first(const CompPlane*, int, int, int, int, int,
+                        const uint32_t*, const uint8_t*, uint8_t*, long,
+                        int64_t*, int);
+long mj_encode_ac_first(const CompPlane*, int, int, int, int,
+                        const uint32_t*, const uint8_t*, uint8_t*, long,
+                        int64_t*, int);
+long mj_encode_ac_refine(const CompPlane*, int, int, int, int,
+                         const uint32_t*, const uint8_t*, uint8_t*, long,
+                         int64_t*, int);
+long mj_gen_optimal_table(int64_t*, uint8_t*, uint8_t*);
+}
+
+namespace {
+
+struct SScan {
+  int comps[3];
+  int nc;
+  int Ss, Se, Ah, Al;
+};
+
+constexpr int FREQ_SPLITS[5] = {2, 8, 5, 12, 18};
+constexpr int AL_MAX_LUMA = 3;
+constexpr int AL_MAX_CHROMA = 2;
+
+static int build_script(int ncomps, int dc_mode, SScan* s) {
+  // mirrors codec/scans.py search_progression
+  int n = 0;
+  auto one = [&](int ci, int Ss, int Se, int Ah, int Al) {
+    s[n].comps[0] = ci; s[n].nc = 1;
+    s[n].Ss = Ss; s[n].Se = Se; s[n].Ah = Ah; s[n].Al = Al; n++;
+  };
+  if (dc_mode == 0) {
+    for (int i = 0; i < ncomps; i++) s[n].comps[i] = i;
+    s[n].nc = ncomps; s[n].Ss = 0; s[n].Se = 0; s[n].Ah = 0; s[n].Al = 0;
+    n++;
+  } else {
+    one(0, 0, 0, 0, 0);
+  }
+  one(0, 1, 8, 0, 0); one(0, 9, 63, 0, 0);
+  for (int Al = 0; Al < AL_MAX_LUMA; Al++) {
+    one(0, 1, 63, Al + 1, Al);
+    one(0, 1, 8, 0, Al + 1); one(0, 9, 63, 0, Al + 1);
+  }
+  one(0, 1, 63, 0, 0);
+  for (int f : FREQ_SPLITS) { one(0, 1, f, 0, 0); one(0, f + 1, 63, 0, 0); }
+  if (ncomps == 3) {
+    s[n].comps[0] = 1; s[n].comps[1] = 2; s[n].nc = 2;
+    s[n].Ss = 0; s[n].Se = 0; s[n].Ah = 0; s[n].Al = 0; n++;
+    one(1, 0, 0, 0, 0); one(2, 0, 0, 0, 0);
+    one(1, 1, 8, 0, 0); one(1, 9, 63, 0, 0);
+    one(2, 1, 8, 0, 0); one(2, 9, 63, 0, 0);
+    for (int Al = 0; Al < AL_MAX_CHROMA; Al++) {
+      one(1, 1, 63, Al + 1, Al); one(2, 1, 63, Al + 1, Al);
+      one(1, 1, 8, 0, Al + 1); one(1, 9, 63, 0, Al + 1);
+      one(2, 1, 8, 0, Al + 1); one(2, 9, 63, 0, Al + 1);
+    }
+    one(1, 1, 63, 0, 0); one(2, 1, 63, 0, 0);
+    for (int f : FREQ_SPLITS) {
+      one(1, 1, f, 0, 0); one(1, f + 1, 63, 0, 0);
+      one(2, 1, f, 0, 0); one(2, f + 1, 63, 0, 0);
+    }
+  }
+  return n;
+}
+
+// canonical codes from a (bits, vals) table (jpeg_make_c_derived_tbl)
+static void derive_codes(const uint8_t bits[17], const uint8_t* vals,
+                         uint32_t* co, uint8_t* si) {
+  memset(co, 0, 256 * sizeof(uint32_t));
+  memset(si, 0, 256);
+  uint32_t code = 0;
+  int k = 0;
+  for (int l = 1; l <= 16; l++) {
+    for (int i = 0; i < bits[l]; i++) {
+      int sym = vals[k++];
+      co[sym] = code++;
+      si[sym] = (uint8_t)l;
+    }
+    code <<= 1;
+  }
+}
+
+struct HuffSpec {
+  uint8_t bits[17];
+  uint8_t vals[256];
+  int nvals;
+  bool present = false;
+};
+
+}  // namespace
+
+struct SearchComp {
+  const int16_t* coef;
+  int32_t bw, bh, bw_pad, bh_pad, stride;
+  int32_t h, v;
+};
+
+extern "C" long mj_scan_search(
+    const SearchComp* comps, int ncomps, int mcus_x, int mcus_y,
+    int dc_mode, const int32_t* restarts,
+    uint8_t* out, long out_cap, int32_t* meta, int nthreads) {
+  SScan script[64];
+  const int nscans = build_script(ncomps, dc_mode, script);
+
+  // layout constants (codec/scanopt.py SearchLayout)
+  const int num_scans_luma = 1 + (3 * AL_MAX_LUMA + 2) + (2 * 5 + 1);  // 23
+  const int num_scans_chroma_dc = ncomps == 3 ? 3 : 0;
+  const int luma_split_start = 1 + 3 * AL_MAX_LUMA + 2;                // 12
+  const int chroma_split_start =
+      num_scans_luma + num_scans_chroma_dc + (6 * AL_MAX_CHROMA + 4);  // 42
+  const int num_scans = ncomps == 1 ? num_scans_luma : 64;
+
+  std::vector<std::vector<uint8_t>> bufs(num_scans);
+  long sizes[64] = {0};
+  SScan used[64];
+  int last_dri = 0;
+
+  long maxblocks = 0;
+  for (int ci = 0; ci < ncomps; ci++) {
+    long nb = (long)comps[ci].bw_pad * comps[ci].bh_pad;
+    if (nb > maxblocks) maxblocks = nb;
+  }
+  long total_pad_blocks = 0;
+  for (int ci = 0; ci < ncomps; ci++)
+    total_pad_blocks += (long)comps[ci].bw_pad * comps[ci].bh_pad;
+  const long ent_cap = total_pad_blocks * 192 + 65536;
+  std::vector<uint8_t> ent(ent_cap);
+
+  auto encode_candidate = [&](int sn, const SScan& sc,
+                              std::vector<uint8_t>& ent) -> long {
+    const int r = restarts[sn];
+    CompPlane cp[3];
+    int smx, smy;
+    if (sc.nc == 1) {
+      const SearchComp& g = comps[sc.comps[0]];
+      int slot = sc.comps[0] == 0 ? 0 : 1;
+      cp[0] = {g.coef, g.bw, g.bh, g.stride, 1, 1, slot, slot};
+      smx = g.bw; smy = g.bh;
+    } else {
+      for (int i = 0; i < sc.nc; i++) {
+        const SearchComp& g = comps[sc.comps[i]];
+        int slot = sc.comps[i] == 0 ? 0 : 1;
+        cp[i] = {g.coef, g.bw_pad, g.bh_pad, g.stride, g.h, g.v,
+                 slot, slot};
+      }
+      smx = mcus_x; smy = mcus_y;
+    }
+
+    // gather
+    int64_t dcc[2 * 257]; memset(dcc, 0, sizeof(dcc));
+    int64_t acc[2 * 257]; memset(acc, 0, sizeof(acc));
+    const bool is_dc = sc.Ss == 0;
+    const bool refine = sc.Ah != 0;
+    long rc = 0;
+    if (is_dc && !refine) {
+      rc = mj_encode_dc_first(cp, sc.nc, smx, smy, r, sc.Al, nullptr,
+                              nullptr, ent.data(), (long)ent.size(), dcc, 1);
+    } else if (!is_dc && !refine) {
+      rc = mj_encode_ac_first(cp, sc.Ss, sc.Se, sc.Al, r, nullptr, nullptr,
+                              ent.data(), (long)ent.size(), acc, 1);
+    } else if (!is_dc) {
+      rc = mj_encode_ac_refine(cp, sc.Ss, sc.Se, sc.Al, r, nullptr, nullptr,
+                               ent.data(), (long)ent.size(), acc, 1);
+    }
+    if (rc < 0) return -1;
+
+    // optimal tables per used slot
+    HuffSpec dct[2], act[2];
+    uint32_t dc_co[2 * 256]; uint8_t dc_si[2 * 256];
+    uint32_t ac_co[2 * 256]; uint8_t ac_si[2 * 256];
+    memset(dc_si, 0, sizeof(dc_si)); memset(ac_si, 0, sizeof(ac_si));
+    memset(dc_co, 0, sizeof(dc_co)); memset(ac_co, 0, sizeof(ac_co));
+    for (int i = 0; i < sc.nc; i++) {
+      int slot = sc.comps[i] == 0 ? 0 : 1;
+      if (is_dc && !refine && !dct[slot].present) {
+        bool any = false;
+        for (int s2 = 0; s2 < 257; s2++) any |= dcc[slot * 257 + s2] != 0;
+        if (any) {
+          int64_t f[257]; memcpy(f, dcc + slot * 257, sizeof(f));
+          long nv = mj_gen_optimal_table(f, dct[slot].bits, dct[slot].vals);
+          if (nv < 0) return -1;
+          dct[slot].nvals = (int)nv;
+          dct[slot].present = true;
+          derive_codes(dct[slot].bits, dct[slot].vals,
+                       dc_co + slot * 256, dc_si + slot * 256);
+        }
+      }
+      if (!is_dc && !act[slot].present) {
+        bool any = false;
+        for (int s2 = 0; s2 < 257; s2++) any |= acc[slot * 257 + s2] != 0;
+        if (any) {
+          int64_t f[257]; memcpy(f, acc + slot * 257, sizeof(f));
+          long nv = mj_gen_optimal_table(f, act[slot].bits, act[slot].vals);
+          if (nv < 0) return -1;
+          act[slot].nvals = (int)nv;
+          act[slot].present = true;
+          derive_codes(act[slot].bits, act[slot].vals,
+                       ac_co + slot * 256, ac_si + slot * 256);
+        }
+      }
+    }
+
+    // emit entropy data
+    long n = 0;
+    if (is_dc && !refine) {
+      n = mj_encode_dc_first(cp, sc.nc, smx, smy, r, sc.Al, dc_co, dc_si,
+                             ent.data(), (long)ent.size(), nullptr, 0);
+    } else if (!is_dc && !refine) {
+      n = mj_encode_ac_first(cp, sc.Ss, sc.Se, sc.Al, r, ac_co, ac_si,
+                             ent.data(), (long)ent.size(), nullptr, 0);
+    } else if (!is_dc) {
+      n = mj_encode_ac_refine(cp, sc.Ss, sc.Se, sc.Al, r, ac_co, ac_si,
+                              ent.data(), (long)ent.size(), nullptr, 0);
+    }
+    if (n < 0) return -1;
+
+    // candidate buffer: DHT (+DRI) + SOS + entropy (_scan_buffer layout)
+    std::vector<uint8_t>& b = bufs[sn];
+    b.clear();
+    auto byte = [&](int v) { b.push_back((uint8_t)v); };
+    // DHT: one marker holding the scan's tables (dht_multi; always
+    // emitted, possibly with empty payload — jcmarker emit_multi_dht)
+    {
+      std::vector<uint8_t> payload;
+      auto table = [&](int cls, int slot, const HuffSpec& t) {
+        payload.push_back((uint8_t)((cls << 4) | slot));
+        for (int l = 1; l <= 16; l++) payload.push_back(t.bits[l]);
+        payload.insert(payload.end(), t.vals, t.vals + t.nvals);
+      };
+      bool seen_d[2] = {false, false}, seen_a[2] = {false, false};
+      for (int i = 0; i < sc.nc; i++) {
+        int slot = sc.comps[i] == 0 ? 0 : 1;
+        if (is_dc && !refine && dct[slot].present && !seen_d[slot]) {
+          table(0, slot, dct[slot]); seen_d[slot] = true;
+        }
+        if (!is_dc && act[slot].present && !seen_a[slot]) {
+          table(1, slot, act[slot]); seen_a[slot] = true;
+        }
+      }
+      byte(0xFF); byte(0xC4);
+      int len = (int)payload.size() + 2;
+      byte(len >> 8); byte(len & 0xFF);
+      b.insert(b.end(), payload.begin(), payload.end());
+    }
+    if (r != last_dri) {
+      byte(0xFF); byte(0xDD); byte(0); byte(4);
+      byte(r >> 8); byte(r & 0xFF);
+      last_dri = r;
+    }
+    // SOS
+    byte(0xFF); byte(0xDA);
+    int slen = 2 + 1 + 2 * sc.nc + 3;   // len field + Ns + comps + Ss/Se/A
+    byte(slen >> 8); byte(slen & 0xFF);
+    byte(sc.nc);
+    for (int i = 0; i < sc.nc; i++) {
+      int slot = sc.comps[i] == 0 ? 0 : 1;
+      byte(sc.comps[i] + 1);
+      int td = (is_dc && !refine) ? slot : 0;
+      int ta = sc.Se ? slot : 0;
+      byte((td << 4) | ta);
+    }
+    byte(sc.Ss); byte(sc.Se); byte((sc.Ah << 4) | sc.Al);
+    b.insert(b.end(), ent.data(), ent.data() + n);
+    used[sn] = sc;
+    return (long)b.size();
+  };
+
+  // ---- speculative phase-parallel candidate encoding (r5) ----
+  // Candidates within a phase are independent given the Al selections;
+  // the greedy early-exits only decide which precomputed sizes get
+  // read. Parallel mode is gated on restart-free configs (the DRI
+  // marker emission depends on candidate ORDER via last_dri).
+  bool all_zero_rst = true;
+  for (int i = 0; i < num_scans; i++) all_zero_rst &= restarts[i] == 0;
+  const bool par = nthreads > 1 && all_zero_rst;
+  bool done[64] = {false};
+  std::atomic<long> enc_err{0};
+  auto precompute = [&](int lo, int hi, int al_override) {
+    std::atomic<int> next{lo};
+    auto worker = [&]() {
+      std::vector<uint8_t> scratch(ent_cap);
+      for (;;) {
+        int i = next.fetch_add(1);
+        if (i >= hi) break;
+        SScan sc = script[i];
+        if (al_override >= 0) sc.Al = al_override;
+        long sz = encode_candidate(i, sc, scratch);
+        if (sz < 0) enc_err.store(1);
+        sizes[i] = sz;
+        done[i] = true;
+      }
+    };
+    int nt = nthreads < hi - lo ? nthreads : hi - lo;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
+    worker();
+    for (auto& t : ts) t.join();
+  };
+  if (par) {
+    // Al ladders + DC candidates use the script's own Al
+    precompute(0, luma_split_start, -1);
+    if (num_scans > num_scans_luma)
+      precompute(num_scans_luma, chroma_split_start, -1);
+  }
+
+  // ---- greedy selection (scanopt._run_selection, transcribed) ----
+  int best_Al_luma = 0, best_Al_chroma = 0;
+  long best_cost = 0;
+  int best_split_luma = 0, best_split_chroma = 0;
+  bool interleave_chroma_dc = false;
+
+  int sn = 0;
+  while (sn < num_scans) {
+    if (par && sn == luma_split_start)
+      precompute(luma_split_start, num_scans_luma, best_Al_luma);
+    if (par && ncomps == 3 && sn == chroma_split_start)
+      precompute(chroma_split_start, num_scans, best_Al_chroma);
+    if (enc_err.load()) return -1;
+    SScan sc = script[sn];
+    if (sn >= luma_split_start && sn < num_scans_luma) sc.Al = best_Al_luma;
+    else if (ncomps == 3 && sn >= chroma_split_start) sc.Al = best_Al_chroma;
+    long sz;
+    if (done[sn]) {
+      sz = sizes[sn];
+    } else {
+      sz = encode_candidate(sn, sc, ent);
+    }
+    if (sz < 0) return -1;
+    sizes[sn] = sz;
+    int nxt = sn + 1;
+
+    if (1 < nxt && nxt <= luma_split_start) {
+      if ((nxt - 1) % 3 == 2) {
+        int Al = (nxt - 1) / 3;
+        long cost = sizes[nxt - 2] + sizes[nxt - 1];
+        for (int i = 0; i < Al; i++) cost += sizes[3 + 3 * i];
+        if (Al == 0 || cost < best_cost) {
+          best_cost = cost; best_Al_luma = Al;
+        } else {
+          sn = luma_split_start - 1;
+        }
+      }
+    } else if (luma_split_start < nxt && nxt <= num_scans_luma) {
+      if (nxt == luma_split_start + 1) {
+        best_split_luma = 0;
+        best_cost = sizes[nxt - 1];
+      } else if ((nxt - luma_split_start) % 2 == 1) {
+        int idx = (nxt - luma_split_start) >> 1;
+        long cost = sizes[nxt - 2] + sizes[nxt - 1];
+        if (cost < best_cost) { best_cost = cost; best_split_luma = idx; }
+        if ((idx == 2 && best_split_luma == 0)
+            || (idx == 3 && best_split_luma != 2)
+            || (idx == 4 && best_split_luma != 4))
+          sn = num_scans_luma - 1;
+      }
+    } else if (num_scans > num_scans_luma) {
+      int base = num_scans_luma;
+      if (nxt == num_scans_luma + num_scans_chroma_dc) {
+        interleave_chroma_dc =
+            sizes[base] <= sizes[base + 1] + sizes[base + 2];
+      } else if (num_scans_luma + num_scans_chroma_dc < nxt
+                 && nxt <= chroma_split_start) {
+        base = num_scans_luma + num_scans_chroma_dc;
+        if ((nxt - base) % 6 == 4) {
+          int Al = (nxt - base) / 6;
+          long cost = sizes[nxt - 4] + sizes[nxt - 3] + sizes[nxt - 2]
+              + sizes[nxt - 1];
+          for (int i = 0; i < Al; i++)
+            cost += sizes[base + 4 + 6 * i] + sizes[base + 5 + 6 * i];
+          if (Al == 0 || cost < best_cost) {
+            best_cost = cost; best_Al_chroma = Al;
+          } else {
+            sn = chroma_split_start - 1;
+          }
+        }
+      } else if (chroma_split_start < nxt && nxt <= num_scans) {
+        if (nxt == chroma_split_start + 2) {
+          best_split_chroma = 0;
+          best_cost = sizes[nxt - 2] + sizes[nxt - 1];
+        } else if ((nxt - chroma_split_start) % 4 == 2) {
+          int idx = (nxt - chroma_split_start) >> 2;
+          long cost = sizes[nxt - 4] + sizes[nxt - 3] + sizes[nxt - 2]
+              + sizes[nxt - 1];
+          if (cost < best_cost) { best_cost = cost; best_split_chroma = idx; }
+          if ((idx == 2 && best_split_chroma == 0)
+              || (idx == 3 && best_split_chroma != 2)
+              || (idx == 4 && best_split_chroma != 4))
+            sn = num_scans - 1;
+        }
+      }
+    }
+    sn++;
+  }
+
+  // ---- display order (scanopt.display_order, transcribed) ----
+  int order[40]; int nord = 0;
+  int min_Al = best_Al_luma < best_Al_chroma ? best_Al_luma : best_Al_chroma;
+  order[nord++] = 0;
+  if (ncomps == 3 && dc_mode != 0) {
+    int base = num_scans_luma;
+    if (interleave_chroma_dc && dc_mode != 1) order[nord++] = base;
+    else { order[nord++] = base + 1; order[nord++] = base + 2; }
+  }
+  if (best_split_luma == 0) order[nord++] = luma_split_start;
+  else {
+    order[nord++] = luma_split_start + 2 * (best_split_luma - 1) + 1;
+    order[nord++] = luma_split_start + 2 * (best_split_luma - 1) + 2;
+  }
+  for (int Al = best_Al_luma - 1; Al >= min_Al; Al--)
+    order[nord++] = 3 + 3 * Al;
+  if (ncomps == 3) {
+    if (best_split_chroma == 0) {
+      order[nord++] = chroma_split_start;
+      order[nord++] = chroma_split_start + 1;
+    } else {
+      int b0 = chroma_split_start + 4 * (best_split_chroma - 1);
+      order[nord++] = b0 + 2; order[nord++] = b0 + 3;
+      order[nord++] = b0 + 4; order[nord++] = b0 + 5;
+    }
+    int cbase = num_scans_luma + num_scans_chroma_dc;
+    for (int Al = best_Al_chroma - 1; Al >= min_Al; Al--) {
+      order[nord++] = cbase + 6 * Al + 4;
+      order[nord++] = cbase + 6 * Al + 5;
+    }
+  }
+  for (int Al = min_Al - 1; Al >= 0; Al--) {
+    order[nord++] = 3 + 3 * Al;
+    if (ncomps == 3) {
+      int cbase = num_scans_luma + num_scans_chroma_dc;
+      order[nord++] = cbase + 6 * Al + 4;
+      order[nord++] = cbase + 6 * Al + 5;
+    }
+  }
+
+  // ---- copy winners ----
+  long off = 0;
+  int m = 0;
+  meta[m++] = nord;
+  for (int i = 0; i < nord; i++) {
+    int idx = order[i];
+    const std::vector<uint8_t>& b = bufs[idx];
+    if (off + (long)b.size() > out_cap) return -1;
+    memcpy(out + off, b.data(), b.size());
+    const SScan& sc = used[idx];
+    meta[m++] = idx;
+    meta[m++] = sc.nc;
+    meta[m++] = sc.comps[0];
+    meta[m++] = sc.Ss; meta[m++] = sc.Se;
+    meta[m++] = sc.Ah; meta[m++] = sc.Al;
+    meta[m++] = (int32_t)b.size();
+    off += (long)b.size();
+  }
+  return off;
+}

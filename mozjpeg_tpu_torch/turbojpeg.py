@@ -161,7 +161,7 @@ class TJ:
         }
         self._scaling = (1, 1)
         self._crop = None
-        self._last_jpeg = None
+        self._last_jpeg = None      # (bytes, CoefImage) of transform's source
 
     def __enter__(self):
         return self
@@ -368,7 +368,12 @@ class TJ:
             optimize_scans=False, trellis_quant=False,
             overshoot_deringing=False)
         name = _XOP_NAME[op]
-        img = transcode.read_coefficients(jpeg)
+        # the last source's coefficients are kept, as tj3Transform reads
+        # its source once for all of a call's transforms (tjbench's tiles
+        # crop one JPEG many times); the transcode ops copy, never write
+        if self._last_jpeg is None or self._last_jpeg[0] != jpeg:
+            self._last_jpeg = (bytes(jpeg), transcode.read_coefficients(jpeg))
+        img = self._last_jpeg[1]
         if name != "none":
             img = transcode.TRANSFORMS[name](img)
         if options & TJXOPT_GRAY:

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import mozjpeg_tpu_torch as mjt
+from mozjpeg_tpu_torch.cli import rd_collect, tjbench
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mozjpeg_tpu_torch")
@@ -38,7 +39,8 @@ def test_import_leaves_jax_and_jax_package_unloaded():
             "mozjpeg_tpu_torch.ops.planepack, "
             "mozjpeg_tpu_torch.ops.transport, "
             "mozjpeg_tpu_torch.utils.xfer, "
-            "mozjpeg_tpu_torch.utils.attachment\n"
+            "mozjpeg_tpu_torch.utils.attachment, "
+            "mozjpeg_tpu_torch.cli.tjbench, mozjpeg_tpu_torch.cli.rd_collect\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'mozjpeg_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'mozjpeg_tpu.')))\n"
@@ -70,7 +72,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                 "ops/idct_scaled.py", "ops/trellis_ac.py", "utils/bmp.py",
                 "utils/gif.py", "utils/ppm.py", "utils/targa.py",
                 "ops/sparsepack.py", "ops/planepack.py", "ops/transport.py",
-                "utils/xfer.py", "utils/attachment.py"):
+                "utils/xfer.py", "utils/attachment.py", "cli/tjbench.py",
+                "cli/rd_collect.py"):
         assert os.path.join("mozjpeg_tpu_torch", rel) in scanned
     bad = []
     for path in _py_files():
@@ -108,6 +111,9 @@ _ENTRIES = {
         jpeg, 1, 2, device=device),
     "decode_rgb565": lambda jpeg, device: mjt.decode_rgb565(
         jpeg, device=device),
+    "tjbench": lambda jpeg, device: tjbench.main(["in.ppm"], device=device),
+    "rd_collect": lambda jpeg, device: rd_collect.main(["in.ppm"],
+                                                       device=device),
 }
 
 
@@ -122,7 +128,7 @@ def jpeg():
     *(pytest.param(e, d, id="%s-%s" % (e, d))
       for e in ("encode", "decode", "decode_many", "decode_grayscale",
                 "decode_cropped", "BufferedImage", "decode_scaled",
-                "decode_rgb565")
+                "decode_rgb565", "tjbench", "rd_collect")
       for d in (None, "cuda"))])
 def test_gpu_entry_raises_without_cuda(monkeypatch, jpeg, entry, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
