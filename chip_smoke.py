@@ -13,11 +13,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      exactly: on the inputs that one 768x512 group and the 1021x683 group
      give it, on a seeded tie-stress input and on bands (1, 8) and
      (9, 63), on an all-zero input, a fully dense one, ragged tiles with an
-     odd N (B = 3, n_img = 1,001) and N = 1; the card's lambda of both
+     odd N (B = 3, n_img = 1,001) and N = 1; the DC trellis kernel
+     (csrc/trellis_rows.cu) against its plain version, exactly, on both
+     groups' launches, a tie-stress input, 12-bit inputs that wrap int32
+     and clamp at 16383, the delta weight at v = 2 with an odd bh and a
+     2048-block row; the EOB-run DP kernel on seeded strips (all-zero
+     rows, runs past 16, BIG costs); the card's lambda of both
      groups against the CPU's and numpy's, exactly;
   4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
      photo-like images on the card, warm-up first, on the device-tablegen
-     route (3 trellis_ac and 1 tablegen launches a group); every output
+     route (3 trellis_ac, 3 trellis_dc and 1 tablegen launches a group, no
+     EOB-run DP); every output
      starts with SOI and ends with EOI, and the first and last image of
      each shape are byte-equal to the port's device="cpu" path;
   5. decode of the nineteen JPEGs of phase 4 on the card, warm-up first:
@@ -36,7 +42,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      in turns (same bytes), the kernel's time per group
      beside its plain version's and its bound, and the same on the dense
      input; each kernel time both with the card's queue held (device time
-     alone) and without (the host's launch gaps counted too);
+     alone) and without (the host's launch gaps counted too); the DC
+     trellis stage of one group (its 3 launches) with the kernel and with
+     the plain version in turns, the kernel's time held and with gaps,
+     the plain version's, the bound and the chain's steps, and
+     torch.profiler's device time, kernel count and top kernels of the
+     stage both ways and of the group's p1;
   7. the config matrix: for each configuration family of the batched
      encode surface (grayscale from 2-D planes and from RGB, RGB, CMYK
      and YCCK from seeded 4-channel images, device prep, smoothing, the
@@ -46,12 +57,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      SOI/EOI and the same bytes twice, and the card's bytes equal to the
      CPU path's on a 256x192 and a 131x97 crop; the trellis kernel
      against its plain version, exactly with `ei`, on the launches of the
-     grayscale, CMYK, use_scans_in_trellis and trellis_eob_opt groups;
+     grayscale, CMYK, use_scans_in_trellis and trellis_eob_opt groups,
+     and the row-scan kernels on their DC and EOB launches;
      encode_many median MP/s over 3 reps of the 19-image corpus for nine
      families beside the default's, with the stage times of one
-     8x768x512 group for the three slowest; the device time and kernel
-     count of the EOB-run DP, the device prep and the float DCT per group
-     (torch.profiler);
+     8x768x512 group for the three slowest, with the row-scan kernels'
+     launches of each timed family; the EOB-run DP of the trellis_eob_opt
+     group (3 launches) with the kernel and the plain version in turns,
+     held, with gaps and bound; the device time and kernel count of the
+     EOB-run DP (kernel and plain), the device prep and the float DCT per
+     group (torch.profiler);
   8. the per-image routes: serial encode() of a 768x512 and the 1021x683
      image on the card against encode(..., device="cpu") (the host
      engine), byte-equal, with the median of 5 warm calls each way; the
@@ -113,7 +128,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      PNG: the port's cjpeg, in-process on the card with -report and
      -verbose, on both files, equal to each other and to encode() of the
      image with the same configuration on the CPU (the host engine), its
-     SCAN trace lines equal to the CPU's; yuvjpeg on the image's I420
+     SCAN trace lines equal to the CPU's, 3 trellis_dc launches, every
+     trellis_dc launch of the checked calls exactly against the plain
+     version, and the DC stage of the 12 MP group with the kernel and the
+     plain version in turns; yuvjpeg on the image's I420
      planes (made on the card with rgb_to_ycc and downsample_h2v2) equal
      to encode() of the image at yuvjpeg's configuration on the CPU, and
      encode_raw_yuv of the planes at quality 75 equal to encode() of the
@@ -213,8 +231,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      launches an encode), its 768x512 rows equal to the CPU's, every
      launch of its first (4032x3024) encode against the plain versions;
  17. the script's time, the kernels line (both instantiations of the AC
-     kernel and the tablegen kernel), then {"ok": true, "device": ...} as
-     the last line.
+     kernel, the tablegen kernel, the DC trellis and the EOB-run DP), then
+     {"ok": true, "device": ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
 phase 8, phase 11's 12-bit main path, each of phase 12's calls, each of
@@ -224,7 +242,10 @@ phase 4's count of the <10, 1023> instantiation with phase 12's, phase
 14's, phase 15's and phase 16's rd_collect counts beside it, and phase
 11's of the <14, 16383> one with phase 14's, and phase 4's count of
 tablegen with phase 13's per device-search group, phase 14's and phase
-16's beside it. It needs no network and imports no JAX.
+16's beside it; trellis_dc carries phase 4's count and trellis_eob the
+count of phase 7's timed trellis_eob_opt runs (the path it lies on), each
+with the launches held against its plain version over the whole run. It
+needs no network and imports no JAX.
 """
 import contextlib
 import io
@@ -342,6 +363,117 @@ def trellis_bound(args):
     nc = nbits(qval).to(torch.int64)
     ops = torch.where(live, 3 * nj * nc + 2 * nj + 2 * nc, 0).sum()
     return nbytes, float(ops)
+
+
+DC_REPLACES = "mozjpeg_tpu/codec/trellis.py:89 (XLA, no pallas_call)"
+EOB_REPLACES = "mozjpeg_tpu/codec/trellis.py:319 (XLA, no pallas_call)"
+ROWS_SOURCE = "mozjpeg_tpu_torch/csrc/trellis_rows.cu"
+# per row-scan kernel: [largest difference from the plain version, the
+# launches held against it] over the whole run
+ROWS_CHECK = {"trellis_dc": [0.0, 0], "trellis_eob": [0.0, 0]}
+# the row-scan kernels' launches of each timed family of phases 7 and 8
+ROWS_LAUNCHES = {}
+
+
+def rows_vs_plain(kind, args, label):
+    """One launch of a row-scan kernel (ops/trellis_rows.py: "trellis_dc"
+    or "trellis_eob", the keys of trellis_all's record) against its plain
+    version on the card, exactly (its launch is not counted) -> the
+    largest difference."""
+    import torch
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
+    kernel, plain = {"trellis_dc": (trw.trellis_dc, trw.trellis_dc_plain),
+                     "trellis_eob": (trw.eob_dp, trw.eob_dp_plain)}[kind]
+    counts = trw.trellis_dc.launches, trw.eob_dp.launches
+    got = kernel(*args)
+    trw.trellis_dc.launches, trw.eob_dp.launches = counts
+    want = plain(*args)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    err = float((got.to(torch.int32) - want.to(torch.int32)).abs().max()) \
+        if got.numel() else 0.0
+    log("%s kernel vs plain [%s] %s: exact=%s max_abs_err=%g"
+        % (kind, label, "x".join(map(str, got.shape)), exact, err))
+    if not exact:
+        raise SystemExit("%s kernel disagrees with its plain version (%s)"
+                         % (kind, label))
+    ROWS_CHECK[kind][0] = max(ROWS_CHECK[kind][0], err)
+    ROWS_CHECK[kind][1] += 1
+    return err
+
+
+def check_rows(rec, label, first=None):
+    """Each recorded row-scan launch of a trellis_all record (the first
+    `first` of each kind) against its plain version."""
+    for kind in ("trellis_dc", "trellis_eob"):
+        for i, args in enumerate(rec.get(kind, [])[:first]):
+            rows_vs_plain(kind, args, "%s launch %d" % (label, i))
+
+
+def dc_bound(args):
+    """(bytes, f32 operations) of the DC trellis on these arguments: each
+    block reads its raw DC and lambda and writes its choice (12 bytes),
+    plus the 17 code lengths; per block nc^2 predecessor pairs of 3
+    operations (two adds and a compare) and per candidate 6 for its
+    distortion (12 with the vertical gradient)."""
+    raw, nc, delta_w = args[0], args[5], args[7]
+    n = raw.numel()
+    per_cand = 12 if delta_w > 0 else 6
+    return 12 * n + 17 * 4, float(n * (3 * nc * nc + per_cand * nc))
+
+
+def eob_bound(args):
+    """(bytes, f32 operations) of the EOB-run DP on these arguments: each
+    block reads czero, skip and has_eob and writes its keep flag (13
+    bytes), plus 16 EOBn lengths an image; at step b of a row whose block
+    is not all zero, the b + 1 earlier states cost 5 operations each
+    (four adds and a compare), and the final run 3 for each of the L + 1
+    states (this run's data: all-zero blocks take no step)."""
+    import torch
+    ei, ac_si, bh, bw = args
+    he = ei[2].reshape(-1, bw)
+    b = torch.arange(bw, device=ei.device)
+    steps = ((he != 2) * (b + 1)).sum().item()
+    rows = he.shape[0]
+    return (13 * ei.shape[1] + 64 * ac_si.shape[0],
+            float(5 * steps + 3 * rows * (bw + 1)))
+
+
+def sync_ms(fn, reps):
+    """Synchronised host ms per call of fn (after one warm call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def profiled_top(fn, reps=3, top=8):
+    """profiled() and the top device ops of one call: [(kernel name, ms,
+    launches)] by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = by.setdefault(e.name[:90], [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3 / reps
+            t[1] += 1
+    total = sum(t[0] for t in by.values())
+    n = sum(t[1] for t in by.values()) // reps
+    ops = sorted(((k, round(t[0], 4), t[1] // reps) for k, t in by.items()),
+                 key=lambda x: -x[1])[:top]
+    return total, n, ops
 
 
 def psnr(a, b):
@@ -562,6 +694,7 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import encoder
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
     corpus = kodak + odd
     mp = sum(im.shape[0] * im.shape[1] for im in corpus) / 1e6
     max_err = 0.0
@@ -604,11 +737,13 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
             for i, args in enumerate(rec["trellis_ac"]):
                 max_err = max(max_err, compare(
                     args, "%s group launch %d" % (name, i)))
+            check_rows(rec, "%s group" % name)
         if name in timed:
             # warm: this family's kernels and shapes just ran above
             imgs = family_images(corpus, ch, 400)
             torch.cuda.synchronize()
             tac.reset_launches()
+            trw.reset_launches()
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -616,25 +751,35 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             launches = tac.trellis_ac.launches
-            if cfg.resolved().trellis_quant and launches <= 0:
+            rows = {"trellis_dc": trw.trellis_dc.launches,
+                    "trellis_eob": trw.eob_dp.launches}
+            ROWS_LAUNCHES[name] = rows
+            res = cfg.resolved()
+            if res.trellis_quant and launches <= 0:
                 raise SystemExit("%s never launched the trellis kernel"
                                  % name)
+            if res.trellis_quant and not res.arithmetic and (
+                    (res.trellis_quant_dc and rows["trellis_dc"] <= 0)
+                    or (res.trellis_eob_opt and rows["trellis_eob"] <= 0)):
+                raise SystemExit("%s never launched a row-scan kernel it "
+                                 "needs" % name)
             rates[name] = [mp / w for w in walls]
             log("config matrix MP/s [%s]: median %.3f (reps %s), "
-                "trellis_ac launches=%d; default %.3f"
+                "trellis_ac launches=%d, trellis_dc launches=%d, "
+                "trellis_eob launches=%d; default %.3f"
                 % (name, statistics.median(rates[name]),
                    ", ".join("%.3f" % v for v in rates[name]), launches,
-                   default_mps))
+                   rows["trellis_dc"], rows["trellis_eob"], default_mps))
     return rates, recs, max_err
 
 
-def config_matrix(kodak, odd, dev, default_mps, compare, kept):
-    """Phase 7; returns the largest kernel-vs-plain error it saw, and
-    keeps each family's full-size images and JPEGs in `kept`."""
+def config_matrix(kodak, odd, dev, default_mps, compare, kept, smi):
+    """Phase 7; returns the largest AC kernel-vs-plain error it saw and
+    the kernels-line entry of the EOB-run DP, and keeps each family's
+    full-size images and JPEGs in `kept`."""
     import torch
-    from mozjpeg_tpu_torch.codec import encoder, pipeline_t, trellis
+    from mozjpeg_tpu_torch.codec import encoder, pipeline_t
     from mozjpeg_tpu_torch.ops import dct, dering, layout
-    from mozjpeg_tpu_torch.ops import trellis_ac as tac
     t_phase = time.perf_counter()
     rates, recs, max_err = check_families(
         FAMILIES, RECORDED, TIMED, kodak, odd, dev, default_mps, compare,
@@ -656,26 +801,21 @@ def config_matrix(kodak, odd, dev, default_mps, compare, kept):
                 {k: round(v * 1e3, 3) for k, v in times.items()}),
                 group_s * 1e3))
 
-    # the EOB-run DP of one group (Y, Cb, Cr) on the kernel's ei strips of
-    # the recorded launches (the EOBn code lengths of the standard tables:
-    # the DP's work does not depend on them)
+    # the EOB-run DP of one group (Y, Cb, Cr): the family's recorded
+    # launches, kernel and plain in turns, device times, the bound
     from mozjpeg_tpu_torch.codec.pipeline import geometry
-    ctx, rec = recs["trellis_eob_opt"]
     h, w = kodak[0].shape[:2]
-    comps = geometry(w, h, ctx.samp)[2]
-    eob_in = []
-    for args, g, slot in zip(rec["trellis_ac"], comps, (0, 1, 1)):
-        _, ei = tac.trellis_ac(*args)
-        si = trellis.trellis_tables_from_hist(None, slot, False)[0][::16]
-        eob_in.append((ei, g, torch.as_tensor(
-            np.repeat(si[None].astype(np.float32), 8 * g.bh, 0),
-            device=dev)))
+    eob_args = recs["trellis_eob_opt"][1]["trellis_eob"]
+    if len(eob_args) != 3:
+        raise SystemExit("expected 3 EOB-run DP calls per trellis_eob_opt "
+                         "group, saw %d" % len(eob_args))
 
-    def eob_group():
-        for ei, g, si in eob_in:
-            trellis.eob_block_dp(
-                ei[0].reshape(-1, g.bw), ei[1].reshape(-1, g.bw),
-                ei[2].to(torch.int64).reshape(-1, g.bw), si)
+    nums, eob_group, eob_plain = row_stage("trellis_eob", eob_args,
+                                           "one 8x768x512 group", smi)
+    k_eob = dict(name="trellis_eob", route="cuda", source=ROWS_SOURCE,
+                 replaces=EOB_REPLACES,
+                 launches=ROWS_LAUNCHES["trellis_eob_opt"]["trellis_eob"],
+                 library_ms=None, **nums)
 
     # device prep of one group (RGB -> YCbCr, 4:2:0) and the float DCT of
     # its luma (dering, DCT, quantize, rescale)
@@ -695,8 +835,13 @@ def config_matrix(kodak, odd, dev, default_mps, compare, kept):
         dct.quantize_float_t(sc, div)
         dct.rescale_float_t(sc)
 
+    for label, fn, reps in (("kernel", eob_group, 3),
+                            ("plain version", eob_plain, 1)):
+        dev_ms, nk, top = profiled_top(fn, reps, top=4)
+        log("config matrix per 8x768x512 group [EOB-run DP (Y, Cb, Cr), "
+            "%s] on %s: %.4f ms of device kernels (torch.profiler), %d "
+            "kernels; top %s" % (label, smi, dev_ms, nk, json.dumps(top)))
     for label, fn, reps in (
-            ("EOB-run DP (Y, Cb, Cr)", eob_group, 1),
             ("device prep (RGB -> YCbCr 4:2:0)",
              lambda: pipeline_t.prep_planes(group_t, geom, "ycbcr"), 3),
             ("float DCT of the luma (dering, DCT, quantize, rescale)",
@@ -706,7 +851,7 @@ def config_matrix(kodak, odd, dev, default_mps, compare, kept):
             "kernels (torch.profiler, %d kernels), %.3f ms synchronised "
             "wall under the profiler" % (label, dev_ms, nk, wall_ms))
     log("config matrix: %.1f s" % (time.perf_counter() - t_phase))
-    return max_err
+    return max_err, k_eob
 
 
 def per_image_routes(kodak, odd, dev, default_mps, compare, kept):
@@ -1150,6 +1295,7 @@ def precision_phase(kodak8, jpegs8, dev, compare):
     max_err = 0.0
     for name, args in zip(("Y", "Cb", "Cr"), recorded):
         max_err = max(max_err, compare(args, "12-bit group %s" % name))
+    check_rows(rec, "12-bit group")
     dense = example_trellis("dense", 8, 6144, dev, 17, 12)
     for args, label in (
             (dense, "12-bit dense"),
@@ -1355,6 +1501,7 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
     from mozjpeg_tpu_torch.codec.encoder import encode_raw_yuv
     from mozjpeg_tpu_torch.ops import color, sample
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
     t_phase = time.perf_counter()
     mp = h * w / 1e6
     size = "%dx%d" % (w, h)
@@ -1365,30 +1512,38 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
     write_ppm(ppm_path, big)
     write_png(png_path, big)
     launches = {}
+    dc_launches = {}
+    recs = {}
     max_err = 0.0
 
     def counted(name, fn, check=False):
-        """fn's <10, 1023> launches. With check, every card path of this
-        phase trellises through encoder._finals, which then records each
-        launch's arguments; each is held against the plain version."""
+        """fn's <10, 1023> launches (and its trellis_dc ones). With check,
+        every card path of this phase trellises through encoder._finals,
+        which then records each launch's arguments; each is held against
+        the plain version."""
         nonlocal max_err
         rec = {}
         torch.cuda.synchronize()
         tac.reset_launches()
+        trw.reset_launches()
         with recording(rec) if check else contextlib.nullcontext():
             out = fn()
             torch.cuda.synchronize()
         launches[name] = tac.trellis_ac.launches_by_kmax[10]
+        dc_launches[name] = trw.trellis_dc.launches
         if tac.trellis_ac.launches_by_kmax[14]:
             raise SystemExit("%s launched the 12-bit instantiation" % name)
         if check:
+            recs[name] = rec
             recorded = rec.get("trellis_ac", [])
-            if len(recorded) != launches[name]:
+            if (len(recorded) != launches[name]
+                    or len(rec.get("trellis_dc", [])) != dc_launches[name]):
                 raise SystemExit("%s: %d launches recorded of %d"
                                  % (name, len(recorded), launches[name]))
             for i, args in enumerate(recorded):
                 max_err = max(max_err, compare(
                     args, "phase 12 %s %s launch %d" % (name, size, i)))
+            check_rows(rec, "phase 12 %s %s" % (name, size))
         return out
 
     # 1. cjpeg on the card, PPM and PNG, against the host engine
@@ -1425,8 +1580,12 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
         % (size, len(jpg), jpg == host and jpg_png == host, len(scans),
            scans == cpu_trace and scans_png == cpu_trace,
            passes[-1].strip() if passes else "", launches["cjpeg"]))
-    if not ok or launches["cjpeg"] <= 0:
-        raise SystemExit("cjpeg on the card differs from the host engine")
+    if not ok or launches["cjpeg"] <= 0 or dc_launches["cjpeg"] != 3:
+        raise SystemExit("cjpeg on the card differs from the host engine, "
+                         "or did not launch trellis_dc once a component")
+    dc12 = {k + "_12mp": v for k, v in row_stage(
+        "trellis_dc", recs["cjpeg"]["trellis_dc"], "cjpeg's %s group" % size,
+        smi, 10)[0].items() if k != "bound_by"}
 
     # 2. yuvjpeg and encode_raw_yuv on the card
     ycc = color.rgb_to_ycc(torch.from_numpy(big).to(dev))
@@ -1598,10 +1757,91 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
             "(reps %s), %.3f MP/s" % (name, size, smi, med, ", ".join(
                 "%.4f" % v for v in walls), mp / med))
     log("remaining surfaces: first host-engine encode %.3f s; launches %s; "
-        "%.1f s" % (host_s, json.dumps(launches),
-                    time.perf_counter() - t_phase))
+        "trellis_dc launches %s; %.1f s"
+        % (host_s, json.dumps(launches), json.dumps(dc_launches),
+           time.perf_counter() - t_phase))
     tmp.cleanup()
-    return launches, max_err
+    return launches, max_err, dc12
+
+
+def row_stage(kind, recorded, label, smi, reps=20):
+    """A row-scan kernel's stage over its recorded launches (kind
+    "trellis_dc" or "trellis_eob"): the stage with the kernel and with the
+    plain version in turns (synchronised wall ms), the kernel's device ms
+    held and with the host's launch gaps, the first launch's held, the
+    plain version's, the bound, and the first launch's serial chain (v*bw
+    steps a DC chain, bw an EOB row) -> (those numbers, the kernel's and
+    the plain version's stage functions)."""
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
+    kernel_fn, plain_fn, bound_fn = {
+        "trellis_dc": (trw.trellis_dc, trw.trellis_dc_plain, dc_bound),
+        "trellis_eob": (trw.eob_dp, trw.eob_dp_plain, eob_bound)}[kind]
+
+    def kernel():
+        for a in recorded:
+            kernel_fn(*a)
+
+    def plain():
+        for a in recorded:
+            plain_fn(*a)
+
+    turns = {kernel: [], plain: []}
+    for fn in (kernel, plain, plain, kernel):
+        turns[fn].append(sync_ms(fn, 3))
+    k_ms, k_un = cuda_ms(kernel, reps), cuda_ms(kernel, reps, hold=False)
+    first_ms = cuda_ms(lambda: kernel_fn(*recorded[0]), reps)
+    p_ms = cuda_ms(plain, max(1, reps // 10))
+    nbytes, ops = (sum(x) for x in zip(*(bound_fn(a) for a in recorded)))
+    bound_ms, bound_by = bound(nbytes, ops)
+    a0 = recorded[0]
+    steps = a0[6] * a0[0].shape[2] if kind == "trellis_dc" else a0[3]
+    log("%s of %s (%d launches) on %s: kernel %.4f ms (%.4f ms with the "
+        "host's launch gaps), plain %.3f ms, bound %.6f ms (%.3g ops, %d "
+        "bytes, by %s), %.2f%% of the bound; first launch %.4f ms, its "
+        "serial chain %d steps, %.3f us a step; the stage in turns "
+        "(synchronised wall ms): kernel %s, plain %s"
+        % (kind, label, len(recorded), smi, k_ms, k_un, p_ms, bound_ms, ops,
+           nbytes, bound_by, 100 * bound_ms / k_ms, first_ms, steps,
+           first_ms * 1e3 / steps, ["%.3f" % t for t in turns[kernel]],
+           ["%.3f" % t for t in turns[plain]]))
+    return ({"ms": k_ms, "kernel_ms": k_ms, "ms_with_launch_gaps": k_un,
+             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "first_launch_ms": first_ms, "chain_steps": steps,
+             "stage_wall_ms": statistics.median(turns[kernel]),
+             "stage_wall_ms_plain": statistics.median(turns[plain])},
+            kernel, plain)
+
+
+def dc_stage(recorded, group, ctx, dev, smi, launches):
+    """Phase 6's DC trellis of one 8x768x512 group (its three recorded
+    launches): row_stage, then torch.profiler's device time, kernel count
+    and top kernels of the stage with the plain version and with the
+    kernel, and of the group's p1. -> the kernels-line entry of
+    trellis_dc (launches: phase 4's count)."""
+    import torch
+    from mozjpeg_tpu_torch.codec import encoder, pipeline_t
+    nums, kernel, plain = row_stage("trellis_dc", recorded,
+                                    "one 8x768x512 group", smi)
+    cfg = ctx.cfg
+    geom, bufs = pipeline_t.prep_ycc_batch(group, ctx.samp)
+    bufs_t = torch.from_numpy(bufs).to(dev)
+    ris = encoder.trellis_ris(cfg, geom[2])
+    slots = encoder.qt_slots(cfg, ctx.cs, ctx.ncomps)
+
+    def p1():
+        pipeline_t.p1_batch_pre(bufs_t, tuple(geom[2]), ctx.qtables,
+                                cfg.overshoot_deringing,
+                                cfg.dct_method.value, ris, slots)
+
+    for label, fn in (("DC stage, plain version (before)", plain),
+                      ("DC stage, kernel (after)", kernel), ("p1", p1)):
+        dev_ms, nk, top = profiled_top(fn, 3)
+        log("profile of one 8x768x512 group [%s] on %s: %.4f ms of device "
+            "kernels (torch.profiler), %d kernels; top %s"
+            % (label, smi, dev_ms, nk, json.dumps(top)))
+    return dict(name="trellis_dc", route="cuda", source=ROWS_SOURCE,
+                replaces=DC_REPLACES, launches=launches, library_ms=None,
+                **nums)
 
 
 def dev_first_routes(group, ctx, dev):
@@ -2306,6 +2546,7 @@ def sharded_run(fn, compare, label, nshards):
     err = 0.0
     for i, args in enumerate(calls):
         err = max(err, compare(args, "phase 15 %s launch %d" % (label, i)))
+    check_rows(rec, "phase 15 %s" % label)
     return out, wall, peak, n, err
 
 
@@ -2484,8 +2725,9 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
     tests/torch_standalone_worker.py in a child whose sys.path holds the
     copy and the interpreter's own paths only, under an audit hook on
     every path under the checkout's mozjpeg_tpu/: it builds the host
-    library and both kernels from the copy and encodes kodak[0] on the
-    card, byte-equal to this process; (2) the port's tjbench on an h x w
+    library and the three CUDA libraries from the copy and encodes
+    kodak[0] on the card, byte-equal to this process, with 3 trellis_ac,
+    1 tablegen and 3 trellis_dc launches; (2) the port's tjbench on an h x w
     photo at q95 4:2:0, plain and -progressive -optimize, and -tile at
     768x512 for 4:4:4 and gray, every tile exact and the JPEG's size equal
     to the same call without -tile on the CPU; (3) the port's rd_collect
@@ -2531,16 +2773,18 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
                          % (rc, out[-4000:]))
     want = mjt.encode(kodak[0], mjt.EncoderConfig(quality=75), device=dev)
     ok = (res["encode"] == [want] and not res["violations"]
-          and res["launches"] == {"trellis_ac": 3, "tablegen": 1})
+          and res["launches"] == {"trellis_ac": 3, "tablegen": 1,
+                                  "trellis_dc": 3})
     log("phase 16 standalone copy (sys.path: the copy and the "
         "interpreter's own; audit hook on the checkout's JAX package): "
         "built %s from the copy in %.1f s, first encode %.1f s, encode() "
-        "of a 768x512 photo %.3f s with trellis_ac %d, tablegen %d "
-        "launches, audit violations %d, bytes equal to this process=%s "
-        "(%.1f s)"
+        "of a 768x512 photo %.3f s with trellis_ac %d, tablegen %d, "
+        "trellis_dc %d launches, audit violations %d, bytes equal to this "
+        "process=%s (%.1f s)"
         % (", ".join(res["built"]), res["build_s"], res["warm_s"],
            res["encode_s"],
            res["launches"]["trellis_ac"], res["launches"]["tablegen"],
+           res["launches"]["trellis_dc"],
            len(res["violations"]), res["encode"] == [want],
            time.perf_counter() - t0))
     if not ok:
@@ -2635,6 +2879,7 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
               for i, args in enumerate(rec["trellis_ac"][:3]))
     tg_err = tablegen_vs_plain(rec["tablegen"][0],
                                "phase 16 rd_collect %dx%d q50" % (w, h))
+    check_rows(rec, "phase 16 rd_collect %dx%d q50" % (w, h), first=3)
     tmp.cleanup()
     log("phase 16: %.1f s" % (time.perf_counter() - t_phase))
     return {"<10>": n[0], "tablegen": n[2]}, err, tg_err
@@ -2651,6 +2896,7 @@ def main():
     from mozjpeg_tpu_torch.native import build as nbuild
     from mozjpeg_tpu_torch.ops import tablegen as tg
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2665,18 +2911,23 @@ def main():
                                     torch.cuda.get_device_name(0)))
 
     # ---- 2. builds, in parallel ----
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         f_nat = ex.submit(nbuild.build_native)
         f_ker = ex.submit(tac.build)
         f_tg = ex.submit(tg.build)
+        f_rows = ex.submit(trw.build)
         ker_s, ptxas = f_ker.result()
         tg_s, tg_ptxas = f_tg.result()
+        rows_s, rows_ptxas = f_rows.result()
         log("build: native %.1f s, trellis_ac kernel %.1f s, tablegen "
-            "kernel %.1f s" % (f_nat.result(), ker_s, tg_s))
+            "kernel %.1f s, trellis_rows kernels %.1f s"
+            % (f_nat.result(), ker_s, tg_s, rows_s))
     for line in ptxas:
         log("trellis_ac build: " + line)
     for line in tg_ptxas:
         log("tablegen build: " + line)
+    for line in rows_ptxas:
+        log("trellis_rows build: " + line)
 
     # ---- 3. kernel vs plain on the card ----
     cfg = mjt.EncoderConfig(quality=75)
@@ -2691,9 +2942,11 @@ def main():
                 f.result()
     recorded = rec_k["trellis_ac"]          # one 768x512 group: Y, Cb, Cr
     for rec in (rec_k, rec_o):
-        if len(rec["trellis_ac"]) != 3:
-            raise SystemExit("expected 3 trellis_ac calls per group, saw %d"
-                             % len(rec["trellis_ac"]))
+        if len(rec["trellis_ac"]) != 3 or len(rec["trellis_dc"]) != 3:
+            raise SystemExit("expected 3 trellis_ac and 3 trellis_dc calls "
+                             "per group, saw %d and %d"
+                             % (len(rec["trellis_ac"]),
+                                len(rec["trellis_dc"])))
 
     def compare(args, label):
         nb_k, ei_k = tac.trellis_ac(*args)
@@ -2740,6 +2993,28 @@ def main():
             (example_trellis("sparse", 1, 1, dev, 8), "N=1")):
         max_err = max(max_err, compare(args, label))
 
+    # the row-scan kernels: the groups' DC launches, then seeded DC
+    # inputs (ties, 12-bit wrap, the delta weight at v = 2 with an odd
+    # bh, a row past 48 KB of shared memory) and EOB strips
+    check_rows(rec_k, "main path 768x512")
+    check_rows(rec_o, "main path 1021x683")
+    for kind, shape, v, q0, nc, dw, prec, label in (
+            ("tie", (3, 9, 33), 2, 1, 9, 0.5, 8, "tie-stress"),
+            ("seeded", (2, 7, 40), 2, 3000, 9, 0.5, 12, "12-bit wrap"),
+            ("seeded", (2, 5, 90), 1, 1, 9, 0.0, 12, "12-bit clamp"),
+            ("seeded", (8, 63, 96), 2, 8, 9, 0.5, 8, "delta v=2 odd bh"),
+            ("seeded", (1, 3, 2048), 2, 4, 9, 0.5, 8, "bw=2048")):
+        raw, lam, si = trw.dc_example_inputs(kind, *shape, q0, prec, 7)
+        rows_vs_plain("trellis_dc", (
+            torch.as_tensor(raw, device=dev), torch.as_tensor(lam, device=dev),
+            q0, float(trellis.recip2_table()[q0]), si, nc, v, dw,
+            trellis.kmax_maxq(prec)[1]), label)
+    for shape in ((8, 64, 96), (3, 4, 70), (2, 5, 1), (1, 4, 2048)):
+        ei, si = trw.eob_example_inputs(shape[2], *shape)
+        rows_vs_plain("trellis_eob", (torch.as_tensor(ei, device=dev),
+                                      torch.as_tensor(si, device=dev),
+                                      shape[1], shape[2]), "seeded")
+
     # the main path's lambda on the card vs the CPU and numpy, exactly
     s1, s2 = ctx.cfg.lambda_log_scale1, ctx.cfg.lambda_log_scale2
     for shape, rec in (("768x512", rec_k), ("1021x683", rec_o)):
@@ -2765,21 +3040,26 @@ def main():
     torch.cuda.synchronize()
     tac.reset_launches()
     tg.reset_launches()
+    trw.reset_launches()
     t0 = time.perf_counter()
     outs = mjt.encode_many(images, cfg)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = tac.trellis_ac.launches_by_kmax[10]
     tg_launches = tg.launches
+    dc_launches, eob_launches = trw.trellis_dc.launches, trw.eob_dp.launches
     ngroups = 3                      # two groups of eight 768x512, one of 3
     log("main path: %d images, %.3f MP, %d groups, trellis_ac<10, 1023> "
-        "launches=%d, tablegen launches=%d"
-        % (len(images), mp, ngroups, launches, tg_launches))
-    if launches <= 0:
-        raise SystemExit("the main path never launched the trellis kernel")
-    if launches != 3 * ngroups or tg_launches != ngroups:
-        raise SystemExit("the main path should launch trellis_ac 3 times and "
-                         "tablegen once a group (the device-tablegen route)")
+        "launches=%d, tablegen launches=%d, trellis_dc launches=%d, "
+        "trellis_eob launches=%d" % (len(images), mp, ngroups, launches,
+                                     tg_launches, dc_launches, eob_launches))
+    if launches <= 0 or dc_launches <= 0:
+        raise SystemExit("the main path never launched the trellis kernels")
+    if (launches != 3 * ngroups or tg_launches != ngroups
+            or dc_launches != 3 * ngroups or eob_launches):
+        raise SystemExit("the main path should launch trellis_ac and "
+                         "trellis_dc 3 times and tablegen once a group (the "
+                         "device-tablegen route), and no EOB-run DP")
     for o in outs:
         if not (o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"):
             raise SystemExit("output without SOI/EOI")
@@ -2854,11 +3134,14 @@ def main():
         "ops, %d bytes, by %s), %.1f%% of the bound"
         % (dense[0].shape[1], d_ms, d_un, dp_ms, d_bound, d_ops, d_bytes,
            d_by, 100 * d_bound / d_ms))
+    k_dc = dc_stage(rec_k["trellis_dc"], kodak[:8], ctx, dev, smi,
+                    dc_launches)
 
     # ---- 7. the config matrix ----
     kept = {}
-    max_err = max(max_err, config_matrix(kodak, odd, dev, statistics.median(
-        mps), compare, kept))
+    err7, k_eob = config_matrix(kodak, odd, dev, statistics.median(mps),
+                                compare, kept, smi)
+    max_err = max(max_err, err7)
 
     # ---- 8. the per-image routes ----
     max_err = max(max_err, per_image_routes(kodak, odd, dev,
@@ -2877,7 +3160,8 @@ def main():
     k12 = precision_phase(kodak[:8], outs[:8], dev, compare)
 
     # ---- 12. the remaining surfaces ----
-    l12, err12 = remaining_surfaces(kodak, dev, smi, compare)
+    l12, err12, dc12 = remaining_surfaces(kodak, dev, smi, compare)
+    k_dc.update(dc12)
     max_err = max(max_err, err12)
 
     # ---- 13. the device engines ----
@@ -2900,6 +3184,10 @@ def main():
     k_tg["exact"] = k_tg["max_abs_err"] == 0
 
     # ---- 17. result lines ----
+    for entry in (k_dc, k_eob):
+        entry["max_abs_err"], entry["launches_checked"] = \
+            ROWS_CHECK[entry["name"]]
+        entry["exact"] = entry["max_abs_err"] == 0
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -2912,7 +3200,7 @@ def main():
         "dense_bound_ms": d_bound, "launches_phase12": l12,
         "launches_phase14": l14["<10>"], "launches_phase15": l15,
         "launches_phase16": l16["<10>"]},
-        k12, k_tg]}))
+        k12, k_tg, k_dc, k_eob]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,13 +16,11 @@ make_band_hist_t statistics): mozjpeg's rate-distortion Viterbi
     over one band, for the statistics passes that precede each trellis
     pass after the first (trellis_num_loops > 1, use_scans_in_trellis);
   - rate_lut: the run-indexed (B, 128, 16) rate table of the AC kernel;
-  - eob_block_dp: trellis_eob_opt's DP over whole blocks per block row,
-    reading the kernel's `ei` strip;
-  - trellis_dc_rows: the DC DP over independent block rows, lastDC chained
-    through each row and reset per iMCU row (jccoefct.c:417-419), with the
-    vertical-gradient term of trellis_delta_dc_weight;
+  - eob_block_dp, trellis_dc_rows: the plain EOB-run DP and DC DP over
+    block rows (ops/trellis_rows.py, named here as before);
   - trellis_all: every component's AC band trellis (ops/trellis_ac.py),
-    EOB DP and DC trellis with the per-image phase split.
+    and its EOB-run DP and DC trellis (ops/trellis_rows.py: one launch a
+    component and band, one a component, on the card).
 """
 from __future__ import annotations
 
@@ -34,10 +32,11 @@ import torch
 from ..entropy import encode as entenc
 from ..entropy.huffman import derive_codes
 from ..ops import trellis_ac as _ac
+from ..ops import trellis_rows as _rows
 from ..ops.symbols import ac_first_histograms_t, nbits
+from ..ops.trellis_rows import DC_CAND_MAX
+from ..ops.trellis_rows import eob_block_dp, trellis_dc_rows  # noqa: F401
 from .stages import stage
-
-DC_CAND_MAX = 9    # DC_TRELLIS_MAX_CANDIDATES
 
 
 def kmax_maxq(precision: int):
@@ -177,116 +176,6 @@ def ac_example_inputs(kind: str, b: int, n_img: int, seed: int = 0,
     return raw, qtbl, recip2_table()[qtbl], luts, lam
 
 
-def trellis_dc_rows(raw_dc, last_dc0, q0: int, dc_si, lam_dc, nc: int,
-                    delta_w: float = 0.0, above_raw=None, above_dc=None,
-                    maxq: int = 1023):
-    """DC trellis over a batch of independent block rows.
-
-    raw_dc (R, L) int32 unquantized DC (x8); last_dc0 (R,) int32 initial
-    predictor per row; dc_si (256,) int32; lam_dc (R, L) f32 (lambda *
-    1/q0^2) -> ((R, L) int32 chosen quantized DC, (R,) int32 last DC).
-    Candidates clamp to +-maxq (kmax_maxq). With delta_w > 0 and the row
-    above (above_raw, its raw DC, and above_dc, its chosen DC), the
-    distortion blends in the vertical gradient error
-    (jcdctmgr.c:1069-1084). The squares stay int32 and wrap at 12 bits as
-    the JAX program's do. The DP runs one step per block column; ties go
-    to the first index."""
-    dev = raw_dc.device
-    R, L = raw_dc.shape
-    q8 = q0 * 8
-    sign = torch.where(raw_dc < 0, -1, 1).to(torch.int32)
-    x = raw_dc.abs()
-    qval = (x + q8 // 2) // q8
-    ks = torch.arange(nc, dtype=torch.int32, device=dev)
-    cand_mag = torch.clamp(qval[..., None] - nc // 2 + ks, -maxq, maxq)
-    delta = cand_mag * q8 - x[..., None]
-    dist = (delta * delta).to(torch.float32) * lam_dc[..., None]
-    cand = cand_mag * sign[..., None]                  # (R, L, nc) signed
-    if delta_w > 0.0 and above_raw is not None:
-        vd = ((above_raw - raw_dc)[..., None]
-              - (above_dc[..., None] * q8 - cand * q8))
-        vdist = (vd * vd).to(torch.float32) * lam_dc[..., None]
-        w = torch.tensor(delta_w, dtype=torch.float32, device=dev)
-        dist = dist + w * (vdist - dist)
-
-    def trans_cost(d):
-        # nbits(|d|) + dc code length of that category, exact in f32
-        b = nbits(d.abs())
-        return (b + dc_si[b.to(torch.int64)]).to(torch.float32)
-
-    acc = trans_cost(cand[:, 0, :] - last_dc0[:, None]) + dist[:, 0, :]
-    # every later step's transition + distortion terms at once:
-    # step[r, t, l, k] for previous candidate l -> candidate k
-    step = (trans_cost(cand[:, 1:, None, :] - cand[:, :-1, :, None])
-            + dist[:, 1:, None, :])
-    bts = torch.zeros((L, R, nc), dtype=torch.int64, device=dev)
-    for t in range(1, L):
-        cost = step[:, t - 1] + acc[:, :, None]        # (R, l_prev, k)
-        bt = cost.argmin(1)
-        bts[t] = bt
-        acc = torch.gather(cost, 1, bt[:, None])[:, 0]
-    cur = acc.argmin(1)
-    curs = torch.empty((R, L), dtype=torch.int64, device=dev)
-    for t in range(L - 1, -1, -1):
-        curs[:, t] = cur
-        if t:
-            cur = torch.gather(bts[t], 1, cur[:, None])[:, 0]
-    out = torch.gather(cand, 2, curs[..., None])[..., 0]
-    return out, out[:, -1]
-
-
-def eob_block_dp(czero, skip, has_eob, eob_si):
-    """trellis_eob_opt's block-level EOB-run DP over R block rows of L
-    blocks (jcdctmgr.c:1224-1297), from the AC kernel's `ei` strip:
-    czero (R, L) f32 all-zero cost, skip (R, L) f32 best cost without the
-    block's EOB, has_eob (R, L) int 0/1/2 (2: the block is all zero in the
-    band); eob_si (R, 16) f32, the EOBn code lengths ac_si[16 * k] of each
-    row's image -> (R, L) bool, the blocks that keep their coefficients.
-    Float adds run in C's order, the first minimum wins, and an EOB run of
-    n blocks costs ac_si[16 * nbits(n)] + nbits(n). One step per block
-    column, then the walk back along the row."""
-    dev = czero.device
-    R, L = czero.shape
-    big = torch.tensor(_ac.BIGF, dtype=torch.float32, device=dev)
-    iidx = torch.arange(L + 1, device=dev)
-
-    def eobrun_cost(run):
-        nb = nbits(run.clamp_min(0)).to(torch.int64)   # run < 32768
-        return nb.to(torch.float32) + torch.gather(eob_si, 1, nb)
-
-    has_eob = has_eob.to(torch.int64)
-    blk_nz = has_eob != 2
-    azbc = torch.zeros((R, L + 1), dtype=torch.float32, device=dev)
-    abc = torch.zeros_like(azbc)
-    req = torch.zeros((R, L + 1), dtype=torch.int64, device=dev)
-    brs = torch.zeros((R, L), dtype=torch.int64, device=dev)
-    for b in range(L):
-        azbc_b = azbc[:, b]
-        azbc[:, b + 1] = azbc_b + czero[:, b]
-        run = (b - iidx)[None] + req
-        # C order: cost = skip; += azbc[bi]; -= azbc[i]; += abc[i]; += rate
-        cost = (((skip[:, b, None] + azbc_b[:, None]) - azbc) + abc) \
-            + eobrun_cost(run)
-        valid = (iidx <= b)[None] & (req != 2) & blk_nz[:, b, None]
-        cost = torch.where(valid, cost, big)
-        arg = cost.argmin(1)
-        best = torch.gather(cost, 1, arg[:, None])[:, 0]
-        abc[:, b + 1] = torch.where(blk_nz[:, b], best, big)
-        brs[:, b] = torch.where(blk_nz[:, b], arg, 0)
-        req[:, b + 1] = has_eob[:, b]
-    # the final EOB run to the end of the row (jcdctmgr.c:1258-1276)
-    run = (L - iidx)[None] + req
-    fcost = (azbc[:, L, None] - azbc) + eobrun_cost(run)
-    fcost = torch.where(req != 2, fcost, big)
-    last = fcost.argmin(1) - 1
-    kept = torch.empty((R, L), dtype=torch.bool, device=dev)
-    for b in range(L - 1, -1, -1):
-        k = last == b
-        kept[:, b] = k
-        last = torch.where(k, brs[:, b] - 1, last)
-    return kept
-
-
 def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
                 batch: int, bands=((1, 63),), dc_on: bool = True,
                 eob_opt: bool = False, delta_w: float = 0.0, times=None,
@@ -301,8 +190,11 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
     tensors; dc_sis: per component (256,) int32; qtbl_zzs: per component
     (64,) int32 numpy zigzag quant tables. Returns the final (64, B*n)
     int16 planes. `times` (dict) accumulates synchronised stage seconds
-    (trellis_ac, trellis_eob, trellis_dc); record["trellis_ac"] (dict
-    `record`) gets each kernel call's arguments."""
+    (trellis_ac, trellis_eob, trellis_dc). With `record` (dict),
+    record["trellis_ac"], record["trellis_eob"] and record["trellis_dc"]
+    get the arguments of each call of the three kernels' wrappers
+    (ops/trellis_ac.trellis_ac, ops/trellis_rows.eob_dp and trellis_dc),
+    which launch one kernel each on the card."""
     dev = raws[0].device
     recip = recip2_table()
     pos = torch.arange(64, device=dev)[:, None]
@@ -326,11 +218,10 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
                 new_q = torch.where(in_band, new_band.to(torch.int16), new_q)
             if eob_opt:
                 with stage(times, "trellis_eob", dev):
-                    eob_si = ac_sis[ci][:, ::16].to(torch.float32) \
-                        .repeat_interleave(g.bh, 0)
-                    keep = eob_block_dp(
-                        ei[0].reshape(-1, g.bw), ei[1].reshape(-1, g.bw),
-                        ei[2].to(torch.int64).reshape(-1, g.bw), eob_si)
+                    eargs = (ei, ac_sis[ci], g.bh, g.bw)
+                    if record is not None:
+                        record.setdefault("trellis_eob", []).append(eargs)
+                    keep = _rows.eob_dp(*eargs)
                     new_q = torch.where(in_band & ~keep.reshape(1, -1),
                                         torch.zeros_like(new_q), new_q)
         outs.append(new_q)
@@ -339,36 +230,15 @@ def trellis_all(geoms, raws, qs, lams, ac_sis, dc_sis, qtbl_zzs, ncands,
     with stage(times, "trellis_dc", dev):
         for ci, g in enumerate(geoms):
             q0 = int(qtbl_zzs[ci][0])
-            ltbl0 = float(recip[q0])
-            dc_si = torch.as_tensor(np.asarray(dc_sis[ci], np.int32),
-                                    device=dev)
-            # phases are split PER IMAGE: with bh % v != 0 a flat stride-v
-            # slice would mix phases across image boundaries
-            lam_dc_full = (lams[ci] * ltbl0).reshape(batch, g.bh, g.bw)
-            raw_dc = raws[ci][0].reshape(batch, g.bh, g.bw)
-            v = g.v
-            dc_all = torch.empty((batch, g.bh, g.bw), dtype=torch.int32,
-                                 device=dev)
-            prev = None
-            for p in range(v):
-                rr = raw_dc[:, p::v]
-                nph = rr.shape[1]
-                init = (torch.zeros(batch * nph, dtype=torch.int32,
-                                    device=dev) if p == 0
-                        else prev[:, :nph].reshape(-1))
-                ar = ad = None
-                if delta_w > 0.0 and p > 0:
-                    # the row above is phase p-1 of the same iMCU row
-                    ar = raw_dc[:, p - 1::v][:, :nph].reshape(-1, g.bw)
-                    ad = dc_all[:, p - 1::v][:, :nph].reshape(-1, g.bw)
-                dc, fin = trellis_dc_rows(
-                    rr.reshape(-1, g.bw), init, q0, dc_si,
-                    lam_dc_full[:, p::v].reshape(-1, g.bw), ncands[ci],
-                    delta_w, ar, ad, maxq)
-                dc_all[:, p::v] = dc.reshape(batch, nph, g.bw)
-                prev = fin.reshape(batch, nph)
+            dargs = (raws[ci][0].reshape(batch, g.bh, g.bw),
+                     lams[ci].reshape(batch, g.bh, g.bw), q0,
+                     float(recip[q0]), dc_sis[ci], ncands[ci], g.v, delta_w,
+                     maxq)
+            if record is not None:
+                record.setdefault("trellis_dc", []).append(dargs)
+            dc = _rows.trellis_dc(*dargs)
             new_q = outs[ci].clone()
-            new_q[0] = dc_all.reshape(-1).to(torch.int16)
+            new_q[0] = dc.reshape(-1).to(torch.int16)
             outs[ci] = new_q
     return tuple(outs)
 

@@ -25,8 +25,11 @@ host engines; and the transfer codecs: their device ops (sparse pack and
 expands, plane pack and expand, the transport pack at 8 and 12 bits)
 and encode_many with each codec flag on the card against the CPU, and
 the remote decode routes (host render, packed with and without the plane
-pack) against the card's default. They skip without a GPU; run them on
-one with
+pack) against the card's default; and the trellis program's row scans:
+the DC trellis and EOB-run DP kernels against their plain versions on
+seeded, tie, 12-bit and wide inputs, and the eob_opt and delta-weight
+encodes with one launch of each per component. They skip without a GPU;
+run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -40,6 +43,7 @@ import mozjpeg_tpu_torch as mjt
 from mozjpeg_tpu_torch.codec import marker
 from mozjpeg_tpu_torch.codec import trellis as ttr
 from mozjpeg_tpu_torch.ops import trellis_ac as tac
+from mozjpeg_tpu_torch.ops import trellis_rows as trw
 from test_torch_trellis_order import BANDS
 
 pytestmark = pytest.mark.cuda
@@ -701,3 +705,58 @@ def test_remote_decode_routes_on_the_card_equal_cpu(cuda, port_jpegs,
     monkeypatch.setenv("MJ_PLANEPACK", env[1])
     assert _same(mjt.decode_many(datas, output=output), want)
     assert _same(mjt.decode(datas[0]), one)
+
+
+@pytest.mark.parametrize("kind,b,bh,bw,v,q0,nc,delta_w,precision", [
+    ("seeded", 8, 64, 96, 2, 8, 9, 0.0, 8),
+    ("seeded", 2, 5, 7, 2, 2, 9, 0.5, 8),
+    ("tie", 3, 9, 33, 2, 1, 9, 0.5, 8),
+    ("seeded", 2, 7, 40, 2, 3000, 9, 0.5, 12),
+    ("seeded", 2, 7, 40, 1, 1, 9, 0.0, 12),
+    ("seeded", 1, 7, 3, 4, 5, 1, 1.0, 8),
+    ("seeded", 1, 2, 8192, 1, 40, 3, 0.0, 8),
+], ids=["group-luma", "odd-delta", "tie", "12bit-wrap", "12bit-clamp",
+        "v4-nc1", "bw8192"])
+def test_dc_trellis_kernel_equals_plain_on_the_card(
+        cuda, kind, b, bh, bw, v, q0, nc, delta_w, precision):
+    raw, lam, si = trw.dc_example_inputs(kind, b, bh, bw, q0, precision,
+                                         seed=bw)
+    args = (torch.as_tensor(raw, device=cuda),
+            torch.as_tensor(lam, device=cuda), q0,
+            float(ttr.recip2_table()[q0]), si, nc, v, delta_w,
+            ttr.kmax_maxq(precision)[1])
+    before = trw.trellis_dc.launches
+    got = trw.trellis_dc(*args)
+    assert trw.trellis_dc.launches == before + 1
+    want = trw.trellis_dc_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,bh,bw", [(8, 64, 96), (1, 378, 504), (3, 4, 70),
+                                     (2, 5, 1), (1, 4, 8192)])
+def test_eob_dp_kernel_equals_plain_on_the_card(cuda, b, bh, bw):
+    ei, si = trw.eob_example_inputs(bw, b, bh, bw)
+    args = (torch.as_tensor(ei, device=cuda), torch.as_tensor(si, device=cuda),
+            bh, bw)
+    before = trw.eob_dp.launches
+    got = trw.eob_dp(*args)
+    assert trw.eob_dp.launches == before + 1
+    want = trw.eob_dp_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_row_scans_launch_once_per_component_on_the_card(cuda):
+    """encode_many with trellis_eob_opt and the delta weight: one DC launch
+    a component, one EOB launch a component and band, the CPU's bytes."""
+    imgs = _images(3)
+    cfg = mjt.EncoderConfig(quality=75, trellis_eob_opt=True,
+                            trellis_delta_dc_weight=0.5)
+    mjt.encode_many(imgs, cfg)
+    trw.reset_launches()
+    got = mjt.encode_many(imgs, cfg)
+    torch.cuda.synchronize()
+    assert trw.trellis_dc.launches == trw.eob_dp.launches
+    assert trw.trellis_dc.launches % 3 == 0 and trw.trellis_dc.launches > 0
+    assert got == mjt.encode_many(imgs, cfg, device="cpu")

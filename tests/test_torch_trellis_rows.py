@@ -1,0 +1,391 @@
+"""The trellis program's two row scans (ops/trellis_rows.py) on the CPU.
+
+The DC trellis of one component (trellis_dc, whose CPU route is the plain
+per-phase loop) against the JAX program that the main path mirrors,
+make_trellis_all_t with no AC band and the DC trellis on; the EOB-run DP
+(eob_dp, reading the AC kernel's `ei` strip and each image's AC code
+lengths in place) against the JAX _eob_block_dp. Then numpy models of the
+two CUDA kernels of csrc/trellis_rows.cu, each following its kernel's
+order of work, against the plain versions bit for bit: the kernels cannot
+run without a card, so these models are the CPU check of their algorithm.
+
+  DC model: one warp per chain (an image's iMCU row), its v block rows in
+  turn with lastDC carried from row to row and reset at each chain; lane k
+  holds candidate k (lanes past nc shadow candidate nc - 1), reads each
+  predecessor's cost and value by shuffle, folds the predecessors l
+  ascending with strict '<' after l = 0; the final choice is the warp's
+  lexicographic (cost, lane) minimum with idle lanes at +inf; the walk
+  back runs on one lane; the chosen row is the next row's above_dc.
+  EOB model: one warp per block row; the serial azbc prefix on one lane;
+  step b folds i = lane, lane + 32, ... <= b + 1 with strict '<' and
+  reduces the warp's lexicographic (cost, i) minimum; the final run over
+  i in [0, L] the same way; the walk back on one lane.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mozjpeg_tpu.codec import trellis as jtr
+from mozjpeg_tpu.codec.pipeline import CompGeom as JGeom
+from mozjpeg_tpu_torch.codec import trellis as ttr
+from mozjpeg_tpu_torch.ops import trellis_rows as trw
+
+F32 = np.float32
+BIG = F32(1e38)
+INF = F32(np.inf)
+LANES = np.arange(32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _dc_si(rng):
+    si = np.zeros(256, np.int32)
+    si[:17] = rng.integers(2, 17, 17)
+    return si
+
+
+# (name, B, bh, bw, v, q0, nc, delta_w, precision): v 1 and 2 with
+# bh % v != 0, delta_w 0 and 0.5, nc 1, 3 and 9, ties on the quant grid,
+# the clamp at 1023 and at 16383, and 12-bit values whose squares and
+# cand * q8 products wrap int32
+DC_CASES = [
+    ("v2-odd-delta-nc9-clamp", 2, 5, 7, 2, 2, 9, 0.5, 8),
+    ("v1-nc3", 2, 3, 9, 1, 40, 3, 0.0, 8),
+    ("v2-odd-delta-nc1", 1, 3, 6, 2, 5, 1, 0.5, 8),
+    ("ties", 2, 4, 12, 2, 1, 9, 0.5, 8),
+    ("12bit-wrap-delta", 2, 3, 8, 2, 3000, 9, 0.5, 12),
+    ("12bit-clamp", 1, 3, 10, 1, 1, 9, 0.0, 12),
+]
+
+
+def dc_inputs(name, b, bh, bw, q0, precision, seed):
+    return trw.dc_example_inputs("tie" if name == "ties" else "seeded", b,
+                                 bh, bw, q0, precision, seed)
+
+
+@pytest.fixture(scope="module")
+def dc_jax():
+    """Each DC case through the JAX program: (case, inputs, DC out)."""
+    out = {}
+    for i, case in enumerate(DC_CASES):
+        name, b, bh, bw, v, q0, nc, delta_w, precision = case
+        raw_dc, lam, si = dc_inputs(name, b, bh, bw, q0, precision, 40 + i)
+        geom = JGeom(h=1, v=v, w=8 * bw, hgt=8 * bh, bw=bw, bh=bh,
+                     bw_pad=bw, bh_pad=bh)
+        n = b * bh * bw
+        raws = np.zeros((64, n), np.int32)
+        raws[0] = raw_dc.reshape(-1)
+        qz = np.full(64, 7, np.int32)
+        qz[0] = q0
+        run = jtr.make_trellis_all_t((geom,), None, (), True, (nc,),
+                                     batch=b, precision=precision,
+                                     delta_w=delta_w)
+        packed = jtr.pack_trellis_inputs(
+            [lam.reshape(-1)], [np.zeros((b, 256), np.int32)], [si], [qz])
+        got = run((jnp.asarray(raws),),
+                  (jnp.zeros((64, n), jnp.int16),), jnp.asarray(packed))
+        want = np.asarray(got[0])[0].astype(np.int32).reshape(b, bh, bw)
+        out[name] = (case, (raw_dc, lam, si), want)
+    return out
+
+
+def _dc_args(case, inputs):
+    name, b, bh, bw, v, q0, nc, delta_w, precision = case
+    raw_dc, lam, si = inputs
+    maxq = ttr.kmax_maxq(precision)[1]
+    return (_t(raw_dc), _t(lam), q0, float(ttr.recip2_table()[q0]), si, nc,
+            v, delta_w, maxq)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in DC_CASES])
+def test_dc_component_matches_jax_program(dc_jax, name):
+    """trellis_dc on the CPU (the plain per-phase loop) equals the JAX
+    trellis program's DC trellis of the component, and so does the
+    kernel's numpy model."""
+    case, inputs, want = dc_jax[name]
+    args = _dc_args(case, inputs)
+    before = trw.trellis_dc.launches
+    got = trw.trellis_dc(*args)
+    assert trw.trellis_dc.launches == before      # the CPU launches nothing
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(model_dc(*args), want)
+
+
+def test_dc_in_trellis_all_is_the_component_function():
+    """trellis_all's DC stage gives trellis_dc's output in row 0 and
+    records one call per component."""
+    rng = np.random.default_rng(5)
+    geoms = [JGeom(1, 2, 48, 40, 6, 5, 6, 5), JGeom(1, 1, 24, 24, 3, 3, 3, 3)]
+    b, rec = 2, {}
+    raws, qs, lams, sis, qzs = [], [], [], [], []
+    for g in geoms:
+        n = b * g.bh * g.bw
+        raws.append(_t(rng.integers(-4000, 4000, (64, n)).astype(np.int32)))
+        qs.append(_t(rng.integers(-9, 9, (64, n)).astype(np.int16)))
+        lams.append(_t((rng.random(n) + 0.1).astype(F32)))
+        sis.append(_dc_si(rng))
+        qzs.append(np.full(64, 3 + len(qzs), np.int32))
+    ncands = [ttr.get_num_dc_candidates(int(q[0])) for q in qzs]
+    ac_sis = [torch.zeros((b, 256), dtype=torch.int32)] * 2
+    outs = ttr.trellis_all(geoms, raws, qs, lams, ac_sis, sis, qzs, ncands,
+                           b, bands=(), delta_w=0.5, record=rec)
+    assert len(rec["trellis_dc"]) == 2 and "trellis_eob" not in rec
+    for ci, g in enumerate(geoms):
+        dc = trw.trellis_dc(*rec["trellis_dc"][ci])
+        assert torch.equal(outs[ci][0], dc.reshape(-1).to(torch.int16))
+        assert torch.equal(outs[ci][1:], qs[ci][1:])
+
+
+eob_inputs = trw.eob_example_inputs
+
+
+EOB_SHAPES = [(2, 3, 40), (1, 5, 1), (3, 2, 70)]
+
+
+@pytest.fixture(scope="module")
+def eob_jax():
+    out = {}
+    for i, (b, bh, bw) in enumerate(EOB_SHAPES):
+        ei, si = eob_inputs(60 + i, b, bh, bw)
+        r = b * bh
+        with np.errstate(over="ignore"):
+            want = jtr._eob_block_dp(
+                jnp.asarray(ei[0].reshape(r, bw)),
+                jnp.asarray(ei[1].reshape(r, bw)),
+                jnp.asarray(ei[2].astype(np.int32).reshape(r, bw)),
+                jnp.asarray(np.repeat(si.astype(F32), bh, 0)))
+        out[(b, bh, bw)] = (ei, si, np.asarray(want))
+    return out
+
+
+@pytest.mark.parametrize("shape", EOB_SHAPES)
+def test_eob_dp_matches_jax(eob_jax, shape):
+    """eob_dp on the CPU (the plain version) equals the JAX
+    _eob_block_dp, and so does the kernel's numpy model."""
+    ei, si, want = eob_jax[shape]
+    b, bh, bw = shape
+    before = trw.eob_dp.launches
+    got = trw.eob_dp(_t(ei), _t(si), bh, bw)
+    assert trw.eob_dp.launches == before
+    assert got.dtype == torch.bool and got.shape == (b * bh, bw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(model_eob(ei, si, bh, bw), want)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    raw = torch.zeros((1, 2, 3), dtype=torch.int32)
+    lam = torch.ones((1, 2, 3))
+    si = np.zeros(256, np.int32)
+    for bad in (dict(nc=10), dict(nc=0), dict(v=0), dict(dc_si=si[:16])):
+        kw = dict(dc_si=si, nc=3, v=1) | bad
+        with pytest.raises(ValueError):
+            trw.trellis_dc(raw, lam, 4, 1 / 16, **kw)
+    with pytest.raises(ValueError):
+        trw.trellis_dc(raw.to(torch.int64), lam, 4, 1 / 16, si, 3, 1)
+    with pytest.raises(ValueError):
+        trw.trellis_dc(raw, lam.transpose(1, 2).contiguous().transpose(1, 2),
+                       4, 1 / 16, si, 3, 1)
+    ei = torch.zeros((8, 6))
+    with pytest.raises(ValueError):
+        trw.eob_dp(ei, torch.zeros((1, 256), dtype=torch.int32), 2, 4)
+    with pytest.raises(ValueError):
+        trw.eob_dp(ei, torch.zeros((1, 256), dtype=torch.int64), 2, 3)
+    with pytest.raises(ValueError):
+        trw.eob_dp(ei[:3], torch.zeros((1, 256), dtype=torch.int32), 2, 3)
+    with pytest.raises(ValueError):
+        trw.trellis_dc(raw.to("meta"), lam.to("meta"), 4, 1 / 16, si, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# numpy models of csrc/trellis_rows.cu
+# ---------------------------------------------------------------------------
+
+def _wrap(a):
+    """int32 two's complement wrap of int64 values."""
+    return ((np.asarray(a, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+
+def _nbits(a):
+    a = np.asarray(a, np.int64)
+    out = np.zeros(a.shape, np.int64)
+    for k in range(1, 33):
+        out = np.where(a >= (1 << (k - 1)), k, out)
+    return out
+
+
+def warp_first_min(v, i):
+    """The kernel's xor butterfly over 32 lanes on (value, index): every
+    lane ends with the lexicographic minimum."""
+    v, i = v.copy(), i.copy()
+    for off in (16, 8, 4, 2, 1):
+        ov, oi = v[LANES ^ off], i[LANES ^ off]
+        take = (ov < v) | ((ov == v) & (oi < i))
+        v, i = np.where(take, ov, v), np.where(take, oi, i)
+    return v, i
+
+
+def model_dc(raw_dc, lam, q0, ltbl0, dc_si, nc, v, delta_w, maxq):
+    raw_dc, lam = raw_dc.numpy(), lam.numpy()
+    b, bh, bw = raw_dc.shape
+    si = np.asarray(dc_si, np.int64)[:17]
+    q8, half = q0 * 8, nc // 2
+    k = np.minimum(LANES, nc - 1)
+    w, ltbl0 = F32(delta_w), F32(ltbl0)
+    out = np.zeros(raw_dc.shape, np.int32)
+
+    def trans(d):
+        nb = _nbits(np.abs(d))
+        return (nb + si[nb]).astype(F32)
+
+    def cand(r, kk):
+        x = abs(int(r))
+        cm = np.clip((x + (q8 >> 1)) // q8 - half + kk, -maxq, maxq)
+        return cm, (-cm if r < 0 else cm)
+
+    for chain in range(b * -(-bh // v)):
+        img, r0 = chain // -(-bh // v), chain % -(-bh // v) * v
+        last, s_dc = 0, None
+        for p in range(v):
+            row = r0 + p
+            if row >= bh:
+                break
+            grad = delta_w > 0.0 and p > 0
+            rr, lr = raw_dc[img, row], lam[img, row]
+            bts = np.zeros((bw, nc), np.int64)
+            acc, pc = None, None
+            for t in range(bw):
+                r = int(rr[t])
+                cm, c = cand(r, k)
+                lam_dc = F32(lr[t]) * ltbl0
+                d = _wrap(cm * q8 - abs(r))
+                dist = _wrap(d * d).astype(F32) * lam_dc
+                if grad:
+                    vd = _wrap(_wrap(int(raw_dc[img, row - 1, t]) - r)
+                               - _wrap(_wrap(int(s_dc[t]) * q8)
+                                       - _wrap(c * q8)))
+                    vdist = _wrap(vd * vd).astype(F32) * lam_dc
+                    dist = dist + w * (vdist - dist)
+                if t == 0:
+                    acc = trans(c - last) + dist
+                else:
+                    best, bl = None, np.zeros(32, np.int64)
+                    for lp in range(nc):          # shuffles from lane lp
+                        cost = (trans(c - pc[lp]) + dist) + acc[lp]
+                        upd = np.ones(32, bool) if lp == 0 else cost < best
+                        best = cost if lp == 0 else np.where(upd, cost, best)
+                        bl = np.where(upd, lp, bl)
+                    bts[t] = bl[:nc]
+                    acc = best
+                pc = c
+            fv, fi = warp_first_min(np.where(LANES < nc, acc, INF), LANES)
+            cur = int(fi[0])
+            sel = np.zeros(bw, np.int64)
+            for t in range(bw - 1, 0, -1):
+                sel[t], cur = cur, int(bts[t, cur])
+            sel[0] = cur
+            vals = np.array([cand(rr[t], sel[t])[1] for t in range(bw)],
+                            np.int32)
+            out[img, row] = vals
+            s_dc, last = vals, int(vals[-1])
+    return out
+
+
+def model_eob(ei, ac_si, bh, bw):
+    n = ei.shape[1]
+    rows, L = n // bw, bw
+    kept = np.zeros((rows, L), bool)
+    with np.errstate(over="ignore"):
+        for r in range(rows):
+            si = ac_si[r // bh].astype(np.int64)
+            rate = np.arange(16).astype(F32) + si[0:256:16].astype(F32)
+            o = r * L
+            skip = ei[1, o:o + L]
+            req = np.concatenate([[0], ei[2, o:o + L].astype(np.int64)])
+            azbc = np.zeros(L + 1, F32)
+            a = F32(0)
+            for b in range(L):                 # one lane, C order
+                a = a + ei[0, o + b]
+                azbc[b + 1] = a
+            abc = np.zeros(L + 1, F32)
+            brs = np.zeros(L, np.int64)
+
+            def fold(n_i, cost_of):
+                """Lanes fold i = lane, lane + 32, ... < n_i with strict
+                '<' from +inf, then the warp reduces."""
+                bv, bi = np.full(32, INF), np.full(32, 1 << 30)
+                for i0 in range(0, n_i, 32):
+                    i = i0 + LANES
+                    on = i < n_i
+                    c = cost_of(np.minimum(i, n_i - 1))
+                    upd = on & (c < bv)
+                    bv, bi = np.where(upd, c, bv), np.where(upd, i, bi)
+                return warp_first_min(bv, bi)
+
+            for b in range(L):
+                if req[b + 1] == 2:
+                    abc[b + 1], brs[b] = BIG, 0
+                    continue
+                base = skip[b] + azbc[b]
+
+                def step_cost(i):
+                    ok = (i <= b) & (req[i] != 2)
+                    run = np.maximum(b - i + req[i], 0)
+                    c = ((base - azbc[i]) + abc[i]) + rate[_nbits(run)]
+                    return np.where(ok, c, BIG)
+                bv, bi = fold(b + 2, step_cost)
+                abc[b + 1], brs[b] = bv[0], bi[0]
+
+            def end_cost(i):
+                c = (azbc[L] - azbc[i]) + rate[_nbits(L - i + req[i])]
+                return np.where(req[i] != 2, c, BIG)
+            _, fi = fold(L + 1, end_cost)
+            last = int(fi[0]) - 1
+            for b in range(L - 1, -1, -1):
+                kept[r, b] = last == b
+                if last == b:
+                    last = int(brs[b]) - 1
+    return kept
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("v,nc,delta_w,precision", [
+    (1, 9, 0.0, 8), (2, 9, 0.5, 8), (3, 5, 0.25, 8), (4, 1, 1.0, 8),
+    (2, 3, 0.5, 12), (2, 9, 0.0, 12)])
+def test_dc_kernel_model_matches_plain(seed, v, nc, delta_w, precision):
+    """The DC kernel's model against the plain version on seeded inputs:
+    bh % v != 0 for v > 1, ragged chains, ties (seed 0 takes the tie
+    generator), 12-bit wrap and clamps."""
+    b, bh, bw = 2, 2 * v + 1, 5 + seed
+    if seed == 0:
+        name, q0 = "ties", 1
+    else:
+        name, q0 = "seeded", (1, 2, 9, 33, 3000)[seed - 1]
+    raw_dc, lam, si = dc_inputs(name, b, bh, bw, q0, precision, 100 + seed)
+    case = (name, b, bh, bw, v, q0, nc, delta_w, precision)
+    args = _dc_args(case, (raw_dc, lam, si))
+    np.testing.assert_array_equal(model_dc(*args),
+                                  trw.trellis_dc_plain(*args).numpy())
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("b,bh,bw", [(1, 4, 33), (2, 2, 17), (1, 6, 2),
+                                    (1, 4, 70)])
+def test_eob_kernel_model_matches_plain(seed, b, bh, bw):
+    """The EOB kernel's model against the plain version: rows past one
+    warp's 32 candidates (bw 33), runs past 16, BIG costs."""
+    ei, si = eob_inputs(200 + seed, b, bh, bw)
+    with np.errstate(over="ignore"):
+        want = trw.eob_dp_plain(_t(ei), _t(si), bh, bw).numpy()
+    np.testing.assert_array_equal(model_eob(ei, si, bh, bw), want)

@@ -16,8 +16,8 @@ puts only <copy_parent> in front of the interpreter's own sys.path,
 checks that the JAX package cannot be found, installs an audit hook that
 fails the run on any open, os.listdir, os.scandir, ctypes.dlopen or
 subprocess.Popen naming a path under <forbidden> (the checkout's JAX
-package), builds the native host library (and on "cuda" both CUDA
-kernels) from the copy, then encodes the images of <in.npy> with the
+package), builds the native host library (and on "cuda" the three CUDA
+libraries) from the copy, then encodes the images of <in.npy> with the
 default configuration: on "cpu" encode() (the host engine), encode_many
 and decode of encode_many's bytes; on "cuda" encode() on the card, with
 the kernels' launch counts. Writes the results to <out.pkl>.
@@ -101,6 +101,7 @@ def child(copy_parent, forbidden, device, inpath, outpath):
     from mozjpeg_tpu_torch.native import build as nbuild
     from mozjpeg_tpu_torch.ops import tablegen as tg
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
     for mod in (mjt, nbuild):
         if not _under(mod.__file__, os.path.realpath(copy_parent)):
             raise SystemExit("%s loaded from %s" % (mod.__name__,
@@ -111,12 +112,12 @@ def child(copy_parent, forbidden, device, inpath, outpath):
     t0 = time.perf_counter()
     if device == "cuda":
         from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(3) as ex:
+        with ThreadPoolExecutor(4) as ex:
             futs = [ex.submit(f) for f in (nbuild.build_native, tac.build,
-                                           tg.build)]
+                                           tg.build, trw.build)]
             for f in futs:
                 f.result()
-        built = [nbuild.LIB_NAME, tac.LIB_NAME, tg.LIB_NAME]
+        built = [nbuild.LIB_NAME, tac.LIB_NAME, tg.LIB_NAME, trw.LIB_NAME]
     else:
         nbuild.build_native()
         built = [nbuild.LIB_NAME]
@@ -147,13 +148,15 @@ def child(copy_parent, forbidden, device, inpath, outpath):
         res["warm_s"] = time.perf_counter() - t0
         tac.reset_launches()
         tg.reset_launches()
+        trw.reset_launches()
         t0 = time.perf_counter()
         res["encode"] = [mjt.encode(im, cfg, device="cuda")
                          for im in images]
         torch.cuda.synchronize()
         res["encode_s"] = time.perf_counter() - t0
         res["launches"] = {"trellis_ac": tac.trellis_ac.launches,
-                           "tablegen": tg.launches}
+                           "tablegen": tg.launches,
+                           "trellis_dc": trw.trellis_dc.launches}
         res["host_engine_calls"] = len(host_calls)
     res["violations"] = violations
     with open(outpath, "wb") as f:
