@@ -18,12 +18,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      groups' launches, a tie-stress input, 12-bit inputs that wrap int32
      and clamp at 16383, the delta weight at v = 2 with an odd bh and a
      2048-block row; the EOB-run DP kernel on seeded strips (all-zero
-     rows, runs past 16, BIG costs); the card's lambda of both
-     groups against the CPU's and numpy's, exactly;
+     rows, runs past 16, BIG costs); p1's two kernels (csrc/p1.cu) on
+     every launch of both groups and on ops/p1.example_plane's seeded
+     planes (deringing's edge cases, long flat runs; uint8 and int32
+     samples; views into one buffer and a channel view; B = 8 and 1;
+     deringing on and off; restart intervals 0, 1, 5, n - 1, n, n + 3),
+     each output exactly equal to the plain version's; the card's lambda
+     of both groups against the CPU's and numpy's, exactly;
   4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
      photo-like images on the card, warm-up first, on the device-tablegen
-     route (3 trellis_ac, 3 trellis_dc and 1 tablegen launches a group, no
-     EOB-run DP); every output
+     route (3 trellis_ac, 3 trellis_dc, 3 of each p1 kernel and 1
+     tablegen launches a group, no EOB-run DP), every p1 launch of the
+     warm-up held against the plain versions; every output
      starts with SOI and ends with EOI, and the first and last image of
      each shape are byte-equal to the port's device="cpu" path;
   5. decode of the nineteen JPEGs of phase 4 on the card, warm-up first:
@@ -47,7 +53,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      the plain version in turns, the kernel's time held and with gaps,
      the plain version's, the bound and the chain's steps, and
      torch.profiler's device time, kernel count and top kernels of the
-     stage both ways and of the group's p1;
+     stage both ways and of the group's p1; each p1 kernel over the
+     group's 3 launches, held, with gaps, its plain version and its bound
+     (bytes, or integer operations at the INT32 rate); the p1 stage with
+     the kernels and with the plain versions in turns (synchronised) and
+     under torch.profiler, split by p1's ranges (p1:dering,
+     p1:fdct+quantize, p1:norm, p1:hist; p1:blocks with the kernels); the
+     plain p1 without its histogram replayed as one CUDA graph (a
+     yardstick only);
   7. the config matrix: for each configuration family of the batched
      encode surface (grayscale from 2-D planes and from RGB, RGB, CMYK
      and YCCK from seeded 4-channel images, device prep, smoothing, the
@@ -58,11 +71,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      CPU path's on a 256x192 and a 131x97 crop; the trellis kernel
      against its plain version, exactly with `ei`, on the launches of the
      grayscale, CMYK, use_scans_in_trellis and trellis_eob_opt groups,
-     and the row-scan kernels on their DC and EOB launches;
+     and the row-scan kernels on their DC and EOB launches; every p1
+     launch of each family's first full-size encode and of the recorded
+     groups against the plain versions (both p1 kernels on islow, none
+     on ifast or float);
      encode_many median MP/s over 3 reps of the 19-image corpus for nine
      families beside the default's, with the stage times of one
      8x768x512 group for the three slowest, with the row-scan kernels'
-     launches of each timed family; the EOB-run DP of the trellis_eob_opt
+     and p1 launches of each timed family; the EOB-run DP of the
+     trellis_eob_opt
      group (3 launches) with the kernel and the plain version in turns,
      held, with gaps and bound; the device time and kernel count of the
      EOB-run DP (kernel and plain), the device prep and the float DCT per
@@ -73,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      families the batched route does not carry (the arithmetic trellis,
      on one full-size image, sequential with restarts too, trellis_q_opt
      and qslots) and arithmetic coding without the trellis, checked as
-     in phase 7, with the kernel exactly against its plain version on the
+     in phase 7 (p1 too), the serial calls' p1 launches held against the
+     plain versions, with the kernel exactly against its plain version on the
      trellis_q_opt and qslots groups' launches and MP/s for three of
      them; the arithmetic trellis's seconds per 768x512 image, split into
      the row trellis on the card and the coder on the host; the device
@@ -109,8 +127,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      shifted left 4, seeded low bits) through encode_many with
      EncoderConfig(quality=75, precision=12) on the card, twice with the
      same bytes, and the card's bytes equal to the CPU path's on a
-     192x128 and a 131x97 crop; the AC kernel's <14, 16383> instantiation
-     exactly against its plain version on every launch of the group and
+     192x128 and a 131x97 crop, one launch of each p1 kernel a component;
+     the AC kernel's <14, 16383> instantiation and the p1 kernels (int32
+     samples) exactly against their plain versions on every launch of
+     the group and
      on the shared generator's dense, all-zero, tie, ragged (B = 3,
      n_img = 1,001) and N = 1 inputs at maxq 16383; its time per group,
      held and with the host's launch gaps, beside its plain version, its
@@ -129,8 +149,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      -verbose, on both files, equal to each other and to encode() of the
      image with the same configuration on the CPU (the host engine), its
      SCAN trace lines equal to the CPU's, 3 trellis_dc launches, every
-     trellis_dc launch of the checked calls exactly against the plain
-     version, and the DC stage of the 12 MP group with the kernel and the
+     trellis_dc and p1 launch of the checked calls (cjpeg, yuvjpeg,
+     encode_raw_yuv) exactly against the plain versions, and the DC stage of the 12 MP group with the kernel and the
      plain version in turns; yuvjpeg on the image's I420
      planes (made on the card with rgb_to_ycc and downsample_h2v2) equal
      to encode() of the image at yuvjpeg's configuration on the CPU, and
@@ -184,7 +204,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and all three, each equal to the dense route's bytes, with 3
      trellis_ac and 1 tablegen launches a group and the packs each codec
      must make (encoder.codec_routes), every launch of the all-codecs
-     run against its plain version; the 12-bit transport on phase 11's
+     run against its plain version (the p1 launches of its first group); the 12-bit transport on phase 11's
      photos (its <14, 16383> launches against the plain version); dense
      noise at q95 reaching the transport's repack at capacity 32 and its
      fall to the sparse pack (the route counts logged); the bytes each
@@ -207,7 +227,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      encode_row_sharded_scanopt, equal to encode_many of it (the
      per-image route on one card); every trellis_ac launch of each
      row-sharded call held exact against its plain version and counted
-     (4 shards x 3 components); wall s, MP/s and peak memory of the
+     (4 shards x 3 components), and so every p1 launch; wall s, MP/s and peak memory of the
      sharded and the per-image encode; a one-rank NCCL group running
      encode_row_sharded_scanopt_multihost, and two gloo processes on
      cuda:0 (tests/torch_multihost_worker.py) running
@@ -219,9 +239,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      only the copy and the interpreter's own paths, the JAX package not
      findable, an audit hook failing any open, listdir, scandir, dlopen
      or Popen naming a path under the checkout's mozjpeg_tpu/: it builds
-     the host library and both CUDA kernels from the copy (build seconds
-     logged) and encodes a 768x512 photo on the card, byte-equal to this
-     process, with 3 trellis_ac and 1 tablegen launches; the port's
+     the host library and the four CUDA libraries from the copy (build
+     seconds logged) and encodes a 768x512 photo on the card, byte-equal
+     to this process, with 3 trellis_ac, 3 trellis_dc, 1 tablegen and 3
+     of each p1 launches, every p1 launch held against the plain
+     versions in the child; the port's
      tjbench on a 4032x3024 photo at q95 4:2:0, plain and -progressive
      -optimize (compress and decompress MP/s, no kernel launch), and
      -tile at 768x512 for 4:4:4 and gray (every tile size exact, the
@@ -231,8 +253,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      launches an encode), its 768x512 rows equal to the CPU's, every
      launch of its first (4032x3024) encode against the plain versions;
  17. the script's time, the kernels line (both instantiations of the AC
-     kernel, the tablegen kernel, the DC trellis and the EOB-run DP), then
-     {"ok": true, "device": ...} as the last line.
+     kernel, the tablegen kernel, the DC trellis, the EOB-run DP and p1's
+     two kernels), then {"ok": true, "device": ...} as the last line.
 Launch counts are set to 0 just before each timed run of a path (phase
 4's main path, each timed family of phases 7 and 8, the serial calls of
 phase 8, phase 11's 12-bit main path, each of phase 12's calls, each of
@@ -243,9 +265,10 @@ phase 4's count of the <10, 1023> instantiation with phase 12's, phase
 11's of the <14, 16383> one with phase 14's, and phase 4's count of
 tablegen with phase 13's per device-search group, phase 14's and phase
 16's beside it; trellis_dc carries phase 4's count and trellis_eob the
-count of phase 7's timed trellis_eob_opt runs (the path it lies on), each
-with the launches held against its plain version over the whole run. It
-needs no network and imports no JAX.
+count of phase 7's timed trellis_eob_opt runs (the path it lies on),
+p1_blocks and p1_eob_hist phase 4's counts, each with the launches held
+against its plain version over the whole run. It needs no network and
+imports no JAX.
 """
 import contextlib
 import io
@@ -410,6 +433,141 @@ def check_rows(rec, label, first=None):
             rows_vs_plain(kind, args, "%s launch %d" % (label, i))
 
 
+P1_SOURCE = "mozjpeg_tpu_torch/csrc/p1.cu"
+P1_BLOCKS_REPLACES = "mozjpeg_tpu/codec/pipeline_t.py:413 (XLA, no pallas_call)"
+P1_EOB_REPLACES = "mozjpeg_tpu/ops/symbols.py:146 (XLA, no pallas_call)"
+# per p1 kernel: [largest difference from the plain version, the launches
+# held against it] over the whole run
+P1_CHECK = {"p1_blocks": [0.0, 0], "p1_eob_hist": [0.0, 0]}
+
+
+@contextlib.contextmanager
+def p1_recording(rec):
+    """p1's kernel launches inside record into rec["p1_blocks"] and
+    rec["p1_eob_hist"] (ops/p1.RECORDERS): each launch's arguments, the
+    EOB kernel's histogram as it was before the launch added into it."""
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+
+    def record(kind, args):
+        if kind == "p1_eob_hist":
+            args = (args[0], args[1].clone()) + tuple(args[2:])
+        rec.setdefault(kind, []).append(args)
+    tp1.RECORDERS.append(record)
+    try:
+        yield
+    finally:
+        tp1.RECORDERS.remove(record)
+
+
+def p1_vs_plain(kind, args):
+    """One launch of a p1 kernel ("p1_blocks" or "p1_eob_hist") against
+    its plain version on the card (its launch is not counted; the EOB
+    kernel and its plain version each add into a copy of the recorded
+    histogram) -> (every output equal in type and value, the largest
+    difference)."""
+    import torch
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+    kernel, plain = {"p1_blocks": (tp1.p1_blocks, tp1.p1_blocks_plain),
+                     "p1_eob_hist": (tp1.p1_eob_hist,
+                                     tp1.p1_eob_hist_plain)}[kind]
+    counts = tp1.p1_blocks.launches, tp1.p1_eob_hist.launches
+    if kind == "p1_eob_hist":
+        got = (kernel(args[0], args[1].clone(), *args[2:]),)
+        want = (plain(args[0], args[1].clone(), *args[2:]),)
+    else:
+        got, want = kernel(*args), plain(*args)
+    tp1.p1_blocks.launches, tp1.p1_eob_hist.launches = counts
+    torch.cuda.synchronize()
+    exact, err = True, 0.0
+    for g, w in zip(got, want):
+        exact = exact and g.dtype == w.dtype and torch.equal(g, w)
+        if g.numel() and g.shape == w.shape:
+            err = max(err, float((g.to(torch.float64)
+                                  - w.to(torch.float64)).abs().max()))
+    return exact, err
+
+
+def check_p1(rec, label, first=None):
+    """Each recorded p1 launch of rec (the first `first` of each kernel)
+    against its plain version; one line with the counts, and a failure
+    at the first difference."""
+    n, worst = {}, 0.0
+    for kind in ("p1_blocks", "p1_eob_hist"):
+        calls = rec.get(kind, [])[:first]
+        n[kind] = len(calls)
+        for i, args in enumerate(calls):
+            exact, err = p1_vs_plain(kind, args)
+            if not exact:
+                raise SystemExit("%s kernel disagrees with its plain version "
+                                 "(%s launch %d): max_abs_err=%g"
+                                 % (kind, label, i, err))
+            P1_CHECK[kind][0] = max(P1_CHECK[kind][0], err)
+            P1_CHECK[kind][1] += 1
+            worst = max(worst, err)
+    log("p1 kernels vs plain [%s]: p1_blocks %d launches, p1_eob_hist %d "
+        "launches: exact=True max_abs_err=%g"
+        % (label, n["p1_blocks"], n["p1_eob_hist"], worst))
+    return n
+
+
+def p1_seeded(qt, dev, bh=64, bw=96):
+    """Phase 3's seeded p1 launches against the plain versions:
+    ops/p1.example_plane's planes (deringing's edge cases, long flat
+    runs), uint8 and int32 samples, B = 8 and 1, deringing on and off; a
+    luma plane and a chroma plane (wider than its blocks) as views into
+    one buffer, and a channel view with a column stride; the EOB kernel
+    at restart intervals 0, 1, 5, n - 1, n and n + 3."""
+    import torch
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+    qt = qt.reshape(64).astype(np.int32)
+    ch, cw = bh // 2, bw // 2
+    for prec, b, dering_on in ((8, 8, True), (8, 1, False), (12, 8, True),
+                               (12, 1, False)):
+        luma = tp1.example_plane(b, bh, bw, prec, b + prec)
+        chroma = tp1.example_plane(b, ch, cw, prec, b + prec + 1,
+                                   ch * 8 + 8, cw * 8 + 8)
+        buf = torch.as_tensor(np.concatenate(
+            [luma.reshape(b, -1), chroma.reshape(b, -1)], 1), device=dev)
+        rgb = torch.as_tensor(np.stack([luma[:, :, :cw * 8]] * 3, -1),
+                              device=dev)
+        rec = {"p1_blocks": [], "p1_eob_hist": []}
+        for plane, pbh, pbw in (
+                (buf[:, :luma[0].size].reshape(luma.shape), bh, bw),
+                (buf[:, luma[0].size:].reshape(chroma.shape), ch, cw),
+                (rgb[..., 2], bh, cw)):
+            rec["p1_blocks"].append((plane, pbh, pbw, qt, dering_on, prec))
+            out = tp1.p1_blocks_plain(plane, pbh, pbw, qt, dering_on, prec)
+            n = pbh * pbw
+            for ri in (0, 1, 5, n - 1, n, n + 3):
+                rec["p1_eob_hist"].append((out[4], out[3], b, ri))
+        check_p1(rec, "seeded %d-bit B=%d dering=%s" % (prec, b, dering_on))
+
+
+def p1_bound(kind, args):
+    """(bytes, integer operations) of one p1 launch on these arguments.
+    p1_blocks: each block reads its 64 samples and writes 64 int16 and 64
+    int32 coefficients, its f32 norm and a flag byte, plus the image's
+    histogram; about 1,700 integer operations a block (16 FDCT passes of
+    42, 64 coefficients of 14 for quantization, zigzag and symbols, the
+    norm's 126), and 16 for each clipped sample when deringing is on (a
+    curve point where its block is deringed).
+    p1_eob_hist: each block's flag byte is read, each histogram read and
+    written; about 8 operations a block."""
+    if kind == "p1_eob_hist":
+        flags, hist = args[0], args[1]
+        return flags.numel() + 2 * hist.numel() * 4, 8.0 * flags.numel()
+    plane, bh, bw = args[:3]
+    nblk = plane.shape[0] * bh * bw
+    runs = 0
+    if args[4]:
+        import torch
+        top = plane[:, :bh * 8, :bw * 8].to(torch.int32) \
+            - (1 << (args[5] - 1))
+        runs = int((top >= 127).sum())
+    return (nblk * (64 * plane.element_size() + 64 * 2 + 64 * 4 + 4 + 1)
+            + plane.shape[0] * 256 * 4, 1700.0 * nblk + 16.0 * runs)
+
+
 def dc_bound(args):
     """(bytes, f32 operations) of the DC trellis on these arguments: each
     block reads its raw DC and lambda and writes its choice (12 bytes),
@@ -439,6 +597,16 @@ def eob_bound(args):
             float(5 * steps + 3 * rows * (bw + 1)))
 
 
+def is_kernel(e):
+    """Whether a torch.profiler event is a kernel or copy on the card, and
+    not the span of a record_function range on the card's timeline (such
+    as ops/p1.py's "p1:..." ranges)."""
+    import torch
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("p1:"))
+
+
 def sync_ms(fn, reps):
     """Synchronised host ms per call of fn (after one warm call)."""
     import torch
@@ -465,7 +633,7 @@ def profiled_top(fn, reps=3, top=8):
         torch.cuda.synchronize()
     by = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if is_kernel(e):
             t = by.setdefault(e.name[:90], [0.0, 0])
             t[0] += e.time_range.elapsed_us() / 1e3 / reps
             t[1] += 1
@@ -577,7 +745,7 @@ def decode_phase(images, outs, dev):
             decoder.render_ycc_batch(*args)
         torch.cuda.synchronize()
     dev_evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if is_kernel(e)]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_evs) / 1e3 / reps
     log("decode render per group: %.4f ms of device kernels (torch.profiler, "
         "%d kernels); between CUDA events %.4f ms held, %.4f ms with the "
@@ -602,7 +770,7 @@ def profiled(fn, reps=3):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
     evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if is_kernel(e)]
     return (sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps,
             len(evs) // reps, wall * 1e3)
 
@@ -693,6 +861,7 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
     import torch
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import encoder
+    from mozjpeg_tpu_torch.ops import p1 as tp1
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     from mozjpeg_tpu_torch.ops import trellis_rows as trw
     corpus = kodak + odd
@@ -703,7 +872,16 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
         cfg = family_config(kw)
         big = family_images([kodak[0]] if name in one_image
                             else [kodak[0], odd[0]], ch, 300)
-        outs = mjt.encode_many(big, cfg)
+        frec = {}
+        with p1_recording(frec):
+            outs = mjt.encode_many(big, cfg)
+        n1 = check_p1(frec, "%s, first full-size encode" % name)
+        islow = cfg.resolved().dct_method.value == "islow"
+        if n1["p1_blocks"] != n1["p1_eob_hist"] or (
+                (n1["p1_blocks"] > 0) != islow):
+            raise SystemExit("%s: p1 launches %s, expected both kernels on "
+                             "islow and neither on ifast or float"
+                             % (name, json.dumps(n1)))
         again = mjt.encode_many(big, cfg)
         if not all(o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"
                    for o in outs):
@@ -728,7 +906,7 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
             ctx = encoder.resolve_group(family_images(kodak[:1], ch, 300)[0],
                                         cfg)
             rec = {}
-            with ThreadPoolExecutor(8) as pool:
+            with ThreadPoolExecutor(8) as pool, p1_recording(rec):
                 for f in encoder.encode_group(
                         family_images(kodak[:8], ch, 300), ctx, dev, pool,
                         record=rec):
@@ -738,12 +916,14 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
                 max_err = max(max_err, compare(
                     args, "%s group launch %d" % (name, i)))
             check_rows(rec, "%s group" % name)
+            check_p1(rec, "%s group" % name)
         if name in timed:
             # warm: this family's kernels and shapes just ran above
             imgs = family_images(corpus, ch, 400)
             torch.cuda.synchronize()
             tac.reset_launches()
             trw.reset_launches()
+            tp1.reset_launches()
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -754,6 +934,7 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
             rows = {"trellis_dc": trw.trellis_dc.launches,
                     "trellis_eob": trw.eob_dp.launches}
             ROWS_LAUNCHES[name] = rows
+            p1n = (tp1.p1_blocks.launches, tp1.p1_eob_hist.launches)
             res = cfg.resolved()
             if res.trellis_quant and launches <= 0:
                 raise SystemExit("%s never launched the trellis kernel"
@@ -763,13 +944,19 @@ def check_families(families, recorded, timed, kodak, odd, dev, default_mps,
                     or (res.trellis_eob_opt and rows["trellis_eob"] <= 0)):
                 raise SystemExit("%s never launched a row-scan kernel it "
                                  "needs" % name)
+            if (p1n[0] != p1n[1] or (p1n[0] > 0)
+                    != (res.dct_method.value == "islow")):
+                raise SystemExit("%s: p1 launches %s in its timed runs"
+                                 % (name, p1n))
             rates[name] = [mp / w for w in walls]
             log("config matrix MP/s [%s]: median %.3f (reps %s), "
                 "trellis_ac launches=%d, trellis_dc launches=%d, "
-                "trellis_eob launches=%d; default %.3f"
+                "trellis_eob launches=%d, p1_blocks launches=%d, "
+                "p1_eob_hist launches=%d; default %.3f"
                 % (name, statistics.median(rates[name]),
                    ", ".join("%.3f" % v for v in rates[name]), launches,
-                   rows["trellis_dc"], rows["trellis_eob"], default_mps))
+                   rows["trellis_dc"], rows["trellis_eob"], p1n[0], p1n[1],
+                   default_mps))
     return rates, recs, max_err
 
 
@@ -869,7 +1056,10 @@ def per_image_routes(kodak, odd, dev, default_mps, compare, kept):
     for img in (kodak[0], odd[0]):
         label = "%dx%d" % (img.shape[1], img.shape[0])
         cpu = mjt.encode(img, cfg, device="cpu")
-        card = mjt.encode(img, cfg)
+        srec = {}
+        with p1_recording(srec):
+            card = mjt.encode(img, cfg)
+        check_p1(srec, "serial encode() %s" % label)
         ok = card == cpu and card[:2] == b"\xff\xd8" and card[-2:] == \
             b"\xff\xd9"
         ms = {}
@@ -1271,6 +1461,7 @@ def precision_phase(kodak8, jpegs8, dev, compare):
     import torch
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import encoder, trellis
+    from mozjpeg_tpu_torch.ops import p1 as tp1
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     t_phase = time.perf_counter()
     cfg8 = mjt.EncoderConfig(quality=75)
@@ -1285,7 +1476,7 @@ def precision_phase(kodak8, jpegs8, dev, compare):
     # every kernel launch of one 12-bit group against the plain version
     ctx = encoder.resolve_group(corpus[0], cfg12)
     rec = {}
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(8) as pool, p1_recording(rec):
         for f in encoder.encode_group(corpus, ctx, dev, pool, record=rec):
             f.result()
     recorded = rec["trellis_ac"]
@@ -1296,6 +1487,7 @@ def precision_phase(kodak8, jpegs8, dev, compare):
     for name, args in zip(("Y", "Cb", "Cr"), recorded):
         max_err = max(max_err, compare(args, "12-bit group %s" % name))
     check_rows(rec, "12-bit group")
+    check_p1(rec, "12-bit group")
     dense = example_trellis("dense", 8, 6144, dev, 17, 12)
     for args, label in (
             (dense, "12-bit dense"),
@@ -1310,14 +1502,20 @@ def precision_phase(kodak8, jpegs8, dev, compare):
     mjt.encode_many(corpus, cfg12)                      # warm-up
     torch.cuda.synchronize()
     tac.reset_launches()
+    tp1.reset_launches()
     outs = mjt.encode_many(corpus, cfg12)
     torch.cuda.synchronize()
     launches = dict(tac.trellis_ac.launches_by_kmax)
-    log("12-bit main path: 8x768x512, trellis_ac launches %s"
-        % json.dumps({"<%d>" % k: v for k, v in launches.items()}))
+    p1n = (tp1.p1_blocks.launches, tp1.p1_eob_hist.launches)
+    log("12-bit main path: 8x768x512, trellis_ac launches %s, p1_blocks "
+        "launches %d, p1_eob_hist launches %d"
+        % (json.dumps({"<%d>" % k: v for k, v in launches.items()}), *p1n))
     if launches[14] <= 0 or launches[10] != 0:
         raise SystemExit("the 12-bit path did not run trellis_ac<14, 16383>"
                          " alone")
+    if p1n != (3, 3):
+        raise SystemExit("the 12-bit group should launch each p1 kernel "
+                         "once a component")
     if mjt.encode_many(corpus, cfg12) != outs:
         raise SystemExit("12-bit outputs differ between runs")
     if not all(o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"
@@ -1544,6 +1742,7 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
                 max_err = max(max_err, compare(
                     args, "phase 12 %s %s launch %d" % (name, size, i)))
             check_rows(rec, "phase 12 %s %s" % (name, size))
+            check_p1(rec, "phase 12 %s %s" % (name, size))
         return out
 
     # 1. cjpeg on the card, PPM and PNG, against the host engine
@@ -1842,6 +2041,182 @@ def dc_stage(recorded, group, ctx, dev, smi, launches):
     return dict(name="trellis_dc", route="cuda", source=ROWS_SOURCE,
                 replaces=DC_REPLACES, launches=launches, library_ms=None,
                 **nums)
+
+
+@contextlib.contextmanager
+def plain_p1():
+    """p1's wrappers replaced by their plain versions inside (the route
+    p1 took on the card before its kernels), for the stage comparison and
+    profile of phase 6."""
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+    blocks, eob = tp1.p1_blocks, tp1.p1_eob_hist
+    tp1.p1_blocks, tp1.p1_eob_hist = tp1.p1_blocks_plain, tp1.p1_eob_hist_plain
+    try:
+        yield
+    finally:
+        tp1.p1_blocks, tp1.p1_eob_hist = blocks, eob
+
+
+def profiled_ranges(fn, reps=3):
+    """torch.profiler over reps calls of fn -> (device ms a call, kernels a
+    call, {range name: [device ms, kernels] a call}) for the ranges named
+    "p1:..." (ops/p1.py): the kernels that run inside each range's span
+    on the device's timeline (kernels launched through ctypes have no
+    PyTorch op to hang on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    kernels = [e for e in evs if is_kernel(e)]
+    ranges = {}
+    for a in evs:
+        if (a.device_type == torch.autograd.DeviceType.CUDA
+                and a.name.startswith("p1:")):
+            r = ranges.setdefault(a.name, [0.0, 0])
+            for k in kernels:
+                if (k.time_range.start >= a.time_range.start
+                        and k.time_range.end <= a.time_range.end):
+                    r[0] += k.time_range.elapsed_us() / 1e3 / reps
+                    r[1] += 1 / reps
+    total = sum(k.time_range.elapsed_us() for k in kernels) / 1e3 / reps
+    return total, len(kernels) / reps, {k: [round(v[0], 4), round(v[1], 2)]
+                                        for k, v in ranges.items()}
+
+
+def p1_graph_ms(blocks, reps=20):
+    """The plain p1 of a group's recorded p1_blocks launches without its
+    histogram (whose bincount synchronises): dering, FDCT, quantization
+    and the norm of each component, captured as one CUDA graph -> (device
+    ms a replay, held), or None where the capture fails (with the
+    reason). A yardstick only: no route of the port replays it."""
+    import torch
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+    tabs = [tp1._qtable(a[3]) for a in blocks]
+    q81s = [torch.as_tensor(t.reshape(8, 8, 1), device=blocks[0][0].device)
+            for t in tabs]
+
+    def body():
+        for a, q81, t in zip(blocks, q81s, tabs):
+            plane, bh, bw, _, dering_on, precision = a
+            _, raw = tp1.quantize_islow_plain(plane, bh, bw, q81, int(t[0]),
+                                              dering_on, precision)
+            tp1.norm_seq(raw)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+    return cuda_ms(graph.replay, reps), ""
+
+
+def p1_stage(rec, group, ctx, dev, smi, launches, reps=20):
+    """Phase 6's p1 of one 8x768x512 group from its recorded launches
+    (3 of each kernel): each kernel's device ms held and with the host's
+    launch gaps, its plain version's, the bound; the stage (p1_batch_pre)
+    with the kernels and with the plain versions in turns (synchronised
+    wall ms) and under torch.profiler, split by p1's ranges; the plain p1
+    without its histogram as one CUDA graph. launches: phase 4's counts.
+    -> the kernels-line entries of p1_blocks and p1_eob_hist."""
+    import torch
+    from mozjpeg_tpu_torch.codec import encoder, pipeline_t
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+    blocks, eobs = rec["p1_blocks"], rec["p1_eob_hist"]
+    if len(blocks) != 3 or len(eobs) != 3:
+        raise SystemExit("expected 3 launches of each p1 kernel per group, "
+                         "saw %d and %d" % (len(blocks), len(eobs)))
+    scratch = [torch.zeros_like(a[1]) for a in eobs]
+    fns = {"p1_blocks": (lambda: [tp1.p1_blocks(*a) for a in blocks],
+                         lambda: [tp1.p1_blocks_plain(*a) for a in blocks]),
+           "p1_eob_hist": (
+               lambda: [tp1.p1_eob_hist(a[0], h, *a[2:])
+                        for a, h in zip(eobs, scratch)],
+               lambda: [tp1.p1_eob_hist_plain(a[0], h, *a[2:])
+                        for a, h in zip(eobs, scratch)])}
+    replaces = {"p1_blocks": P1_BLOCKS_REPLACES,
+                "p1_eob_hist": P1_EOB_REPLACES}
+    entries = []
+    for kind, recorded in (("p1_blocks", blocks), ("p1_eob_hist", eobs)):
+        kernel, plain = fns[kind]
+        k_ms, k_un = cuda_ms(kernel, reps), cuda_ms(kernel, reps, hold=False)
+        if kind == "p1_blocks":
+            first = lambda: tp1.p1_blocks(*blocks[0])       # noqa: E731
+        else:
+            first = lambda: tp1.p1_eob_hist(                # noqa: E731
+                eobs[0][0], scratch[0], *eobs[0][2:])
+        first_ms = cuda_ms(first, reps)
+        p_ms = cuda_ms(plain, 3, hold=False)
+        nbytes, ops = (sum(x) for x in zip(*(p1_bound(kind, a)
+                                             for a in recorded)))
+        bound_ms, bound_by = bound(nbytes, ops, H100_INT32_OPS)
+        log("%s of one 8x768x512 group (3 launches) on %s: kernel %.4f ms "
+            "(%.4f ms with the host's launch gaps), plain %.3f ms, bound "
+            "%.6f ms (%.4g integer ops, %d bytes, by %s), %.2f%% of the "
+            "bound; first (luma) launch %.4f ms"
+            % (kind, smi, k_ms, k_un, p_ms, bound_ms, ops, nbytes, bound_by,
+               100 * bound_ms / k_ms, first_ms))
+        entries.append(dict(
+            name=kind, route="cuda", source=P1_SOURCE,
+            replaces=replaces[kind], launches=launches[kind],
+            library_ms=None, ms=k_ms, kernel_ms=k_ms,
+            ms_with_launch_gaps=k_un, plain_ms=p_ms, bound_ms=bound_ms,
+            bound_by=bound_by, first_launch_ms=first_ms))
+
+    # the stage, kernels and plain versions in turns, and its profile
+    cfg = ctx.cfg
+    geom, bufs = pipeline_t.prep_ycc_batch(group, ctx.samp)
+    bufs_t = torch.from_numpy(bufs).to(dev)
+    ris = encoder.trellis_ris(cfg, geom[2])
+    slots = encoder.qt_slots(cfg, ctx.cs, ctx.ncomps)
+
+    def stage():
+        pipeline_t.p1_batch_pre(bufs_t, tuple(geom[2]), ctx.qtables,
+                                cfg.overshoot_deringing,
+                                cfg.dct_method.value, ris, slots)
+
+    walls = {"kernels": [], "plain": []}
+    for way in ("kernels", "plain", "plain", "kernels"):
+        with plain_p1() if way == "plain" else contextlib.nullcontext():
+            walls[way].append(sync_ms(stage, 3))
+    prof = {}
+    for way in ("plain", "kernels"):
+        with plain_p1() if way == "plain" else contextlib.nullcontext():
+            prof[way] = profiled_ranges(stage, 3)
+        log("p1 stage of one 8x768x512 group [%s] on %s: synchronised wall "
+            "%s ms; %.4f ms of device kernels (torch.profiler), %d kernels; "
+            "by range {name: [device ms, kernels]} %s"
+            % ("the plain versions (the route before the kernels)"
+               if way == "plain" else "the kernels", smi,
+               ["%.3f" % t for t in walls[way]], prof[way][0], prof[way][1],
+               json.dumps(prof[way][2])))
+    g_ms, why = p1_graph_ms(blocks, reps)
+    log("p1 plain version without its histogram (dering, FDCT, quantize, "
+        "norm of 3 components) as one CUDA graph on %s: %s; p1_blocks "
+        "kernel (the same work and the histogram) %.4f ms"
+        % (smi, "%.4f ms a replay, held" % g_ms if g_ms is not None
+           else "not measured (%s)" % why, entries[0]["ms"]))
+    stage_nums = {"stage_wall_ms": statistics.median(walls["kernels"]),
+                  "stage_wall_ms_plain": statistics.median(walls["plain"]),
+                  "stage_device_ms": prof["kernels"][0],
+                  "stage_kernels": prof["kernels"][1],
+                  "stage_device_ms_plain": prof["plain"][0],
+                  "stage_kernels_plain": prof["plain"][1],
+                  "plain_graph_ms": g_ms}
+    entries[0].update(stage_nums)
+    return entries
 
 
 def dev_first_routes(group, ctx, dev):
@@ -2248,7 +2623,7 @@ def recording(rec):
     """encode_many's trellis passes and the row-sharded encoders' trellis
     record into rec (encoder._finals and trellis.trellis_all get a record
     dict: each trellis_ac launch's arguments and each tablegen launch's
-    counts)."""
+    counts), and p1's launches too (p1_recording)."""
     from mozjpeg_tpu_torch.codec import encoder, trellis
     finals, trellis_all = encoder._finals, trellis.trellis_all
 
@@ -2261,7 +2636,8 @@ def recording(rec):
     encoder._finals = record
     trellis.trellis_all = record_all
     try:
-        yield
+        with p1_recording(rec):
+            yield
     finally:
         encoder._finals = finals
         trellis.trellis_all = trellis_all
@@ -2344,6 +2720,7 @@ def transfer_codecs(images, outs, ngroups, dev, smi, compare, h=3024,
                 compare(args, "phase 14 %s launch %d" % (name, i))
             for i, f in enumerate(rec["tablegen"]):
                 tablegen_vs_plain(f, "phase 14 %s launch %d" % (name, i))
+            check_p1(rec, "phase 14 %s, first group" % name, first=3)
 
     # 2. the 12-bit transport on phase 11's photos
     rng = np.random.default_rng(1200)
@@ -2547,6 +2924,7 @@ def sharded_run(fn, compare, label, nshards):
     for i, args in enumerate(calls):
         err = max(err, compare(args, "phase 15 %s launch %d" % (label, i)))
     check_rows(rec, "phase 15 %s" % label)
+    check_p1(rec, "phase 15 %s" % label)
     return out, wall, peak, n, err
 
 
@@ -2774,17 +3152,26 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
     want = mjt.encode(kodak[0], mjt.EncoderConfig(quality=75), device=dev)
     ok = (res["encode"] == [want] and not res["violations"]
           and res["launches"] == {"trellis_ac": 3, "tablegen": 1,
-                                  "trellis_dc": 3})
+                                  "trellis_dc": 3, "p1_blocks": 3,
+                                  "p1_eob_hist": 3}
+          and res["p1_check"][1:] == [6, True])
+    if res["p1_check"][2]:
+        for kind in P1_CHECK:
+            P1_CHECK[kind][0] = max(P1_CHECK[kind][0], res["p1_check"][0])
+            P1_CHECK[kind][1] += 3
     log("phase 16 standalone copy (sys.path: the copy and the "
         "interpreter's own; audit hook on the checkout's JAX package): "
         "built %s from the copy in %.1f s, first encode %.1f s, encode() "
         "of a 768x512 photo %.3f s with trellis_ac %d, tablegen %d, "
-        "trellis_dc %d launches, audit violations %d, bytes equal to this "
-        "process=%s (%.1f s)"
+        "trellis_dc %d, p1_blocks %d, p1_eob_hist %d launches; p1 kernels "
+        "vs plain over %d launches: exact=%s max_abs_err=%g; audit "
+        "violations %d, bytes equal to this process=%s (%.1f s)"
         % (", ".join(res["built"]), res["build_s"], res["warm_s"],
            res["encode_s"],
            res["launches"]["trellis_ac"], res["launches"]["tablegen"],
-           res["launches"]["trellis_dc"],
+           res["launches"]["trellis_dc"], res["launches"]["p1_blocks"],
+           res["launches"]["p1_eob_hist"], res["p1_check"][1],
+           res["p1_check"][2], res["p1_check"][0],
            len(res["violations"]), res["encode"] == [want],
            time.perf_counter() - t0))
     if not ok:
@@ -2880,6 +3267,7 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
     tg_err = tablegen_vs_plain(rec["tablegen"][0],
                                "phase 16 rd_collect %dx%d q50" % (w, h))
     check_rows(rec, "phase 16 rd_collect %dx%d q50" % (w, h), first=3)
+    check_p1(rec, "phase 16 rd_collect %dx%d q50" % (w, h), first=3)
     tmp.cleanup()
     log("phase 16: %.1f s" % (time.perf_counter() - t_phase))
     return {"<10>": n[0], "tablegen": n[2]}, err, tg_err
@@ -2894,6 +3282,7 @@ def main():
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import encoder, trellis
     from mozjpeg_tpu_torch.native import build as nbuild
+    from mozjpeg_tpu_torch.ops import p1 as tp1
     from mozjpeg_tpu_torch.ops import tablegen as tg
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     from mozjpeg_tpu_torch.ops import trellis_rows as trw
@@ -2911,23 +3300,27 @@ def main():
                                     torch.cuda.get_device_name(0)))
 
     # ---- 2. builds, in parallel ----
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
         f_nat = ex.submit(nbuild.build_native)
         f_ker = ex.submit(tac.build)
         f_tg = ex.submit(tg.build)
         f_rows = ex.submit(trw.build)
+        f_p1 = ex.submit(tp1.build)
         ker_s, ptxas = f_ker.result()
         tg_s, tg_ptxas = f_tg.result()
         rows_s, rows_ptxas = f_rows.result()
+        p1_s, p1_ptxas = f_p1.result()
         log("build: native %.1f s, trellis_ac kernel %.1f s, tablegen "
-            "kernel %.1f s, trellis_rows kernels %.1f s"
-            % (f_nat.result(), ker_s, tg_s, rows_s))
+            "kernel %.1f s, trellis_rows kernels %.1f s, p1 kernels %.1f s"
+            % (f_nat.result(), ker_s, tg_s, rows_s, p1_s))
     for line in ptxas:
         log("trellis_ac build: " + line)
     for line in tg_ptxas:
         log("tablegen build: " + line)
     for line in rows_ptxas:
         log("trellis_rows build: " + line)
+    for line in p1_ptxas:
+        log("p1 build: " + line)
 
     # ---- 3. kernel vs plain on the card ----
     cfg = mjt.EncoderConfig(quality=75)
@@ -2937,9 +3330,10 @@ def main():
     rec_k, rec_o = {}, {}
     with ThreadPoolExecutor(8) as pool:
         for group, rec in ((kodak[:8], rec_k), (odd, rec_o)):
-            for f in encoder.encode_group(group, ctx, dev, pool,
-                                          record=rec):
-                f.result()
+            with p1_recording(rec):
+                for f in encoder.encode_group(group, ctx, dev, pool,
+                                              record=rec):
+                    f.result()
     recorded = rec_k["trellis_ac"]          # one 768x512 group: Y, Cb, Cr
     for rec in (rec_k, rec_o):
         if len(rec["trellis_ac"]) != 3 or len(rec["trellis_dc"]) != 3:
@@ -2998,6 +3392,14 @@ def main():
     # bh, a row past 48 KB of shared memory) and EOB strips
     check_rows(rec_k, "main path 768x512")
     check_rows(rec_o, "main path 1021x683")
+
+    # p1's kernels: both groups' launches, then seeded planes with
+    # deringing's edge cases and long flat runs (uint8 and int32 samples,
+    # views into one buffer at a chroma offset and with a column stride,
+    # B = 1 and 8, deringing on and off, restart intervals)
+    check_p1(rec_k, "main path 768x512")
+    check_p1(rec_o, "main path 1021x683")
+    p1_seeded(np.asarray(ctx.qtables[1]), dev)
     for kind, shape, v, q0, nc, dw, prec, label in (
             ("tie", (3, 9, 33), 2, 1, 9, 0.5, 8, "tie-stress"),
             ("seeded", (2, 7, 40), 2, 3000, 9, 0.5, 12, "12-bit wrap"),
@@ -3036,11 +3438,15 @@ def main():
     # ---- 4. the slice ----
     images = kodak + odd
     mp = sum(im.shape[0] * im.shape[1] for im in images) / 1e6
-    mjt.encode_many(images, cfg)                       # warm-up
+    rec4 = {}
+    with p1_recording(rec4):
+        mjt.encode_many(images, cfg)                   # warm-up
+    check_p1(rec4, "main path warm-up, 3 groups")
     torch.cuda.synchronize()
     tac.reset_launches()
     tg.reset_launches()
     trw.reset_launches()
+    tp1.reset_launches()
     t0 = time.perf_counter()
     outs = mjt.encode_many(images, cfg)
     torch.cuda.synchronize()
@@ -3048,18 +3454,26 @@ def main():
     launches = tac.trellis_ac.launches_by_kmax[10]
     tg_launches = tg.launches
     dc_launches, eob_launches = trw.trellis_dc.launches, trw.eob_dp.launches
+    p1_launches = {"p1_blocks": tp1.p1_blocks.launches,
+                   "p1_eob_hist": tp1.p1_eob_hist.launches}
     ngroups = 3                      # two groups of eight 768x512, one of 3
     log("main path: %d images, %.3f MP, %d groups, trellis_ac<10, 1023> "
         "launches=%d, tablegen launches=%d, trellis_dc launches=%d, "
-        "trellis_eob launches=%d" % (len(images), mp, ngroups, launches,
-                                     tg_launches, dc_launches, eob_launches))
-    if launches <= 0 or dc_launches <= 0:
-        raise SystemExit("the main path never launched the trellis kernels")
+        "trellis_eob launches=%d, p1_blocks launches=%d, p1_eob_hist "
+        "launches=%d" % (len(images), mp, ngroups, launches, tg_launches,
+                         dc_launches, eob_launches,
+                         p1_launches["p1_blocks"],
+                         p1_launches["p1_eob_hist"]))
+    if launches <= 0 or dc_launches <= 0 or min(p1_launches.values()) <= 0:
+        raise SystemExit("the main path never launched the trellis or p1 "
+                         "kernels")
     if (launches != 3 * ngroups or tg_launches != ngroups
-            or dc_launches != 3 * ngroups or eob_launches):
-        raise SystemExit("the main path should launch trellis_ac and "
-                         "trellis_dc 3 times and tablegen once a group (the "
-                         "device-tablegen route), and no EOB-run DP")
+            or dc_launches != 3 * ngroups or eob_launches
+            or set(p1_launches.values()) != {3 * ngroups}):
+        raise SystemExit("the main path should launch trellis_ac, "
+                         "trellis_dc and both p1 kernels 3 times and "
+                         "tablegen once a group (the device-tablegen route), "
+                         "and no EOB-run DP")
     for o in outs:
         if not (o[:2] == b"\xff\xd8" and o[-2:] == b"\xff\xd9"):
             raise SystemExit("output without SOI/EOI")
@@ -3136,6 +3550,7 @@ def main():
            d_by, 100 * d_bound / d_ms))
     k_dc = dc_stage(rec_k["trellis_dc"], kodak[:8], ctx, dev, smi,
                     dc_launches)
+    k_p1 = p1_stage(rec_k, kodak[:8], ctx, dev, smi, p1_launches)
 
     # ---- 7. the config matrix ----
     kept = {}
@@ -3188,6 +3603,10 @@ def main():
         entry["max_abs_err"], entry["launches_checked"] = \
             ROWS_CHECK[entry["name"]]
         entry["exact"] = entry["max_abs_err"] == 0
+    for entry in k_p1:
+        entry["max_abs_err"], entry["launches_checked"] = \
+            P1_CHECK[entry["name"]]
+        entry["exact"] = entry["max_abs_err"] == 0
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps({"kernels": [{
         "name": "trellis_ac<10, 1023>", "route": "cuda",
@@ -3200,7 +3619,7 @@ def main():
         "dense_bound_ms": d_bound, "launches_phase12": l12,
         "launches_phase14": l14["<10>"], "launches_phase15": l15,
         "launches_phase16": l16["<10>"]},
-        k12, k_tg, k_dc, k_eob]}))
+        k12, k_tg, k_dc, k_eob] + k_p1}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

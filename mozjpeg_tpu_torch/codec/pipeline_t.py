@@ -6,6 +6,9 @@ block of a group of same-shape images at once, per component:
   blockify -> [zigzag -> dering -> natural] -> FDCT (islow, ifast or
   float) -> quantize -> clip +-(2^(precision+2)-1) -> zigzag; norm sums;
   AC-first histograms (segmented at the trellis's restart intervals).
+The islow chain, the norms and the histograms run in ops/p1.py: two
+hand-written CUDA kernels a component on the card, their plain PyTorch
+versions on the CPU.
 
 Its planes come one of three ways, as in the JAX package's _batch_p1:
   - host prep (run_p1_batch_pre): the native mj_prep_ycc converts and
@@ -36,9 +39,10 @@ import os
 import numpy as np
 import torch
 
-from .. import consts, native
-from ..ops import (bitpack, color, dct, dering, layout, planepack, quant,
+from .. import native
+from ..ops import (bitpack, color, dct, dering, layout, p1, planepack,
                    sample, symbols)
+from ..ops.p1 import norm_seq  # noqa: F401  (the port's name for it)
 from .pipeline import CompGeom, geometry
 
 
@@ -103,18 +107,6 @@ def unpack_ycc_batch(hdrs: torch.Tensor, flat: torch.Tensor,
                                    bases.to(torch.int64))
 
 
-def norm_seq(raw_zz: torch.Tensor) -> torch.Tensor:
-    """Sequential f32 sum of squared AC coefficients in NATURAL index
-    order (63 elementwise adds, the C reference's order)."""
-    r = raw_zz.to(torch.float32)
-    terms = r * r
-    acc = torch.zeros(raw_zz.shape[1], dtype=torch.float32,
-                      device=raw_zz.device)
-    for zpos in consts.JPEG_ZIGZAG_INV[1:]:
-        acc = acc + terms[int(zpos)]
-    return acc
-
-
 def _t81(table: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(table).reshape(8, 8, 1),
                            device=device)
@@ -136,7 +128,11 @@ def quantize_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
     """The real blocks of one component's planes (B, >= bh*8, >= bw*8)
     samples (uint8, or int32 above 8 bits) -> (q_zz (64, B*n), raw_zz
     (64, B*n) int32): [dering], FDCT, quantization, the post-dering
-    clamp, zigzag."""
+    clamp, zigzag. islow runs through ops/p1.p1_blocks (its kernel on
+    the card)."""
+    if dct_method == "islow":
+        return p1.p1_blocks(plane, g.bh, g.bw, qtbl, dering_on,
+                            precision)[:2]
     dev = plane.device
     qtbl = np.asarray(qtbl)
     q0 = int(qtbl.reshape(64)[0])
@@ -161,9 +157,7 @@ def quantize_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
         qz = dct.quantize_float_t(sc, _t81(dct.float_divisors(qtbl), dev))
         coeffs = dct.rescale_float_t(sc)
     else:
-        coeffs = dct.fdct_islow_t(blocks, dct.pass1_bits(precision))
-        qz = quant.quantize_islow_t(
-            coeffs, _t81(np.asarray(qtbl, np.int32), dev))
+        raise ValueError("unknown dct_method %r" % dct_method)
     if dering_on:
         # post-dering clamp (jcdctmgr.c:706,764)
         maxc = (1 << (precision + 2)) - 1
@@ -177,7 +171,11 @@ def p1_comp(plane: torch.Tensor, g: CompGeom, qtbl: np.ndarray,
     """One component of a group: plane (B, >= bh*8, >= bw*8) samples
     (uint8, or int32 above 8 bits) -> (q_zz (64, B*n) int16, raw_zz
     (64, B*n) int32, norm (B*n,) f32, AC-first histograms (B, 256)
-    int32)."""
+    int32). islow runs through ops/p1.p1_islow (two kernel launches on
+    the card); ifast and float through quantize_comp's PyTorch ops."""
+    if dct_method == "islow":
+        return p1.p1_islow(plane, g.bh, g.bw, qtbl, dering_on, ri,
+                           precision)
     q_zz, raw_zz = quantize_comp(plane, g, qtbl, dering_on, dct_method,
                                  precision)
     return (q_zz, raw_zz, norm_seq(raw_zz),

@@ -23,6 +23,16 @@ MAXS = 127  # 255 - CENTERJSAMPLE
 with np.errstate(divide="ignore"):
     _STEP_LUT = np.float32(1.0) / np.arange(66, dtype=np.float32)
 _STEP_LUT[:2] = 0.0
+_LUTS = {}
+
+
+def _step_lut(dev) -> torch.Tensor:
+    """_STEP_LUT on dev, uploaded once per device (so that a call
+    uploads nothing and can be captured in a CUDA graph)."""
+    t = _LUTS.get(str(dev))
+    if t is None:
+        t = _LUTS[str(dev)] = torch.as_tensor(_STEP_LUT, device=dev)
+    return t
 
 
 def _hold(values, valid, reverse: bool, seed):
@@ -93,8 +103,7 @@ def _curve(zz: torch.Tensor, m: torch.Tensor, cnt: torch.Tensor):
     lslope_ = torch.where(end == 64, fslope, lslope)
 
     length = end - start
-    lut = torch.as_tensor(_STEP_LUT, device=dev)
-    step = lut[torch.clamp(length + 1, 0, 65)]
+    step = _step_lut(dev)[torch.clamp(length + 1, 0, 65)]
     run_first = m & ~torch.cat(
         [torch.zeros((1, n), dtype=torch.bool, device=dev), m[:-1]], 0)
 

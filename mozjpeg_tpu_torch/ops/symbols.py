@@ -4,7 +4,10 @@ Port of mozjpeg_tpu/ops/symbols.py:
   - ac_first_histogram_t and _ac_first_hist_seg: the exact phuff
     AC-first gather counts of mozjpeg jcphuff.c encode_mcu_AC_first in
     coefficient-major layout, including the cross-block EOB runs, the
-    0x7FFF forced flush and the flush at restart boundaries;
+    0x7FFF forced flush and the flush at restart boundaries (its
+    within-block and cross-block halves, within_block_hist and
+    eob_run_hist, are also ops/p1.py's plain versions of the p1
+    kernels);
   - ac_histogram, dc_histogram_interleaved and dc_histogram_restart: the
     sequential scan's dc_counts / ac_counts of the reference's gather
     pass (jchuff.c:886-944) in block-major layout, which the sharded
@@ -33,16 +36,14 @@ def _bincount_rows(sym, mask, nrows: int) -> torch.Tensor:
     return torch.bincount(flat, minlength=256 * nrows).reshape(nrows, 256)
 
 
-def _ac_first_hist_seg(zz: torch.Tensor, Ss: int, Se: int) -> torch.Tensor:
-    """zz (64, B, N): B independent segments of N blocks -> (B, 256)
-    int64 counts."""
-    band = zz[Ss:Se + 1].to(torch.int32)               # (L, B, N)
+def within_block_hist(band: torch.Tensor) -> torch.Tensor:
+    """band (L, B, N) coefficients of B segments in one band -> (B, 256)
+    int64 counts of the within-block (run, size) symbols: per nonzero
+    coefficient ((run & 15) << 4) | nbits, and (run >> 4) ZRLs."""
+    band = band.to(torch.int32)
     L, B, N = band.shape
-    dev = band.device
     nz = band != 0
-    pos = torch.arange(L, device=dev)[:, None, None]
-
-    # per-block (run, size) symbols from the within-block zero runs
+    pos = torch.arange(L, device=band.device)[:, None, None]
     idx = torch.where(nz, pos + 1, 0)
     prev_incl = idx.cummax(0).values
     prev_excl = torch.cat([torch.zeros_like(prev_incl[:1]),
@@ -51,12 +52,19 @@ def _ac_first_hist_seg(zz: torch.Tensor, Ss: int, Se: int) -> torch.Tensor:
     sym = ((run & 15) << 4) | nbits(band.abs())
     hist = _bincount_rows(sym.permute(1, 0, 2), nz.permute(1, 0, 2), B)
     hist[:, 0xF0] += torch.where(nz, run >> 4, 0).sum((0, 2))
+    return hist
 
-    # EOB runs across blocks: a run starts at a block with trailing zeros,
-    # extends over the following all-zero blocks and is emitted before
-    # the next block holding a nonzero (or at the segment's end)
-    has_nz = nz.any(0)                                 # (B, N)
-    trailing = ~nz[-1]
+
+def eob_run_hist(has_nz: torch.Tensor, trailing: torch.Tensor
+                 ) -> torch.Tensor:
+    """The EOB runs across blocks of B segments of N blocks: has_nz (B,
+    N) bool, a block holds a nonzero in the band; trailing (B, N) bool,
+    its last band coefficient is zero -> (B, 256) int64 counts. A run
+    starts at a block with trailing zeros, extends over the following
+    all-zero blocks and is emitted before the next block holding a
+    nonzero (or at the segment's end)."""
+    B, N = has_nz.shape
+    dev = has_nz.device
     bpos = torch.arange(N, device=dev)[None, :]
     prev_nzb_incl = torch.where(has_nz, bpos, -1).cummax(1).values
     prev_nzb = torch.cat([torch.full((B, 1), -1, device=dev,
@@ -84,10 +92,37 @@ def _ac_first_hist_seg(zz: torch.Tensor, Ss: int, Se: int) -> torch.Tensor:
         cat = (nbits(r) - 1).clamp_min(0)
         return hist + _bincount_rows(cat << 4, valid & (r > 0), B)
 
+    hist = torch.zeros((B, 256), dtype=torch.int64, device=dev)
     hist = add_runs(hist, run_at, emit_here)
-    hist = add_runs(hist, final_run, torch.ones_like(final_run,
+    return add_runs(hist, final_run, torch.ones_like(final_run,
                                                      dtype=torch.bool))
-    return hist
+
+
+def _ac_first_hist_seg(zz: torch.Tensor, Ss: int, Se: int) -> torch.Tensor:
+    """zz (64, B, N): B independent segments of N blocks -> (B, 256)
+    int64 counts."""
+    nz = zz[Ss:Se + 1] != 0
+    return (within_block_hist(zz[Ss:Se + 1])
+            + eob_run_hist(nz.any(0), ~nz[-1]))
+
+
+def by_segment(fn, x: torch.Tensor, batch: int, ri: int) -> torch.Tensor:
+    """fn over the restart segments of image-major blocks: x (..., B*n)
+    -> (B, 256) int32, fn (..., S, L) -> (S, 256) counts of S segments of
+    L blocks. With a restart interval ri each image splits into segments
+    of ri blocks in raster order (the last one shorter), counted
+    independently and summed."""
+    lead = x.shape[:-1]
+    xb = x.reshape(*lead, batch, -1)
+    n = xb.shape[-1]
+    if not ri or ri >= n:
+        return fn(xb).to(torch.int32)
+    nfull = n // ri
+    hist = fn(xb[..., :nfull * ri].reshape(*lead, batch * nfull, ri)) \
+        .reshape(batch, nfull, 256).sum(1)
+    if n > nfull * ri:
+        hist = hist + fn(xb[..., nfull * ri:])
+    return hist.to(torch.int32)
 
 
 def ac_first_histogram_t(zz: torch.Tensor, Ss: int = 1, Se: int = 63,
@@ -105,17 +140,8 @@ def ac_first_histograms_t(zz: torch.Tensor, batch: int, ri: int = 0,
     histogram per image over band [Ss, Se]. With a restart interval ri
     each image splits into segments of ri blocks in raster order (the
     last one shorter), counted independently and summed."""
-    zb = zz.reshape(64, batch, -1)
-    n = zb.shape[2]
-    if not ri or ri >= n:
-        return _ac_first_hist_seg(zb, Ss, Se).to(torch.int32)
-    nfull = n // ri
-    hist = _ac_first_hist_seg(
-        zb[:, :, :nfull * ri].reshape(64, batch * nfull, ri), Ss, Se) \
-        .reshape(batch, nfull, 256).sum(1)
-    if n > nfull * ri:
-        hist = hist + _ac_first_hist_seg(zb[:, :, nfull * ri:], Ss, Se)
-    return hist.to(torch.int32)
+    return by_segment(lambda z: _ac_first_hist_seg(z, Ss, Se), zz, batch,
+                      ri)
 
 
 def dc_hist(deltas: torch.Tensor) -> torch.Tensor:

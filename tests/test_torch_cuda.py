@@ -28,7 +28,12 @@ the remote decode routes (host render, packed with and without the plane
 pack) against the card's default; and the trellis program's row scans:
 the DC trellis and EOB-run DP kernels against their plain versions on
 seeded, tie, 12-bit and wide inputs, and the eob_opt and delta-weight
-encodes with one launch of each per component. They skip without a GPU;
+encodes with one launch of each per component; and p1's two kernels
+(csrc/p1.cu) against their plain versions on ops/p1.example_plane's
+adversarial planes (uint8 and int32 samples, views into a host-prep
+buffer at the chroma offsets, B = 1 and 8, restart intervals), and
+encode_many at 8 and 12 bits with two p1 launches a component against
+the CPU. They skip without a GPU;
 run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -42,6 +47,7 @@ import torch
 import mozjpeg_tpu_torch as mjt
 from mozjpeg_tpu_torch.codec import marker
 from mozjpeg_tpu_torch.codec import trellis as ttr
+from mozjpeg_tpu_torch.ops import p1 as tp1
 from mozjpeg_tpu_torch.ops import trellis_ac as tac
 from mozjpeg_tpu_torch.ops import trellis_rows as trw
 from test_torch_trellis_order import BANDS
@@ -759,4 +765,89 @@ def test_row_scans_launch_once_per_component_on_the_card(cuda):
     torch.cuda.synchronize()
     assert trw.trellis_dc.launches == trw.eob_dp.launches
     assert trw.trellis_dc.launches % 3 == 0 and trw.trellis_dc.launches > 0
+    assert got == mjt.encode_many(imgs, cfg, device="cpu")
+
+
+def _p1_buffer(b, precision, geoms, seed):
+    """A (B, total) host-prep style buffer of example planes, back to back,
+    and each plane's (offset, bh, bw, ph, pw)."""
+    parts, where, off = [], [], 0
+    for i, (bh, bw, ph, pw) in enumerate(geoms):
+        p = tp1.example_plane(b, bh, bw, precision, seed + i, ph, pw)
+        parts.append(p.reshape(b, -1))
+        where.append((off, bh, bw, p.shape[1], p.shape[2]))
+        off += p.shape[1] * p.shape[2]
+    return np.concatenate(parts, 1), where
+
+
+@pytest.mark.parametrize("precision,b,dering", [
+    (8, 1, True), (8, 8, True), (8, 8, False), (12, 1, True), (12, 8, False),
+    (12, 8, True)])
+def test_p1_kernels_equal_plain_on_the_card(cuda, precision, b, dering):
+    """p1_blocks on views into one buffer (a luma plane, then two chroma
+    planes at their offsets, one wider than its blocks), a channel view
+    with a column stride, and p1_eob_hist at restart intervals 0, 1, 5,
+    n - 1, n and n + 3, each exactly against its plain version."""
+    geoms = [(21, 33, 0, 0), (11, 17, 0, 0), (11, 17, 96, 152)]
+    buf, where = _p1_buffer(b, precision, geoms, 3 * b + precision)
+    buf_t = torch.as_tensor(buf, device=cuda)
+    qt = np.random.default_rng(b).integers(1, 40, 64).astype(np.int32)
+    qt[0] = 3
+    views = [buf_t[:, off:off + ph * pw].reshape(b, ph, pw)
+             for off, bh, bw, ph, pw in where]
+    rgb = torch.as_tensor(np.stack([tp1.example_plane(
+        b, 9, 13, precision, 9)] * 3, -1), device=cuda)
+    cases = [(v, bh, bw) for v, (_, bh, bw, _, _) in zip(views, where)]
+    cases.append((rgb[..., 1], 9, 13))
+    for plane, bh, bw in cases:
+        before = tp1.p1_blocks.launches
+        got = tp1.p1_blocks(plane, bh, bw, qt, dering, precision)
+        assert tp1.p1_blocks.launches == before + 1
+        want = tp1.p1_blocks_plain(plane, bh, bw, qt, dering, precision)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        n = bh * bw
+        for ri in (0, 1, 5, n - 1, n, n + 3):
+            before = tp1.p1_eob_hist.launches
+            h = tp1.p1_eob_hist(got[4], got[3].clone(), b, ri)
+            assert tp1.p1_eob_hist.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(h, tp1.p1_eob_hist_plain(
+                want[4], want[3].clone(), b, ri))
+
+
+def test_p1_eob_kernel_past_0x7fff_on_the_card(cuda):
+    """Segments of more than 0x7FFF blocks: all zero, one nonzero block in
+    each of two images with runs past the forced flush between them."""
+    n = 0x7FFF + 5000
+    flags = np.full(3 * n, 2, np.uint8)
+    flags[n + 3] = 3
+    flags[n + 3 + 0x7FFF + 10] = 1
+    flags[2 * n + 40:2 * n + 50] = 1
+    f = torch.as_tensor(flags, device=cuda)
+    for ri in (0, 33, 0x7FFF, n - 1):
+        h = tp1.p1_eob_hist(f, torch.zeros((3, 256), dtype=torch.int32,
+                                           device=cuda), 3, ri)
+        want = tp1.p1_eob_hist_plain(f, torch.zeros(
+            (3, 256), dtype=torch.int32, device=cuda), 3, ri)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want)
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+def test_p1_launches_twice_per_component_on_the_card(cuda, precision):
+    """encode_many at 8 bits (host prep) and 12 bits (device prep): two p1
+    launches a component and group, and the CPU's bytes."""
+    if precision == 8:
+        imgs = _images(3)
+    else:
+        imgs = [_photo12(64, 96, 1), _photo12(64, 96, 2)]
+    cfg = mjt.EncoderConfig(quality=75, precision=precision)
+    mjt.encode_many(imgs, cfg)
+    tp1.reset_launches()
+    got = mjt.encode_many(imgs, cfg)
+    torch.cuda.synchronize()
+    assert tp1.p1_blocks.launches == tp1.p1_eob_hist.launches
+    assert tp1.p1_blocks.launches % 3 == 0 and tp1.p1_blocks.launches > 0
     assert got == mjt.encode_many(imgs, cfg, device="cpu")

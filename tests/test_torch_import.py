@@ -39,6 +39,7 @@ def test_import_leaves_jax_and_jax_package_unloaded():
             "mozjpeg_tpu_torch.ops.planepack, "
             "mozjpeg_tpu_torch.ops.transport, "
             "mozjpeg_tpu_torch.ops.trellis_rows, "
+            "mozjpeg_tpu_torch.ops.p1, "
             "mozjpeg_tpu_torch.utils.xfer, "
             "mozjpeg_tpu_torch.utils.attachment, "
             "mozjpeg_tpu_torch.cli.tjbench, mozjpeg_tpu_torch.cli.rd_collect\n"
@@ -74,7 +75,7 @@ def test_no_module_imports_jax_or_the_jax_package():
                 "utils/gif.py", "utils/ppm.py", "utils/targa.py",
                 "ops/sparsepack.py", "ops/planepack.py", "ops/transport.py",
                 "utils/xfer.py", "utils/attachment.py", "cli/tjbench.py",
-                "cli/rd_collect.py", "ops/trellis_rows.py"):
+                "cli/rd_collect.py", "ops/trellis_rows.py", "ops/p1.py"):
         assert os.path.join("mozjpeg_tpu_torch", rel) in scanned
     bad = []
     for path in _py_files():

@@ -1,0 +1,446 @@
+"""p1's islow path (ops/p1.py) on the CPU.
+
+The plain route through pipeline_t (p1_batch_pre and _p1_planes, which
+take ops/p1.p1_islow for islow) against the JAX package's _p1_batch_pre,
+bit for bit: q_zz, raw_zz and the sidecar of norms and AC-first
+histograms, at 8 and 12 bits, deringing on and off, B = 1 and 3, restart
+intervals 0, 1, 5, n - 1, n and n + 3 (spread over the components), on
+the unaligned 27x42 4:2:0 geometry of test_torch_encode_ops.py's
+device-prep p1 and an unaligned 139x75 gray plane, the planes seeded by ops/p1.example_plane (deringing's
+edge cases, flat runs) and read as views of one host-prep buffer.
+
+Then numpy models of the two CUDA kernels of csrc/p1.cu, each following
+its kernel's order of work, against the same JAX outputs: the kernels
+cannot run without a card, so these models are the CPU check of their
+algorithm.
+
+  blocks model: one block at a time, the serial chain of hostenc.cpp's
+  p1_rows: the samples centered, deringing's run walk in zigzag order
+  over a 64-bit clipped mask, rewriting the block as it goes, the islow FDCT in wrapping int32, quantization with the floor
+  division written out, the post-dering clamp on the int16 value, the
+  within-block symbols by a run counter, the flag byte, and the norm as
+  a serial f32 sum in natural order.
+  EOB model: one warp per restart segment walking the flag bytes 32 at a
+  time: the ballots of "nonzero" and "trailing zero", each nonzero
+  block's run from the previous nonzero block of the chunk or the carried
+  run, the carry after the chunk, the run left open at the segment's end,
+  and the 0x7FFF split.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mozjpeg_tpu.codec import pipeline_t as jpt
+from mozjpeg_tpu.codec.config import EncoderConfig as JCfg
+from mozjpeg_tpu.codec.encoder import make_qtables
+from mozjpeg_tpu.ops import symbols as jsymbols
+from mozjpeg_tpu_torch.codec import pipeline_t as tpt
+from mozjpeg_tpu_torch.codec.pipeline import geometry
+from mozjpeg_tpu_torch.consts import JPEG_ZIGZAG
+from mozjpeg_tpu_torch.ops import p1 as tp1
+
+F32 = np.float32
+H, W = 27, 42                       # test_torch_encode_ops' device-prep p1
+SAMP = [(2, 2), (1, 1), (1, 1)]
+_, _, COMPS = geometry(W, H, SAMP)
+NY = COMPS[0].bh * COMPS[0].bw      # 24 luma blocks an image
+NC = COMPS[1].bh * COMPS[1].bw      # 6 chroma blocks
+# one plane alone (a cheaper JAX compile), 139x75 grayscale: 180 blocks, so
+# that one segment crosses several of the EOB walk's 32-block chunks
+_, _, GRAY = geometry(139, 75, [(1, 1)])
+NG = GRAY[0].bh * GRAY[0].bw
+
+# (name, precision, B, deringing, quality, components, restart interval
+# per component)
+CASES = [
+    ("8bit-B3-dering", 8, 3, True, 75, COMPS, (5, 1, NC + 3)),
+    ("8bit-B1-plain-gray", 8, 1, False, 50, GRAY, (0,)),
+    ("12bit-B1-dering-gray-q100", 12, 1, True, 100, GRAY, (NG - 1,)),
+    ("12bit-B3-plain", 12, 3, False, 90, COMPS, (NY, NC - 1, NC)),
+]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _eq(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def _bufs(precision, b, seed, comps):
+    """(B, total) host-prep buffers [Y | Cb | Cr] of example planes."""
+    parts = [tp1.example_plane(b, g.bh_pad, g.bw_pad, precision,
+                               seed + ci).reshape(b, -1)
+             for ci, g in enumerate(comps)]
+    return np.concatenate(parts, 1)
+
+
+@pytest.fixture(scope="module")
+def jax_p1():
+    """Each case through the JAX _p1_batch_pre: name -> (case, bufs,
+    qtables per component, [(q_zz, raw_zz)], smalls)."""
+    out = {}
+    for i, case in enumerate(CASES):
+        name, precision, b, dering_on, quality, comps, ris = case
+        bufs = _bufs(precision, b, 10 * i, comps)
+        qt = make_qtables(JCfg(quality=quality).resolved())
+        cqt = [np.asarray(qt[min(s, len(qt) - 1)])
+               for s in (0, 1, 1)[:len(ris)]]
+        merged, small = jpt._p1_batch_pre(
+            jnp.asarray(bufs), tuple(comps), dering_on, precision, ris,
+            "islow", qts81=tuple(jpt._dev_qtbl(q) for q in cqt), dts81=None)
+        out[name] = (case, bufs, qt, cqt,
+                     [(np.asarray(q), np.asarray(r)) for q, r in merged],
+                     np.asarray(small))
+    return out
+
+
+def _planes(bufs_t, comps):
+    b = bufs_t.shape[0]
+    planes, off = [], 0
+    for g in comps:
+        size = g.bh_pad * 8 * g.bw_pad * 8
+        planes.append(bufs_t[:, off:off + size].reshape(b, g.bh_pad * 8,
+                                                        g.bw_pad * 8))
+        off += size
+    return planes
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_plain_route_matches_jax_p1(jax_p1, name):
+    """pipeline_t's p1 on the CPU (ops/p1's plain route, the planes as
+    views of the buffer) equals the JAX _p1_batch_pre bit for bit, and
+    launches nothing."""
+    case, bufs, qt, cqt, merged_j, small_j = jax_p1[name]
+    _, precision, b, dering_on, _, comps, ris = case
+    before = (tp1.p1_blocks.launches, tp1.p1_eob_hist.launches)
+    if precision == 8:
+        merged, small, norms = tpt.p1_batch_pre(
+            _t(bufs), tuple(comps), qt, dering_on, "islow", ris)
+    else:
+        merged, small, norms = tpt._p1_planes(
+            _planes(_t(bufs), comps), comps, cqt, dering_on, "islow", ris,
+            precision)
+    assert (tp1.p1_blocks.launches, tp1.p1_eob_hist.launches) == before
+    for (q, r), (qj, rj) in zip(merged, merged_j):
+        _eq(q, qj)
+        _eq(r, rj)
+    _eq(small, small_j)
+    assert [n.shape[0] for n in norms] == [b * g.bh * g.bw for g in comps]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    plane = torch.zeros((1, 16, 16), dtype=torch.uint8)
+    q = np.ones(64, np.int32)
+    with pytest.raises(ValueError):
+        tp1.p1_blocks(plane.to(torch.int16), 2, 2, q, True)
+    with pytest.raises(ValueError):
+        tp1.p1_blocks(plane, 3, 2, q, True)             # past the plane
+    with pytest.raises(ValueError):
+        tp1.p1_blocks(plane, 2, 2, q, True, precision=16)
+    with pytest.raises(ValueError):
+        tp1.p1_blocks(plane, 2, 2, np.zeros(64, np.int32), True)
+    flags = torch.zeros(8, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tp1.p1_eob_hist(flags, torch.zeros((3, 256), dtype=torch.int32), 3)
+    with pytest.raises(ValueError):
+        tp1.p1_eob_hist(flags, torch.zeros((2, 256), dtype=torch.int64), 2)
+    with pytest.raises(ValueError):
+        tp1.p1_blocks(plane.to("meta"), 2, 2, q, True)
+
+
+# ---------------------------------------------------------------------------
+# numpy models of the kernels
+# ---------------------------------------------------------------------------
+
+ZZ = np.asarray(JPEG_ZIGZAG)        # natural index of zigzag position k
+MAXS = 127
+
+
+def w32(x):
+    """int32 two's complement wrap of a Python int."""
+    return ((int(x) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _descale(x, n):
+    return w32(x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d, shift_even, n):
+    tmp0, tmp7 = w32(d[0] + d[7]), w32(d[0] - d[7])
+    tmp1, tmp6 = w32(d[1] + d[6]), w32(d[1] - d[6])
+    tmp2, tmp5 = w32(d[2] + d[5]), w32(d[2] - d[5])
+    tmp3, tmp4 = w32(d[3] + d[4]), w32(d[3] - d[4])
+    tmp10, tmp13 = w32(tmp0 + tmp3), w32(tmp0 - tmp3)
+    tmp11, tmp12 = w32(tmp1 + tmp2), w32(tmp1 - tmp2)
+    o = [0] * 8
+    if shift_even >= 0:
+        o[0] = w32((tmp10 + tmp11) << shift_even)
+        o[4] = w32((tmp10 - tmp11) << shift_even)
+    else:
+        o[0] = _descale(tmp10 + tmp11, -shift_even)
+        o[4] = _descale(tmp10 - tmp11, -shift_even)
+    z1 = w32(w32(tmp12 + tmp13) * 4433)
+    o[2] = _descale(z1 + w32(tmp13 * 6270), n)
+    o[6] = _descale(z1 + w32(tmp12 * -15137), n)
+    z1, z2 = w32(tmp4 + tmp7), w32(tmp5 + tmp6)
+    z3, z4 = w32(tmp4 + tmp6), w32(tmp5 + tmp7)
+    z5 = w32(w32(z3 + z4) * 9633)
+    t4, t5 = w32(tmp4 * 2446), w32(tmp5 * 16819)
+    t6, t7 = w32(tmp6 * 25172), w32(tmp7 * 12299)
+    z1, z2 = w32(z1 * -7373), w32(z2 * -20995)
+    z3, z4 = w32(w32(z3 * -16069) + z5), w32(w32(z4 * -3196) + z5)
+    o[7] = _descale(w32(t4 + z1) + z3, n)
+    o[5] = _descale(w32(t5 + z2) + z4, n)
+    o[3] = _descale(w32(t6 + z2) + z3, n)
+    o[1] = _descale(w32(t7 + z1) + z4, n)
+    return o
+
+
+def _dering(zz, q0):
+    """The kernel's run walk on zz (64 ints, zigzag), in place."""
+    m = 0
+    for k in range(64):
+        m |= int(zz[k] >= MAXS) << k
+    cnt = bin(m).count("1")
+    if cnt in (0, 64):
+        return
+    total = sum(zz)
+    num = MAXS * 64 - total
+    headroom = abs(num) // cnt * (1 if num >= 0 else -1)   # trunc
+    maxover = MAXS + min(headroom, min(31, 2 * q0))
+    rem = m
+    while rem:
+        a = (rem & -rem).bit_length() - 1
+        opn = (~m & ((1 << 64) - 1)) >> a
+        b = a + (opn & -opn).bit_length() - 1 if opn else 64
+        rem = 0 if b >= 64 else rem & ~((1 << b) - 1)
+        f1 = zz[a - 1] if a > 0 else zz[0]
+        f2 = zz[a - 2] if a >= 2 else zz[0]
+        l1 = zz[b] if b < 64 else zz[63]
+        l2 = zz[b + 1] if b + 1 < 64 else zz[63]
+        fslope = max(f1 - f2, MAXS - f1)
+        lslope = max(l1 - l2, MAXS - l1)
+        if a == 0:
+            fslope = lslope
+        if b == 64:
+            lslope = fslope
+        length = b - a
+        step = F32(1) / F32(length + 1)
+        tan1, tan2 = F32(fslope * length), F32(-lslope * length)
+        t = F32(0)
+        for i in range(a, b):
+            t = step if i == a else F32(t + step)
+            t2 = F32(t * t)
+            t3 = F32(t2 * t)
+            cf1 = F32(F32(F32(F32(2) * t3) - F32(F32(3) * t2)) + F32(1))
+            cf2 = F32(F32(F32(-2) * t3) + F32(F32(3) * t2))
+            cf3 = F32(F32(t3 - F32(F32(2) * t2)) + t)
+            cf4 = F32(t3 - t2)
+            val = F32(F32(F32(F32(F32(127) * cf1) + F32(tan1 * cf3))
+                          + F32(F32(127) * cf2)) + F32(tan2 * cf4))
+            zz[i] = min(int(np.ceil(val)), maxover)
+
+
+def model_blocks(plane, bh, bw, qtbl, dering_on, precision):
+    """p1_blocks_kernel over plane (B, >= bh*8, >= bw*8) one block at a
+    time -> (q_zz (64, N) int16, raw_zz (64, N) int32, norm (N,) f32,
+    hist (B, 256), flags (N,) uint8)."""
+    b = plane.shape[0]
+    n = bh * bw
+    q = np.asarray(qtbl).reshape(64).astype(np.int64)
+    qv = [int(q[ZZ[k]]) << 3 for k in range(64)]
+    q_zz = np.zeros((64, b * n), np.int16)
+    raw_zz = np.zeros((64, b * n), np.int32)
+    norm = np.zeros(b * n, np.float32)
+    hist = np.zeros((b, 256), np.int64)
+    flags = np.zeros(b * n, np.uint8)
+    center = 1 << (precision - 1)
+    pass1 = 2 if precision == 8 else 1
+    maxc = (1 << (precision + 2)) - 1
+    for img in range(b):
+        for i in range(n):
+            br, bc = divmod(i, bw)
+            blk = [int(v) - center for v in
+                   plane[img, br * 8:br * 8 + 8, bc * 8:bc * 8 + 8].reshape(64)]
+            if dering_on:
+                zz = [blk[ZZ[k]] for k in range(64)]
+                _dering(zz, int(q[0]))
+                for k in range(64):
+                    blk[ZZ[k]] = zz[k]
+            for r in range(8):
+                blk[8 * r:8 * r + 8] = _fdct_1d(blk[8 * r:8 * r + 8], pass1,
+                                                13 - pass1)
+            for c in range(8):
+                blk[c::8] = _fdct_1d(blk[c::8], -pass1, 13 + pass1)
+            gi = img * n + i
+            run = zrl = 0
+            anynz = False
+            for k in range(64):
+                c = blk[ZZ[k]]
+                a = w32(-c) if c < 0 else c
+                s = w32(a + (qv[k] >> 1))
+                mag = s // qv[k]                         # floor division
+                v = w32(-mag if c < 0 else mag)
+                v = ((v + 32768) & 0xFFFF) - 32768       # to int16
+                if dering_on:
+                    v = max(-maxc, min(maxc, v))
+                q_zz[k, gi], raw_zz[k, gi] = v, c
+                if k > 0:
+                    if v:
+                        hist[img, ((run & 15) << 4) | abs(v).bit_length()] += 1
+                        zrl += run >> 4
+                        run, anynz = 0, True
+                    else:
+                        run += 1
+            hist[img, 0xF0] += zrl
+            flags[gi] = int(anynz) | (2 if q_zz[63, gi] == 0 else 0)
+            acc = F32(0)
+            for k in range(1, 64):
+                rf = F32(blk[k])
+                acc = F32(acc + F32(rf * rf))
+            norm[gi] = acc
+    return q_zz, raw_zz, norm, hist, flags
+
+
+def _emit(c, run):
+    c[14] += run // 0x7FFF
+    r = run % 0x7FFF
+    if r > 0:
+        c[r.bit_length() - 1] += 1
+
+
+def model_eob(flags, hist, batch, ri):
+    """p1_eob_hist_kernel: one warp per (image, segment), 32 flag bytes a
+    chunk -> hist with the EOB runs added."""
+    hist = np.array(hist, np.int64)
+    n = flags.size // batch
+    if ri <= 0 or ri > n:
+        ri = n
+    nseg = -(-n // ri)
+    lanes = np.arange(32)
+    for w in range(batch * nseg):
+        img, s = divmod(w, nseg)
+        s0 = s * ri
+        ln = min(n - s0, ri)
+        f = flags[img * n + s0:img * n + s0 + ln]
+        c = [0] * 15
+        carry = 0
+        for base in range(0, ln, 32):
+            fl = np.zeros(32, np.int64)
+            cnt = min(32, ln - base)
+            fl[:cnt] = f[base:base + cnt]
+            nz = int(((fl & 1) << lanes).sum())          # __ballot_sync
+            tr = int((((fl >> 1) & 1) << lanes).sum())
+            for lane in range(32):
+                if fl[lane] & 1:
+                    below = nz & ((1 << lane) - 1)
+                    if below:
+                        p = below.bit_length() - 1
+                        run = lane - p - 1 + ((tr >> p) & 1)
+                    else:
+                        run = carry + lane
+                    if run > 0:
+                        _emit(c, run)
+            if nz:
+                p = nz.bit_length() - 1
+                carry = cnt - 1 - p + ((tr >> p) & 1)
+            else:
+                carry += cnt
+        _emit(c, carry)
+        for q in range(15):
+            hist[img, q << 4] += c[q]
+    return hist
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_kernel_models_match_jax_p1(jax_p1, name):
+    """The two kernels' models, chained as p1_islow chains the kernels,
+    give the JAX q_zz, raw_zz, norms and histograms of every component,
+    and their flags and histograms equal the plain versions'."""
+    case, bufs, qt, cqt, merged_j, small_j = jax_p1[name]
+    _, precision, b, dering_on, _, comps, ris = case
+    planes = [p.numpy() for p in _planes(_t(bufs), comps)]
+    norms, hists = [], []
+    for ci, g in enumerate(comps):
+        q_zz, raw_zz, norm, hist, flags = model_blocks(
+            planes[ci], g.bh, g.bw, cqt[ci], dering_on, precision)
+        _eq(q_zz, merged_j[ci][0])
+        _eq(raw_zz, merged_j[ci][1])
+        pq, _, _, phist, pflags = tp1.p1_blocks_plain(
+            _t(planes[ci]), g.bh, g.bw, cqt[ci], dering_on, precision)
+        _eq(flags, pflags)
+        _eq(hist.astype(np.int32), phist)
+        hist = model_eob(flags, hist, b, ris[ci])
+        _eq(hist.astype(np.int32), tp1.p1_eob_hist_plain(
+            _t(flags), phist.clone(), b, ris[ci]))
+        norms.append(norm.reshape(b, -1).view(np.int32))
+        hists.append(hist.astype(np.int32))
+    _eq(np.concatenate(norms + hists, 1).reshape(-1), small_j)
+
+
+def _flags_from(q_zz, batch):
+    band = torch.from_numpy(q_zz[1:])
+    nz = band != 0
+    return (nz.any(0).to(torch.uint8)
+            | ((~nz[-1]).to(torch.uint8) << 1)).numpy()
+
+
+def _runs_q_zz(n, seed, zero_runs=(1, 200)):
+    """(64, n) int16 blocks: runs of all-zero blocks of zero_runs lengths
+    between nonzero blocks with and without a nonzero coefficient 63."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((64, n), np.int16)
+    i = int(rng.integers(0, 40))
+    while i < n:
+        q[int(rng.integers(1, 64)), i] = rng.choice([-3, 1, 2, 700])
+        if rng.random() < 0.4:
+            q[63, i] = 1
+        i += 1 + int(rng.integers(*zero_runs))
+    return q
+
+
+N_LONG = 0x7FFF + 5000     # one image's blocks in the EOB walk's tests
+
+
+@pytest.fixture(scope="module")
+def long_runs():
+    """Three images of N_LONG blocks, (64, 3 * N_LONG) int16: zero runs of
+    1 to 199 blocks across several 32-block chunks in image 0; in image 1
+    one nonzero block early and one late without trailing zeros, a run
+    past 0x7FFF between them; image 2 all zero. Their flags and
+    within-block histograms."""
+    q = np.zeros((64, 3 * N_LONG), np.int16)
+    q[:, :N_LONG] = _runs_q_zz(N_LONG, 70)
+    q[5, N_LONG + 3] = 4
+    q[63, N_LONG + 3 + 0x7FFF + 10] = -1
+    return _flags_from(q, 3), tp1.block_symbols_plain(_t(q), 3)[0]
+
+
+@pytest.mark.parametrize("ri", [0, 7, 31, 32, 33, 100, 0x7FFF, N_LONG - 1,
+                                N_LONG, N_LONG + 3])
+def test_eob_model_across_chunks_and_past_0x7fff(long_runs, ri):
+    """The chunked walk against the plain version (held against the JAX
+    package's histograms above and in test_torch_encode_ops.py) at each
+    restart interval: runs that cross several chunks, segments past
+    0x7FFF blocks with the forced EOB14 flush, segments with no nonzero
+    block."""
+    flags, within = long_runs
+    got = model_eob(flags, within.numpy(), 3, ri)
+    _eq(got.astype(np.int32),
+        tp1.p1_eob_hist_plain(_t(flags), within.clone(), 3, ri))
+    if ri == 0 or ri >= N_LONG - 1:
+        assert got[1, 0xE0] == got[2, 0xE0] == 1   # the forced flush

@@ -37,11 +37,13 @@ PKG = os.path.join(REPO, "mozjpeg_tpu_torch")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_standalone_worker as standalone  # noqa: E402
 
-# the four kernels' "replaces" labels of chip_smoke.py's kernels line
+# the "replaces" labels of chip_smoke.py's kernels line
 REPLACES = {"mozjpeg_tpu/ops/pallas_trellis.py:242",
             "mozjpeg_tpu/ops/tablegen.py:30 (XLA, no pallas_call)",
             "mozjpeg_tpu/codec/trellis.py:89 (XLA, no pallas_call)",
-            "mozjpeg_tpu/codec/trellis.py:319 (XLA, no pallas_call)"}
+            "mozjpeg_tpu/codec/trellis.py:319 (XLA, no pallas_call)",
+            "mozjpeg_tpu/codec/pipeline_t.py:413 (XLA, no pallas_call)",
+            "mozjpeg_tpu/ops/symbols.py:146 (XLA, no pallas_call)"}
 
 
 @functools.lru_cache(maxsize=None)

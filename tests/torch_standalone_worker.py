@@ -16,11 +16,12 @@ puts only <copy_parent> in front of the interpreter's own sys.path,
 checks that the JAX package cannot be found, installs an audit hook that
 fails the run on any open, os.listdir, os.scandir, ctypes.dlopen or
 subprocess.Popen naming a path under <forbidden> (the checkout's JAX
-package), builds the native host library (and on "cuda" the three CUDA
+package), builds the native host library (and on "cuda" the four CUDA
 libraries) from the copy, then encodes the images of <in.npy> with the
 default configuration: on "cpu" encode() (the host engine), encode_many
 and decode of encode_many's bytes; on "cuda" encode() on the card, with
-the kernels' launch counts. Writes the results to <out.pkl>.
+the kernels' launch counts, and each p1 launch of the first image held
+against its plain version. Writes the results to <out.pkl>.
 """
 import os
 import pickle
@@ -99,6 +100,7 @@ def child(copy_parent, forbidden, device, inpath, outpath):
     import mozjpeg_tpu_torch as mjt
     from mozjpeg_tpu_torch.codec import host_engine
     from mozjpeg_tpu_torch.native import build as nbuild
+    from mozjpeg_tpu_torch.ops import p1 as tp1
     from mozjpeg_tpu_torch.ops import tablegen as tg
     from mozjpeg_tpu_torch.ops import trellis_ac as tac
     from mozjpeg_tpu_torch.ops import trellis_rows as trw
@@ -112,12 +114,13 @@ def child(copy_parent, forbidden, device, inpath, outpath):
     t0 = time.perf_counter()
     if device == "cuda":
         from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(4) as ex:
+        with ThreadPoolExecutor(5) as ex:
             futs = [ex.submit(f) for f in (nbuild.build_native, tac.build,
-                                           tg.build, trw.build)]
+                                           tg.build, trw.build, tp1.build)]
             for f in futs:
                 f.result()
-        built = [nbuild.LIB_NAME, tac.LIB_NAME, tg.LIB_NAME, trw.LIB_NAME]
+        built = [nbuild.LIB_NAME, tac.LIB_NAME, tg.LIB_NAME, trw.LIB_NAME,
+                 tp1.LIB_NAME]
     else:
         nbuild.build_native()
         built = [nbuild.LIB_NAME]
@@ -149,6 +152,7 @@ def child(copy_parent, forbidden, device, inpath, outpath):
         tac.reset_launches()
         tg.reset_launches()
         trw.reset_launches()
+        tp1.reset_launches()
         t0 = time.perf_counter()
         res["encode"] = [mjt.encode(im, cfg, device="cuda")
                          for im in images]
@@ -156,7 +160,11 @@ def child(copy_parent, forbidden, device, inpath, outpath):
         res["encode_s"] = time.perf_counter() - t0
         res["launches"] = {"trellis_ac": tac.trellis_ac.launches,
                            "tablegen": tg.launches,
-                           "trellis_dc": trw.trellis_dc.launches}
+                           "trellis_dc": trw.trellis_dc.launches,
+                           "p1_blocks": tp1.p1_blocks.launches,
+                           "p1_eob_hist": tp1.p1_eob_hist.launches}
+        res["p1_check"] = _p1_check(tp1, lambda: mjt.encode(
+            images[0], cfg, device="cuda"))
         res["host_engine_calls"] = len(host_calls)
     res["violations"] = violations
     with open(outpath, "wb") as f:
@@ -164,6 +172,36 @@ def child(copy_parent, forbidden, device, inpath, outpath):
     if violations:
         raise SystemExit("the run reached the JAX package: %s" % violations)
     print("standalone %s: ok, build %.1f s" % (device, res["build_s"]))
+
+
+def _p1_check(tp1, fn):
+    """fn() with each p1 kernel launch recorded (ops/p1.RECORDERS), then
+    each held against its plain version -> [largest difference, launches
+    held, all exact]."""
+    import torch
+    rec = []
+
+    def record(kind, args):
+        if kind == "p1_eob_hist":
+            args = (args[0], args[1].clone()) + tuple(args[2:])
+        rec.append((kind, args))
+    tp1.RECORDERS.append(record)
+    try:
+        fn()
+    finally:
+        tp1.RECORDERS.remove(record)
+    err, exact = 0.0, True
+    for kind, a in rec:
+        if kind == "p1_eob_hist":
+            got = [tp1.p1_eob_hist(a[0], a[1].clone(), *a[2:])]
+            want = [tp1.p1_eob_hist_plain(a[0], a[1].clone(), *a[2:])]
+        else:
+            got, want = tp1.p1_blocks(*a), tp1.p1_blocks_plain(*a)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            exact = exact and g.dtype == w.dtype and torch.equal(g, w)
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return [err, len(rec), exact]
 
 
 if __name__ == "__main__":
