@@ -16,14 +16,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      odd N (B = 3, n_img = 1,001) and N = 1; the DC trellis kernel
      (csrc/trellis_rows.cu) against its plain version, exactly, on both
      groups' launches, a tie-stress input, 12-bit inputs that wrap int32
-     and clamp at 16383, the delta weight at v = 2 with an odd bh and a
-     2048-block row; the EOB-run DP kernel on seeded strips (all-zero
+     and clamp at 16383, the delta weight at v = 2 with an odd bh, a
+     2048-block row, every candidate tied at nc 1, 2, 8 and 9 with bw 1
+     and 33, a 260-block row (past one tile of the per-row pass) and a
+     12 MP luma component; the EOB-run DP kernel on seeded strips (all-zero
      rows, runs past 16, BIG costs); p1's two kernels (csrc/p1.cu) on
      every launch of both groups and on ops/p1.example_plane's seeded
      planes (deringing's edge cases, long flat runs; uint8 and int32
      samples; views into one buffer and a channel view; B = 8 and 1;
      deringing on and off; restart intervals 0, 1, 5, n - 1, n, n + 3),
-     each output exactly equal to the plain version's; the card's lambda
+     and p1_eob_hist on runs that end beside and on its tile edges, one
+     nonzero block and an all-zero image (restart intervals 0, 1, 5, 255,
+     256, 257, n - 1, n, n + 3) and on a 12 MP plane's flags (745 tiles,
+     a run past 0x7FFF; intervals 0, 504, 0x7FFF), each output exactly
+     equal to the plain version's; the card's lambda
      of both groups against the CPU's and numpy's, exactly;
   4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
      photo-like images on the card, warm-up first, on the device-tablegen
@@ -53,14 +59,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      the plain version in turns, the kernel's time held and with gaps,
      the plain version's, the bound and the chain's steps, and
      torch.profiler's device time, kernel count and top kernels of the
-     stage both ways and of the group's p1; each p1 kernel over the
+     stage both ways and of the group's p1; where the DC kernel's time
+     goes (the luma launch through the instantiation that counts SM
+     cycles: the per-row pass, the chain, the walk back, the output);
+     each p1 kernel over the
      group's 3 launches, held, with gaps, its plain version and its bound
      (bytes, or integer operations at the INT32 rate); the p1 stage with
      the kernels and with the plain versions in turns (synchronised) and
      under torch.profiler, split by p1's ranges (p1:dering,
      p1:fdct+quantize, p1:norm, p1:hist; p1:blocks with the kernels); the
      plain p1 without its histogram replayed as one CUDA graph (a
-     yardstick only);
+     yardstick only); an empty kernel's launch, held and with gaps (the
+     practical floor beside each bytes bound);
   7. the config matrix: for each configuration family of the batched
      encode surface (grayscale from 2-D planes and from RGB, RGB, CMYK
      and YCCK from seeded 4-channel images, device prep, smoothing, the
@@ -150,8 +160,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      image with the same configuration on the CPU (the host engine), its
      SCAN trace lines equal to the CPU's, 3 trellis_dc launches, every
      trellis_dc and p1 launch of the checked calls (cjpeg, yuvjpeg,
-     encode_raw_yuv) exactly against the plain versions, and the DC stage of the 12 MP group with the kernel and the
-     plain version in turns; yuvjpeg on the image's I420
+     encode_raw_yuv) exactly against the plain versions, the DC stage
+     of the 12 MP group with the kernel and the plain version in turns
+     and where the DC kernel's luma launch spends its cycles, and
+     p1_eob_hist over the image's three components (held, with gaps,
+     plain, bound); yuvjpeg on the image's I420
      planes (made on the card with rgb_to_ycc and downsample_h2v2) equal
      to encode() of the image at yuvjpeg's configuration on the CPU, and
      encode_raw_yuv of the planes at quality 75 equal to encode() of the
@@ -595,6 +608,49 @@ def eob_bound(args):
     rows = he.shape[0]
     return (13 * ei.shape[1] + 64 * ac_si.shape[0],
             float(5 * steps + 3 * rows * (bw + 1)))
+
+
+def dc_clock_split(args, label, smi):
+    """Where one DC trellis launch's time goes: the kernel's instantiation
+    that counts SM cycles (ops/trellis_rows.trellis_dc_clocks) on the
+    launch's arguments, its output held equal to the wrapper's -> {the
+    share of the chains' cycles in the per-row pass, the chain, the walk
+    back and the output; cycles a chain step (a block); the slowest
+    chain's cycles}."""
+    import torch
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
+    trw.trellis_dc_clocks(*args)                       # warm
+    out, clocks = trw.trellis_dc_clocks(*args)
+    want = trw.trellis_dc_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise SystemExit("trellis_dc's clock instantiation disagrees with "
+                         "the plain version (%s)" % label)
+    c = clocks.to(torch.float64)
+    tot = c.sum(0)
+    names = ("row_pass", "chain", "walk_back", "output")
+    share = {k: float(tot[i] / tot.sum()) for i, k in enumerate(names)}
+    res = {"clock_share": share, "walk_back_share": share["walk_back"],
+           "chain_cycles_a_step": float(tot[1]) / args[0].numel(),
+           "slowest_chain_cycles": float(c.sum(1).max())}
+    log("trellis_dc clocks [%s] on %s: shares of the chains' SM cycles %s; "
+        "%.1f cycles a chain step; the slowest chain %.0f cycles"
+        % (label, smi, json.dumps({k: round(v, 4) for k, v in share.items()}),
+           res["chain_cycles_a_step"], res["slowest_chain_cycles"]))
+    return res
+
+
+def empty_ms(dev, smi, reps=200):
+    """The launch floor: a kernel that does nothing, launched through
+    ctypes as the wrappers launch theirs -> (ms held, ms with the host's
+    launch gaps)."""
+    from mozjpeg_tpu_torch.ops import trellis_rows as trw
+    held = cuda_ms(lambda: trw.empty_launch(dev), reps)
+    gaps = cuda_ms(lambda: trw.empty_launch(dev), reps, hold=False)
+    log("empty kernel on %s: %.5f ms a launch held, %.5f ms with the "
+        "host's launch gaps (the floor beside each bytes bound)"
+        % (smi, held, gaps))
+    return held, gaps
 
 
 def is_kernel(e):
@@ -1785,6 +1841,13 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
     dc12 = {k + "_12mp": v for k, v in row_stage(
         "trellis_dc", recs["cjpeg"]["trellis_dc"], "cjpeg's %s group" % size,
         smi, 10)[0].items() if k != "bound_by"}
+    dc12.update({k + "_12mp": v for k, v in dc_clock_split(
+        recs["cjpeg"]["trellis_dc"][0], "cjpeg's %s luma" % size,
+        smi).items()})
+    eob12 = {k + "_12mp": v for k, v in p1_kernel_times(
+        "p1_eob_hist", recs["cjpeg"]["p1_eob_hist"],
+        "cjpeg's %s image (3 components)" % size, smi, 10).items()
+        if k != "bound_by"}
 
     # 2. yuvjpeg and encode_raw_yuv on the card
     ycc = color.rgb_to_ycc(torch.from_numpy(big).to(dev))
@@ -1960,7 +2023,7 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
         % (host_s, json.dumps(launches), json.dumps(dc_launches),
            time.perf_counter() - t_phase))
     tmp.cleanup()
-    return launches, max_err, dc12
+    return launches, max_err, dc12, eob12
 
 
 def row_stage(kind, recorded, label, smi, reps=20):
@@ -2123,6 +2186,54 @@ def p1_graph_ms(blocks, reps=20):
     return cuda_ms(graph.replay, reps), ""
 
 
+def p1_kernel_times(kind, recorded, label, smi, reps=20):
+    """A p1 kernel over a group's recorded launches (the EOB kernel adding
+    into scratch histograms): its device ms held and with the host's
+    launch gaps, its first (luma) launch's held, its plain version's and
+    its bound -> those numbers."""
+    import torch
+    from mozjpeg_tpu_torch.ops import p1 as tp1
+    if kind == "p1_blocks":
+        def kernel():
+            for a in recorded:
+                tp1.p1_blocks(*a)
+
+        def plain():
+            for a in recorded:
+                tp1.p1_blocks_plain(*a)
+
+        def first():
+            tp1.p1_blocks(*recorded[0])
+    else:
+        scratch = [torch.zeros_like(a[1]) for a in recorded]
+
+        def kernel():
+            for a, h in zip(recorded, scratch):
+                tp1.p1_eob_hist(a[0], h, *a[2:])
+
+        def plain():
+            for a, h in zip(recorded, scratch):
+                tp1.p1_eob_hist_plain(a[0], h, *a[2:])
+
+        def first():
+            tp1.p1_eob_hist(recorded[0][0], scratch[0], *recorded[0][2:])
+    k_ms, k_un = cuda_ms(kernel, reps), cuda_ms(kernel, reps, hold=False)
+    first_ms = cuda_ms(first, reps)
+    p_ms = cuda_ms(plain, 3, hold=False)
+    nbytes, ops = (sum(x) for x in zip(*(p1_bound(kind, a)
+                                         for a in recorded)))
+    bound_ms, bound_by = bound(nbytes, ops, H100_INT32_OPS)
+    log("%s of %s (%d launches) on %s: kernel %.4f ms (%.4f ms with the "
+        "host's launch gaps), plain %.3f ms, bound %.6f ms (%.4g integer "
+        "ops, %d bytes, by %s), %.2f%% of the bound; first (luma) launch "
+        "%.4f ms" % (kind, label, len(recorded), smi, k_ms, k_un, p_ms,
+                     bound_ms, ops, nbytes, bound_by, 100 * bound_ms / k_ms,
+                     first_ms))
+    return dict(ms=k_ms, kernel_ms=k_ms, ms_with_launch_gaps=k_un,
+                plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                first_launch_ms=first_ms)
+
+
 def p1_stage(rec, group, ctx, dev, smi, launches, reps=20):
     """Phase 6's p1 of one 8x768x512 group from its recorded launches
     (3 of each kernel): each kernel's device ms held and with the host's
@@ -2133,47 +2244,19 @@ def p1_stage(rec, group, ctx, dev, smi, launches, reps=20):
     -> the kernels-line entries of p1_blocks and p1_eob_hist."""
     import torch
     from mozjpeg_tpu_torch.codec import encoder, pipeline_t
-    from mozjpeg_tpu_torch.ops import p1 as tp1
     blocks, eobs = rec["p1_blocks"], rec["p1_eob_hist"]
     if len(blocks) != 3 or len(eobs) != 3:
         raise SystemExit("expected 3 launches of each p1 kernel per group, "
                          "saw %d and %d" % (len(blocks), len(eobs)))
-    scratch = [torch.zeros_like(a[1]) for a in eobs]
-    fns = {"p1_blocks": (lambda: [tp1.p1_blocks(*a) for a in blocks],
-                         lambda: [tp1.p1_blocks_plain(*a) for a in blocks]),
-           "p1_eob_hist": (
-               lambda: [tp1.p1_eob_hist(a[0], h, *a[2:])
-                        for a, h in zip(eobs, scratch)],
-               lambda: [tp1.p1_eob_hist_plain(a[0], h, *a[2:])
-                        for a, h in zip(eobs, scratch)])}
     replaces = {"p1_blocks": P1_BLOCKS_REPLACES,
                 "p1_eob_hist": P1_EOB_REPLACES}
     entries = []
     for kind, recorded in (("p1_blocks", blocks), ("p1_eob_hist", eobs)):
-        kernel, plain = fns[kind]
-        k_ms, k_un = cuda_ms(kernel, reps), cuda_ms(kernel, reps, hold=False)
-        if kind == "p1_blocks":
-            first = lambda: tp1.p1_blocks(*blocks[0])       # noqa: E731
-        else:
-            first = lambda: tp1.p1_eob_hist(                # noqa: E731
-                eobs[0][0], scratch[0], *eobs[0][2:])
-        first_ms = cuda_ms(first, reps)
-        p_ms = cuda_ms(plain, 3, hold=False)
-        nbytes, ops = (sum(x) for x in zip(*(p1_bound(kind, a)
-                                             for a in recorded)))
-        bound_ms, bound_by = bound(nbytes, ops, H100_INT32_OPS)
-        log("%s of one 8x768x512 group (3 launches) on %s: kernel %.4f ms "
-            "(%.4f ms with the host's launch gaps), plain %.3f ms, bound "
-            "%.6f ms (%.4g integer ops, %d bytes, by %s), %.2f%% of the "
-            "bound; first (luma) launch %.4f ms"
-            % (kind, smi, k_ms, k_un, p_ms, bound_ms, ops, nbytes, bound_by,
-               100 * bound_ms / k_ms, first_ms))
         entries.append(dict(
             name=kind, route="cuda", source=P1_SOURCE,
             replaces=replaces[kind], launches=launches[kind],
-            library_ms=None, ms=k_ms, kernel_ms=k_ms,
-            ms_with_launch_gaps=k_un, plain_ms=p_ms, bound_ms=bound_ms,
-            bound_by=bound_by, first_launch_ms=first_ms))
+            library_ms=None, **p1_kernel_times(
+                kind, recorded, "one 8x768x512 group", smi, reps)))
 
     # the stage, kernels and plain versions in turns, and its profile
     cfg = ctx.cfg
@@ -3411,6 +3494,37 @@ def main():
             torch.as_tensor(raw, device=dev), torch.as_tensor(lam, device=dev),
             q0, float(trellis.recip2_table()[q0]), si, nc, v, dw,
             trellis.kmax_maxq(prec)[1]), label)
+    # every candidate tied at nc 1, 2, 8 and 9, one column and two
+    # walk-back segments a lane; rows past one tile of the per-row pass;
+    # a 12 MP luma component
+    dc_more = [("alltie", (2, 3, bw), 2, 8, nc, 0.5, 8,
+                "all-tie nc=%d bw=%d" % (nc, bw))
+               for nc in (1, 2, 8, 9) for bw in (1, 33)] + [
+        ("tie", (1, 3, 260), 2, 1, 9, 0.5, 8, "tiles bw=260"),
+        ("seeded", (1, 378, 504), 2, 8, 9, 0.0, 8, "12 MP luma")]
+    for kind, shape, v, q0, nc, dw, prec, label in dc_more:
+        raw, lam, si = trw.dc_example_inputs(kind, *shape, q0, prec, 11)
+        rows_vs_plain("trellis_dc", (
+            torch.as_tensor(raw, device=dev), torch.as_tensor(lam, device=dev),
+            q0, float(trellis.recip2_table()[q0]), si, nc, v, dw,
+            trellis.kmax_maxq(prec)[1]), label)
+    # p1_eob_hist on runs at its tile edges and on a 12 MP plane's flags
+    # (745 tiles: the combine over three blocks of 256 tiles)
+    edges = torch.as_tensor(tp1.edge_flags(17).reshape(-1), device=dev)
+    n12 = 378 * 504
+    rng12 = np.random.default_rng(12)
+    f12 = np.where(rng12.random(3 * n12) < 0.05,
+                   rng12.choice([1, 3], 3 * n12), 2).astype(np.uint8)
+    f12[n12:n12 + 40000] = 2
+    f12 = torch.as_tensor(f12, device=dev)
+    eob_rec = {"p1_eob_hist": [
+        (edges, torch.zeros((6, 256), dtype=torch.int32, device=dev), 6, ri)
+        for ri in (0, 1, 5, tp1.EOB_TILE - 1, tp1.EOB_TILE,
+                   tp1.EOB_TILE + 1, tp1.EDGE_N - 1, tp1.EDGE_N,
+                   tp1.EDGE_N + 3)] + [
+        (f12, torch.zeros((3, 256), dtype=torch.int32, device=dev), 3, ri)
+        for ri in (0, 504, 0x7FFF)]}
+    check_p1(eob_rec, "EOB tile edges and 12 MP flags")
     for shape in ((8, 64, 96), (3, 4, 70), (2, 5, 1), (1, 4, 2048)):
         ei, si = trw.eob_example_inputs(shape[2], *shape)
         rows_vs_plain("trellis_eob", (torch.as_tensor(ei, device=dev),
@@ -3550,7 +3664,12 @@ def main():
            d_by, 100 * d_bound / d_ms))
     k_dc = dc_stage(rec_k["trellis_dc"], kodak[:8], ctx, dev, smi,
                     dc_launches)
+    k_dc.update(dc_clock_split(rec_k["trellis_dc"][0],
+                               "one 8x768x512 group, luma", smi))
     k_p1 = p1_stage(rec_k, kodak[:8], ctx, dev, smi, p1_launches)
+    floor = empty_ms(dev, smi)
+    for entry in [k_dc] + k_p1:
+        entry["empty_kernel_ms"], entry["empty_kernel_ms_with_gaps"] = floor
 
     # ---- 7. the config matrix ----
     kept = {}
@@ -3575,8 +3694,9 @@ def main():
     k12 = precision_phase(kodak[:8], outs[:8], dev, compare)
 
     # ---- 12. the remaining surfaces ----
-    l12, err12, dc12 = remaining_surfaces(kodak, dev, smi, compare)
+    l12, err12, dc12, eob12 = remaining_surfaces(kodak, dev, smi, compare)
     k_dc.update(dc12)
+    k_p1[1].update(eob12)
     max_err = max(max_err, err12)
 
     # ---- 13. the device engines ----

@@ -34,8 +34,11 @@
 // histogram per warp in shared memory (symbol 0x01 is hot: one address
 // for the whole CTA would serialise every warp on it), summed and added
 // to the image's histogram once per CTA. The EOB kernel reads one flag
-// byte a block: one warp per restart segment walks it 32 blocks at a time
-// with __ballot_sync, carrying the open run from chunk to chunk.
+// byte a block and is bound by the runs' chain, not by bytes: fixed tiles
+// of 256 blocks, a warp each, walk their 8 chunks of 32 with
+// __ballot_sync whatever the restart interval, and the last CTA of each
+// image joins the tiles' runs in the same launch (a scan of the tiles'
+// summaries).
 //
 // Exactness (the plain versions in ops/p1.py are the spec): int32
 // arithmetic that the JAX program lets wrap is computed unsigned, whose
@@ -59,7 +62,10 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int TPB = 256;             // blocks (threads) per CTA of p1_blocks
 constexpr int WARPS = TPB / 32;
 static_assert(TPB == 256, "the histogram flush gives each thread one bin");
-constexpr int EOB_WARPS = 4;         // segments (warps) per CTA of the EOB walk
+constexpr int EOB_TILE = 256;        // blocks a warp of the EOB kernel walks
+constexpr int EOB_CHUNKS = EOB_TILE / 32;
+constexpr int EOB_WARPS = 8;         // tiles (warps) per CTA of the EOB kernel
+constexpr int EOB_THREADS = EOB_WARPS * 32;
 constexpr int MAXS = 127;            // 255 - CENTERJSAMPLE at every precision
 constexpr int CONST_BITS = 13;
 constexpr int EOB_MAX = 0x7FFF;      // jcphuff.c's forced EOBRUN flush
@@ -334,57 +340,177 @@ __device__ __forceinline__ void emit_run(int (&c)[15], int run) {
   }
 }
 
-// One warp per (image, restart segment): segment s of image b holds the
-// blocks [s*ri, min((s+1)*ri, n)) of the image; ri >= n is one segment.
-__global__ void __launch_bounds__(EOB_WARPS * 32)
+__device__ __forceinline__ int hi_bit(unsigned m) {  // -1 for no bit
+  return 31 - __clz(m);
+}
+
+// The run open just before lane `at` of a chunk, from the events below it
+// in the chunk: nzb the nonzero blocks, ssb the segment starts (a start
+// cuts the run; a nonzero block at p leaves at - p - 1 all-zero blocks
+// and its own trailing-zero bit tr); -1 if there is none.
+__device__ __forceinline__ int run_below(unsigned nzb, unsigned ssb,
+                                         unsigned tr, int at) {
+  const int p = hi_bit(nzb), q = hi_bit(ssb);
+  if (q > p) return at - q;
+  if (p >= 0) return at - p - 1 + (int)((tr >> p) & 1u);
+  return -1;
+}
+
+// Tiles of EOB_TILE blocks of one image, one warp a tile, EOB_WARPS
+// tiles a CTA, `ctas` CTAs an image (blockIdx.x = image * ctas + cta).
+// A warp walks its tile 32 blocks at a time with __ballot_sync and
+// counts the runs that begin and end inside the tile (a restart segment
+// starting inside it cuts the run there and emits the previous segment's
+// final run); the run open at the tile's start is not known to it, so it
+// writes the tile's summary instead: head, the all-zero blocks from the
+// tile's start to its first event (a nonzero block or a segment start),
+// whose run the combine emits, or -1 if the tile has no event, and the
+// run open at its end (the tile's length if it has no event). The last
+// CTA of an image to finish (a counter per image, after __threadfence)
+// combines the image's summaries in order: a scan of the associative
+// (has an event, open run) operator gives the run open at each tile's
+// start, R, and each tile with an event emits R + head; the run open at
+// the image's end is its last segment's final run. That CTA sets the
+// counter back to 0 for the next launch. Integer arithmetic throughout,
+// so the two-level order is exact.
+__global__ void __launch_bounds__(EOB_THREADS)
 p1_eob_hist_kernel(const uint8_t* __restrict__ flags,
-                   int32_t* __restrict__ hist, long long n, long long ri,
-                   long long nseg, long long segs) {
-  const long long w =
-      (long long)blockIdx.x * EOB_WARPS + (threadIdx.x >> 5);
-  if (w >= segs) return;                 // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
-  const long long b = w / nseg, s = w % nseg;
-  const long long s0 = s * ri;
-  const long long len = (n - s0) < ri ? (n - s0) : ri;
-  const uint8_t* f = flags + b * n + s0;
+                   int32_t* __restrict__ hist, int n, int ri, int tiles,
+                   int ctas, int2* __restrict__ summ,
+                   unsigned* __restrict__ done) {
+  __shared__ int s_h[15];
+  __shared__ int2 s_warp[EOB_WARPS];
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x / ctas;
+  const int j = (blockIdx.x % ctas) * EOB_WARPS + warp;
+  if (threadIdx.x < 15) s_h[threadIdx.x] = 0;
   int c[15];
 #pragma unroll
   for (int q = 0; q < 15; ++q) c[q] = 0;
-  int carry = 0;          // the run open at the chunk's start
-  for (long long base = 0; base < len; base += 32) {
-    const bool valid = base + lane < len;
-    const int fl = valid ? f[base + lane] : 0;
-    const unsigned nz = __ballot_sync(FULL, fl & 1);
-    const unsigned tr = __ballot_sync(FULL, fl & 2);
-    const int cnt = len - base < 32 ? (int)(len - base) : 32;
-    if (fl & 1) {
-      // the run emitted before this block: from the previous nonzero
-      // block of the chunk (its trailing zeros, then the all-zero blocks
-      // between), or the carried run and the chunk's leading zero blocks
-      const unsigned below = nz & ((1u << lane) - 1u);
-      int run;
-      if (below) {
-        const int p = 31 - __clz(below);
-        run = lane - p - 1 + (int)((tr >> p) & 1u);
-      } else {
-        run = carry + lane;
-      }
-      if (run > 0) emit_run(c, run);
+  int2* sm = summ + (long long)b * tiles;
+  if (j < tiles) {                       // the whole warp, or none of it
+    const int t0 = j * EOB_TILE;
+    const int tn = min(EOB_TILE, n - t0);
+    const uint8_t* f = flags + (long long)b * n + t0;
+    int fl[EOB_CHUNKS];
+#pragma unroll
+    for (int u = 0; u < EOB_CHUNKS; ++u) {     // every load first
+      const int i = u * 32 + lane;
+      fl[u] = i < tn ? f[i] : 0;
     }
-    if (nz) {
-      const int p = 31 - __clz(nz);
-      carry = cnt - 1 - p + (int)((tr >> p) & 1u);
-    } else {
-      carry += cnt;
+    bool seen = false;   // an event so far in the tile
+    int carry = 0;       // blocks since the tile's start, or the open run
+    int head = -1;
+#pragma unroll
+    for (int u = 0; u < EOB_CHUNKS; ++u) {
+      const int base = u * 32;
+      if (base >= tn) break;                   // uniform over the warp
+      const int cnt = min(32, tn - base);
+      const bool ss = lane < cnt && (t0 + base + lane) % ri == 0;
+      const bool nz = fl[u] & 1;
+      const unsigned nzm = __ballot_sync(FULL, nz);
+      const unsigned trm = __ballot_sync(FULL, fl[u] & 2);
+      const unsigned ssm = __ballot_sync(FULL, ss);
+      const unsigned below = (1u << lane) - 1u;
+      int hv = -1;                             // the tile's head, if here
+      if (nz) {          // the run emitted before this block
+        int run = run_below(nzm & below, ssm & (below | (1u << lane)), trm,
+                            lane);
+        if (run < 0) {
+          run = carry + lane;
+          if (!seen) {
+            hv = run;
+            run = 0;
+          }
+        }
+        if (run > 0) emit_run(c, run);
+      }
+      if (ss) {          // the previous segment's final run
+        int run = run_below(nzm & below, ssm & below, trm, lane);
+        if (run < 0) {
+          run = carry + lane;
+          if (!seen) {
+            hv = run;
+            run = 0;
+          }
+        }
+        emit_run(c, run);
+      }
+      if (nzm | ssm) {
+        if (!seen) {
+          const unsigned hm = __ballot_sync(FULL, hv >= 0);
+          head = __shfl_sync(FULL, hv, __ffs(hm) - 1);
+          seen = true;
+        }
+        const int p = hi_bit(nzm), q = hi_bit(ssm);
+        carry = q > p ? cnt - q : cnt - 1 - p + (int)((trm >> p) & 1u);
+      } else {
+        carry += cnt;
+      }
+    }
+    if (lane == 0) sm[j] = make_int2(head, carry);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&done[b], 1u) == (unsigned)(ctas - 1);
+  __syncthreads();
+  if (s_last) {          // the combine, in blocks of EOB_THREADS tiles
+    __threadfence();
+    int R = 0;           // the run open at the block's first tile
+    for (int base = 0; base < tiles; base += EOB_THREADS) {
+      const int jj = base + (int)threadIdx.x;
+      const int2 s = jj < tiles ? __ldcg(&sm[jj]) : make_int2(-1, 0);
+      // a tile as a function of the run open at its start: with an event
+      // (ev) the run after it is val, else the run grows by val blocks;
+      // the warp's inclusive scan of (ev, val)
+      int ev = s.x >= 0, val = s.y;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int oe = __shfl_up_sync(FULL, ev, off);
+        const int ov = __shfl_up_sync(FULL, val, off);
+        if (lane >= off) {
+          if (!ev) val += ov;
+          ev |= oe;
+        }
+      }
+      if (lane == 31) s_warp[warp] = make_int2(ev, val);
+      int xe = __shfl_up_sync(FULL, ev, 1), xv = __shfl_up_sync(FULL, val, 1);
+      if (lane == 0) xe = xv = 0;              // the lanes before this one
+      __syncthreads();
+      int pe = 0, pv = 0;                      // the warps before this one
+      for (int w2 = 0; w2 < EOB_WARPS; ++w2) {
+        const int2 x = s_warp[w2];
+        if (w2 == warp) {
+          const int ce = pe | xe, cv = xe ? xv : pv + xv;
+          if (s.x >= 0) emit_run(c, (ce ? cv : R + cv) + s.x);
+        }
+        if (x.x) {
+          pe = 1;
+          pv = x.y;
+        } else {
+          pv += x.y;
+        }
+      }
+      R = pe ? pv : R + pv;                    // after the block's tiles
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+      emit_run(c, R);                          // the last segment's final run
+      done[b] = 0;
     }
   }
-  if (lane == 0) emit_run(c, carry);    // the run open at the segment's end
+  // the histogram: a warp reduction, the CTA's sums, an atomic a symbol
 #pragma unroll
   for (int q = 0; q < 15; ++q) {
     const int v = __reduce_add_sync(FULL, c[q]);
-    if (lane == 0 && v) atomicAdd(&hist[b * 256 + (q << 4)], v);
+    if (lane == 0 && v) atomicAdd(&s_h[q], v);
   }
+  __syncthreads();
+  if (threadIdx.x < 15 && s_h[threadIdx.x])
+    atomicAdd(&hist[(long long)b * 256 + (threadIdx.x << 4)],
+              s_h[threadIdx.x]);
 }
 
 }  // namespace
@@ -432,17 +558,25 @@ extern "C" int mj_p1_blocks(const void* plane, int sample_bytes,
 
 // flags (B*n,) uint8 from mj_p1_blocks -> the EOB runs of each image's
 // restart segments of ri blocks (ri <= 0: one segment an image) added into
-// hist (B, 256) int32. One launch on `stream`; returns cudaGetLastError().
+// hist (B, 256) int32. Scratch: summ, summ_len int2 (at least B *
+// ceil(n / 256)), and done, done_len uint32 counters that are 0 on entry
+// (at least B; the launch leaves them 0). One launch on `stream`; returns
+// cudaGetLastError() (cudaErrorInvalidValue for arguments the kernel does
+// not take).
 extern "C" int mj_p1_eob_hist(const void* flags, void* hist, int B,
-                              long long n, long long ri, void* stream) {
+                              long long n, long long ri, void* summ,
+                              long long summ_len, void* done,
+                              long long done_len, void* stream) {
   if (B <= 0 || n <= 0) return 0;
+  if (n > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   if (ri <= 0 || ri > n) ri = n;
-  const long long nseg = (n + ri - 1) / ri;
-  const long long segs = nseg * B;
-  const long long grid = (segs + EOB_WARPS - 1) / EOB_WARPS;
-  if (grid > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  p1_eob_hist_kernel<<<(unsigned)grid, EOB_WARPS * 32, 0,
+  const long long tiles = (n + EOB_TILE - 1) / EOB_TILE;
+  const long long ctas = (tiles + EOB_WARPS - 1) / EOB_WARPS;
+  if (B * tiles > summ_len || B > done_len || B * ctas > 0x7fffffffll)
+    return (int)cudaErrorInvalidValue;
+  p1_eob_hist_kernel<<<(unsigned)(B * ctas), EOB_THREADS, 0,
                        (cudaStream_t)stream>>>(
-      (const uint8_t*)flags, (int32_t*)hist, n, ri, nseg, segs);
+      (const uint8_t*)flags, (int32_t*)hist, (int)n, (int)ri, (int)tiles,
+      (int)ctas, (int2*)summ, (unsigned*)done);
   return (int)cudaGetLastError();
 }

@@ -21,10 +21,17 @@
 // for a 12 MP luma iMCU row), and a row of the EOB DP is L dependent
 // steps. What the design does about it: one warp per chain (per row for
 // the EOB DP), all chains of a component in one launch, so the card runs
-// 189-512 chains side by side and each chain's step is as short as it can
-// be: predecessors come from registers by __shfl_sync, back-pointers and
-// row state stay in shared memory, the next column's inputs load one step
-// ahead, and nothing returns to the host between steps.
+// 189-512 chains side by side, and each chain's step is as short as it
+// can be. The DC trellis takes everything but the min-plus step off the
+// chain: before a row's chain the lanes write every column's candidates
+// and distortions to shared memory (one division a column), the next
+// column's nc pair costs are formed while the current column's dependent
+// part runs, and that part is nc independent shuffles of the
+// predecessors' costs, nc adds and a first-minimum tree of depth
+// ceil(log2 nc); the walk back runs in up to 32 segments side by side.
+// The EOB DP's predecessors come from shared memory, its next column's
+// inputs load one step ahead, and nothing returns to the host between
+// steps.
 //
 // Exactness (the plain versions in ops/trellis_rows.py are the spec):
 // build with -fmad=false, and every f32 operation that feeds another is an
@@ -32,8 +39,9 @@
 // int32 products and differences that the JAX program lets wrap (12-bit
 // DC squares, cand * q8 with 16-bit quant tables) are computed unsigned,
 // whose wrap is defined, and converted back. First-minimum ties as
-// torch.argmin: a strict '<' fold in ascending index, then a warp
-// reduction on the lexicographic (value, index).
+// torch.argmin: the lexicographic (value, index) minimum, by a tree over
+// a lane's candidates (the DC trellis), a strict '<' fold in ascending
+// index (the EOB DP), and across lanes a warp reduction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +51,11 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;            // chains (rows) per CTA at most
 constexpr int DC_NC_MAX = 9;        // DC_TRELLIS_MAX_CANDIDATES
 constexpr int DC_SI_N = 17;         // DC code lengths by category 0..16
+// the candidates' clamp at most: |c - c'| <= 2 * maxq < 2^16 keeps every
+// DC difference inside the 17 categories the code lengths cover
+constexpr int DC_MAXQ_MAX = 32767;
+constexpr int DC_TC = 256;          // columns a tile of the per-row pass
+constexpr int DC_PER = DC_TC / 32;  // columns a lane takes in that pass
 // dynamic shared memory a CTA may take (the H100's 227 KB less the static
 // arrays and some slack)
 constexpr int SMEM_MAX = 227 * 1024 - 1024;
@@ -95,28 +108,84 @@ __device__ __forceinline__ int dc_mag(int r, int q8, int half, int k,
   return m < -maxq ? -maxq : (m > maxq ? maxq : m);
 }
 
-// trans(d) = nbits(|d|) + dc_si[nbits(|d|)], exact in f32
-__device__ __forceinline__ float dc_trans(const int* si, int d) {
-  const int b = nbits(d < 0 ? -d : d);
-  return (float)(b + si[b]);
+// trans(d) = nbits(|d|) + dc_si[nbits(|d|)], exact in f32, from the
+// table by nbits (|d| < 2^16); nbits(v) = 32 - __clz(v), also at v = 0,
+// with no select on the chain step's issue path
+__device__ __forceinline__ float dc_trans(const float* tf, int d) {
+  return tf[32 - __clz(d < 0 ? -d : d)];
+}
+
+// The first minimum of v[0..NC) as a tree of depth ceil(log2 NC): each
+// node keeps its left (lower-index) child unless the right one is
+// strictly smaller, so that the result is the lexicographic (value,
+// index) minimum, as torch.argmin's first index and the strict ascending
+// fold give it. The result is in v[0], ix[0].
+template <int NC>
+__device__ __forceinline__ void first_min_tree(float (&v)[NC],
+                                               int (&ix)[NC]) {
+#pragma unroll
+  for (int s = 1; s < NC; s *= 2)
+#pragma unroll
+    for (int j = 0; j + s < NC; j += 2 * s)
+      if (v[j + s] < v[j]) {
+        v[j] = v[j + s];
+        ix[j] = ix[j + s];
+      }
+}
+
+// Candidate k's nc pair costs at tile column i: trans(c[i][k] - c[i-1][l])
+// + dist[i][k] for every predecessor l, from the tile's slots (tc slot i
+// is column i - 1, td slot i column i). Nothing here depends on the chain.
+template <int NC>
+__device__ __forceinline__ void dc_pairs(const int* tc, const float* td,
+                                         const float* tf, int i, int k,
+                                         float (&pr)[NC]) {
+  const int ck = tc[(i + 1) * NC + k];
+  const float dk = td[i * NC + k];
+#pragma unroll
+  for (int l = 0; l < NC; ++l)
+    pr[l] = __fadd_rn(dc_trans(tf, ck - tc[i * NC + l]), dk);
 }
 
 // One warp per chain: the rows i*v .. i*v + v - 1 (< bh) of one image's
-// iMCU row i, in turn. Lane k < nc holds candidate k: its signed value
-// and accumulated cost; the predecessors' come by shuffle. Lanes nc..31
-// shadow candidate nc - 1 and are never read. Per warp in shared memory:
-// the chosen DC of the row above (bw ints; the vertical gradient's
-// above_dc) and the back-pointers of the current row (bw x nc bytes),
-// whose column t is overwritten by the walk back with the chosen index.
+// iMCU row i, in turn, lastDC starting at 0. Per row:
+//   1. per tile of tw columns, the lanes stride over the columns (one
+//      division a column) and write every candidate c[t][k] and its
+//      distortion dist[t][k] (with the vertical gradient against the row
+//      above's chosen DC) to shared memory;
+//   2. the chain over the tile: lane k < NC holds candidate k's
+//      accumulated cost; the next column's NC pair costs are formed while
+//      the current column's dependent part runs (software-pipelined one
+//      step ahead), so that a step's dependent path is NC independent
+//      shuffles of acc, NC adds and the first-minimum tree;
+//   3. the walk back in at most 32 segments of S columns: lane j follows
+//      the back-pointers through its segment from each of the NC end
+//      states at once, the segments' maps are chained from the last
+//      segment down (at most 31 shared loads), then lane j writes its
+//      segment's chosen indices;
+//   4. the chosen DC of every column (coalesced), which is the next
+//      row's above_dc.
+// Lanes NC..31 shadow candidate NC - 1 and are never read. With CLOCKS,
+// lane 0 of each chain adds the SM cycles of steps 1-4 into clocks[chain
+// * 4 + step] (the measurement's instantiation; the wrapper's has none).
+// Per warp in
+// shared memory: the row above's chosen DC (bw ints), the tile's
+// candidates (tw + 1 slots of NC ints, slot 0 the column before the
+// tile; reused by the walk back's segment maps) and distortions (tw x NC
+// floats), and the row's back-pointers (bw x NC bytes, column t's first
+// overwritten by the walk back with the chosen index).
+template <int NC, bool CLOCKS>
 __global__ void __launch_bounds__(WARPS * 32)
 trellis_dc_kernel(const int32_t* __restrict__ raw,
                   const float* __restrict__ lam, int32_t* __restrict__ out,
                   int bh, int bw, int v, long long chains, int per_img,
-                  int q0, float ltbl0, DcTable tab, int nc, int grad_on,
-                  float w, int maxq, int warp_bytes) {
+                  int q0, float ltbl0, DcTable tab, int grad_on, float w,
+                  int maxq, int tw, int warp_bytes,
+                  long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_si[DC_SI_N];
-  if (threadIdx.x < DC_SI_N) s_si[threadIdx.x] = tab.si[threadIdx.x];
+  __shared__ float s_tf[DC_SI_N];   // trans by nbits(|d|)
+  if (threadIdx.x < DC_SI_N)
+    s_tf[threadIdx.x] = (float)((int)threadIdx.x + tab.si[threadIdx.x]);
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long chain = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
@@ -124,86 +193,156 @@ trellis_dc_kernel(const int32_t* __restrict__ raw,
   const long long img = chain / per_img;
   const int r0 = (int)(chain % per_img) * v;
   int* s_dc = (int*)(smem + (size_t)warp * warp_bytes);
-  uint8_t* bts = (uint8_t*)(s_dc + bw);
-  const int q8 = q0 * 8, half = nc / 2;
-  const int k = lane < nc ? lane : nc - 1;
+  int* tc = s_dc + bw;
+  float* td = (float*)(tc + (tw + 1) * NC);
+  uint8_t* bts = (uint8_t*)(td + tw * NC);
+  const int q8 = q0 * 8, half = NC / 2;
+  const int k = lane < NC ? lane : NC - 1;
+  const int S = (bw + 31) / 32, nseg = (bw + S - 1) / S;
+  const int t0 = lane * S, t1 = min(t0 + S, bw) - 1;   // lane's segment
+  long long cyc[4] = {0, 0, 0, 0};
+  long long tick = CLOCKS ? clock64() : 0;
+  auto lap = [&](int step) {
+    if (CLOCKS) {
+      __syncwarp();
+      const long long now = clock64();
+      cyc[step] += now - tick;
+      tick = now;
+    }
+  };
   int last = 0;                                 // lastDC, 0 at the chain
   for (int p = 0; p < v && r0 + p < bh; ++p) {
     const long long row = (img * bh + r0 + p) * (long long)bw;
     const int32_t* rr = raw + row;
     const float* lr = lam + row;
     const bool grad = grad_on && p > 0;         // the row above: r0+p-1
-    int r_n = rr[0], ar_n = grad ? rr[0 - bw] : 0;
-    float l_n = lr[0];
     float acc = 0.0f;
-    int pc = 0;
-    for (int t = 0; t < bw; ++t) {
-      const int r = r_n, a_raw = ar_n;
-      const float lm = l_n;
-      if (t + 1 < bw) {                         // the next column, early
-        r_n = rr[t + 1];
-        l_n = lr[t + 1];
-        if (grad) ar_n = rr[t + 1 - bw];
-      }
-      const int x = r < 0 ? -r : r;
-      const int cm = dc_mag(r, q8, half, k, maxq);
-      const int c = r < 0 ? -cm : cm;
-      const float lam_dc = __fmul_rn(lm, ltbl0);
-      const int d = wsub(wmul(cm, q8), x);
-      float dist = __fmul_rn((float)wmul(d, d), lam_dc);
-      if (grad) {
-        const int vd = wsub(wsub(a_raw, r),
-                            wsub(wmul(s_dc[t], q8), wmul(c, q8)));
-        const float vdist = __fmul_rn((float)wmul(vd, vd), lam_dc);
-        dist = __fadd_rn(dist, __fmul_rn(w, __fsub_rn(vdist, dist)));
-      }
-      if (t == 0) {
-        acc = __fadd_rn(dc_trans(s_si, c - last), dist);
-      } else {
-        float best = 0.0f;
-        int bl = 0;
+    for (int ts = 0; ts < bw; ts += tw) {
+      const int tn = min(tw, bw - ts);
+      // 1. the tile's candidates and distortions
+      __syncwarp();
+      if (ts > 0 && lane < NC) tc[lane] = tc[tw * NC + lane];
+      __syncwarp();
+      int r_[DC_PER], a_[DC_PER];
+      float l_[DC_PER];
 #pragma unroll
-        for (int l = 0; l < DC_NC_MAX; ++l) {
-          if (l >= nc) break;                   // uniform over the warp
-          const float al = __shfl_sync(FULL, acc, l);
-          const int cl = __shfl_sync(FULL, pc, l);
-          const float cost =
-              __fadd_rn(__fadd_rn(dc_trans(s_si, c - cl), dist), al);
-          if (l == 0 || cost < best) {
-            best = cost;
-            bl = l;
+      for (int u = 0; u < DC_PER; ++u) {        // every load first
+        const int i = lane + 32 * u;
+        r_[u] = a_[u] = 0;
+        l_[u] = 0.0f;
+        if (i < tn) {
+          r_[u] = rr[ts + i];
+          l_[u] = lr[ts + i];
+          if (grad) a_[u] = rr[ts + i - bw];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < DC_PER; ++u) {
+        const int i = lane + 32 * u;
+        if (i < tn) {
+          const int r = r_[u];
+          const int x = r < 0 ? -r : r;
+          const int base = (x + (q8 >> 1)) / q8 - half;
+          const float lam_dc = __fmul_rn(l_[u], ltbl0);
+          const int above = grad ? s_dc[ts + i] : 0;
+#pragma unroll
+          for (int kk = 0; kk < NC; ++kk) {
+            const int m = base + kk;
+            const int cm = m < -maxq ? -maxq : (m > maxq ? maxq : m);
+            const int c = r < 0 ? -cm : cm;
+            const int d = wsub(wmul(cm, q8), x);
+            float dist = __fmul_rn((float)wmul(d, d), lam_dc);
+            if (grad) {
+              const int vd = wsub(wsub(a_[u], r),
+                                  wsub(wmul(above, q8), wmul(c, q8)));
+              const float vdist = __fmul_rn((float)wmul(vd, vd), lam_dc);
+              dist = __fadd_rn(dist, __fmul_rn(w, __fsub_rn(vdist, dist)));
+            }
+            tc[(i + 1) * NC + kk] = c;
+            td[i * NC + kk] = dist;
           }
         }
-        if (lane < nc) bts[t * nc + lane] = (uint8_t)bl;
-        acc = best;
       }
-      pc = c;
+      __syncwarp();
+      lap(0);
+      // 2. the chain over the tile
+      int i = 0;
+      if (ts == 0) {                            // column 0, from lastDC
+        acc = __fadd_rn(dc_trans(s_tf, tc[NC + k] - last), td[k]);
+        i = 1;
+      }
+      if (i < tn) {
+        float pn[NC];
+        dc_pairs<NC>(tc, td, s_tf, i, k, pn);
+#pragma unroll 2
+        for (; i < tn; ++i) {
+          float cost[NC];
+          int ix[NC];
+#pragma unroll
+          for (int l = 0; l < NC; ++l) {
+            cost[l] = pn[l];
+            ix[l] = l;
+          }
+          // the next column's pair costs, off the dependent path (the
+          // last column recomputes its own)
+          dc_pairs<NC>(tc, td, s_tf, min(i + 1, tn - 1), k, pn);
+#pragma unroll
+          for (int l = 0; l < NC; ++l)
+            cost[l] = __fadd_rn(cost[l], __shfl_sync(FULL, acc, l));
+          first_min_tree<NC>(cost, ix);
+          if (lane < NC) bts[(ts + i) * NC + lane] = (uint8_t)ix[0];
+          acc = cost[0];
+        }
+      }
+      lap(1);
     }
-    // the final choice: the first minimum of the nc accumulated costs
-    float fv = lane < nc ? acc : __int_as_float(0x7f800000);
+    // the final choice: the first minimum of the NC accumulated costs
+    float fv = lane < NC ? acc : __int_as_float(0x7f800000);
     int fi = lane;
     warp_first_min(fv, fi);
+    // 3. the walk back. Segment j's map: each end state e at column t1
+    // -> the state at column t0 - 1 (the end state of segment j - 1),
+    // into the free tile buffer
     __syncwarp();
-    if (lane == 0) {                            // the walk back
-      int cur = fi;
-      for (int t = bw - 1; t > 0; --t) {
-        const int nxt = bts[t * nc + cur];
-        bts[t * nc] = (uint8_t)cur;
-        cur = nxt;
-      }
-      bts[0] = (uint8_t)cur;
+    int* seg = tc;
+    if (lane < nseg) {
+      int cur[NC];
+#pragma unroll
+      for (int e = 0; e < NC; ++e) cur[e] = e;
+      for (int t = t1; t > t0; --t)
+#pragma unroll
+        for (int e = 0; e < NC; ++e) cur[e] = bts[t * NC + cur[e]];
+      if (lane > 0)
+#pragma unroll
+        for (int e = 0; e < NC; ++e) seg[lane * NC + e] = bts[t0 * NC + cur[e]];
     }
     __syncwarp();
+    if (lane < nseg) {
+      int cur = fi;                             // the state at column bw-1
+      for (int j = nseg - 1; j > lane; --j) cur = seg[j * NC + cur];
+      for (int t = t1; t > t0; --t) {
+        const int nxt = bts[t * NC + cur];
+        bts[t * NC] = (uint8_t)cur;
+        cur = nxt;
+      }
+      bts[t0 * NC] = (uint8_t)cur;
+    }
+    __syncwarp();
+    lap(2);
+    // 4. the chosen DC of every column
     for (int t = lane; t < bw; t += 32) {
       const int r = rr[t];
-      const int cm = dc_mag(r, q8, half, bts[t * nc], maxq);
+      const int cm = dc_mag(r, q8, half, bts[t * NC], maxq);
       const int c = r < 0 ? -cm : cm;
       out[row + t] = c;
       s_dc[t] = c;                              // the next row's above_dc
     }
     __syncwarp();
     last = s_dc[bw - 1];
+    lap(3);
   }
+  if (CLOCKS && lane == 0)
+    for (int i = 0; i < 4; ++i) clocks[chain * 4 + i] = cyc[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -322,6 +461,53 @@ int prepare(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+struct DcArgs {
+  const int32_t* raw;
+  const float* lam;
+  int32_t* out;
+  int bh, bw, v;
+  long long chains;
+  int per_img, q0;
+  float ltbl0;
+  DcTable tab;
+  int grad_on;
+  float w;
+  int maxq, tw, warp_bytes, warps;
+  cudaStream_t stream;
+  long long* clocks;
+};
+
+template <int NC, bool CLOCKS>
+int launch_dc(const DcArgs& a) {
+  const size_t smem = (size_t)a.warps * a.warp_bytes;
+  const int rc = prepare(trellis_dc_kernel<NC, CLOCKS>, smem);
+  if (rc) return rc;
+  const long long grid = (a.chains + a.warps - 1) / a.warps;
+  trellis_dc_kernel<NC, CLOCKS>
+      <<<(unsigned)grid, a.warps * 32, smem, a.stream>>>(
+          a.raw, a.lam, a.out, a.bh, a.bw, a.v, a.chains, a.per_img, a.q0,
+          a.ltbl0, a.tab, a.grad_on, a.w, a.maxq, a.tw, a.warp_bytes,
+          a.clocks);
+  return (int)cudaGetLastError();
+}
+
+template <bool CLOCKS>
+int launch_dc_nc(int nc, const DcArgs& a) {
+  switch (nc) {
+    case 1: return launch_dc<1, CLOCKS>(a);
+    case 2: return launch_dc<2, CLOCKS>(a);
+    case 3: return launch_dc<3, CLOCKS>(a);
+    case 4: return launch_dc<4, CLOCKS>(a);
+    case 5: return launch_dc<5, CLOCKS>(a);
+    case 6: return launch_dc<6, CLOCKS>(a);
+    case 7: return launch_dc<7, CLOCKS>(a);
+    case 8: return launch_dc<8, CLOCKS>(a);
+    default: return launch_dc<9, CLOCKS>(a);
+  }
+}
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // raw (B, bh, bw) int32 (row 0 of a component's raw plane), lam (B, bh,
@@ -329,33 +515,65 @@ int prepare(K kernel, size_t smem) {
 // DC quant value, ltbl0 = 1/(q0*q0) as the host IEEE table has it, dc_si
 // the 17 DC code lengths (host memory, passed by value), nc <= 9
 // candidates, v block rows per iMCU row, grad_on with delta_w the
-// vertical-gradient weight, maxq the candidates' clamp. One launch on
-// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for
-// arguments the kernel does not take).
-extern "C" int mj_trellis_dc(const void* raw, const void* lam, void* out,
-                             int B, int bh, int bw, int v, int q0,
-                             float ltbl0, const int* dc_si, int nc,
-                             int grad_on, float delta_w, int maxq,
-                             void* stream) {
+// vertical-gradient weight, maxq <= 32767 the candidates' clamp. One
+// launch on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue
+// for arguments the kernel does not take).
+namespace {
+
+// mj_trellis_dc and mj_trellis_dc_clocks: the checks and one launch
+int trellis_dc_launch(const void* raw, const void* lam, void* out, int B,
+                      int bh, int bw, int v, int q0, float ltbl0,
+                      const int* dc_si, int nc, int grad_on, float delta_w,
+                      int maxq, void* stream, long long* clocks) {
   if (B <= 0 || bh <= 0 || bw <= 0) return 0;
-  if (nc < 1 || nc > DC_NC_MAX || v < 1 || q0 < 1)
+  if (nc < 1 || nc > DC_NC_MAX || v < 1 || q0 < 1 || maxq < 0
+      || maxq > DC_MAXQ_MAX)
     return (int)cudaErrorInvalidValue;
   DcTable tab;
   for (int i = 0; i < DC_SI_N; ++i) tab.si[i] = dc_si[i];
   const int per_img = (bh + v - 1) / v;
   const long long chains = (long long)B * per_img;
-  const int warp_bytes = align16((long long)bw * 4 + (long long)bw * nc);
+  const int tw = bw < DC_TC ? bw : DC_TC;
+  const int warp_bytes = align16((long long)bw * 4
+                                 + (2ll * tw + 1) * nc * 4
+                                 + (long long)bw * nc);
   const int warps = warps_for(warp_bytes);
   if (!warps) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)warps * warp_bytes;
-  int rc = prepare(trellis_dc_kernel, smem);
-  if (rc) return rc;
-  const long long grid = (chains + warps - 1) / warps;
-  trellis_dc_kernel<<<(unsigned)grid, warps * 32, smem,
-                      (cudaStream_t)stream>>>(
-      (const int32_t*)raw, (const float*)lam, (int32_t*)out, bh, bw, v,
-      chains, per_img, q0, ltbl0, tab, nc, grad_on, delta_w, maxq,
-      warp_bytes);
+  const DcArgs a{(const int32_t*)raw, (const float*)lam, (int32_t*)out, bh,
+                 bw, v, chains, per_img, q0, ltbl0, tab, grad_on, delta_w,
+                 maxq, tw, warp_bytes, warps, (cudaStream_t)stream, clocks};
+  return clocks ? launch_dc_nc<true>(nc, a) : launch_dc_nc<false>(nc, a);
+}
+
+}  // namespace
+
+extern "C" int mj_trellis_dc(const void* raw, const void* lam, void* out,
+                             int B, int bh, int bw, int v, int q0,
+                             float ltbl0, const int* dc_si, int nc,
+                             int grad_on, float delta_w, int maxq,
+                             void* stream) {
+  return trellis_dc_launch(raw, lam, out, B, bh, bw, v, q0, ltbl0, dc_si,
+                           nc, grad_on, delta_w, maxq, stream, nullptr);
+}
+
+// mj_trellis_dc's launch with each chain's SM cycles by step into clocks
+// (B * ceil(bh / v) * 4 int64: the per-row pass, the chain, the walk
+// back, the output), for the measurement of where the kernel's time goes.
+extern "C" int mj_trellis_dc_clocks(const void* raw, const void* lam,
+                                    void* out, int B, int bh, int bw, int v,
+                                    int q0, float ltbl0, const int* dc_si,
+                                    int nc, int grad_on, float delta_w,
+                                    int maxq, void* clocks, void* stream) {
+  if (!clocks) return (int)cudaErrorInvalidValue;
+  return trellis_dc_launch(raw, lam, out, B, bh, bw, v, q0, ltbl0, dc_si,
+                           nc, grad_on, delta_w, maxq, stream,
+                           (long long*)clocks);
+}
+
+// A kernel that does nothing, one launch on `stream`: the launch floor
+// beside the kernels' bounds.
+extern "C" int mj_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,10 @@ csrc/p1.cu twice a component:
     into the image's (B, 256) histogram. Plain version: p1_blocks_plain,
     today's quantize, norm_seq and symbols.within_block_hist.
   - p1_eob_hist: the cross-block EOB runs of each image's restart
-    segments, from the flag bytes, added into that histogram. Plain
-    version: p1_eob_hist_plain over symbols.eob_run_hist.
+    segments, from the flag bytes, added into that histogram: a warp per
+    tile of EOB_TILE blocks, the tiles' runs joined in the same launch
+    (a small scratch kept per device and stream). Plain version:
+    p1_eob_hist_plain over symbols.eob_run_hist.
 
 The library is built with nvcc at first use into mozjpeg_tpu_torch/_build/
 and called through ctypes on PyTorch's current stream. Tensors on the CPU
@@ -49,8 +51,13 @@ LIB_NAME = "libp1.so"
 PRECISIONS = (8, 12)
 SAMPLE_TYPES = (torch.uint8, torch.int32)
 
+EOB_TILE = 256      # blocks a warp of csrc/p1.cu's EOB kernel walks
+
 _LIB = None
 _LOCK = threading.Lock()
+# the EOB kernel's scratch per (device, stream): (done, summ), int32
+# counters that every launch leaves 0 and the tiles' summaries
+_EOB_SCRATCH = {}
 # callables given (kernel name, its arguments) just before each launch;
 # chip_smoke.py holds every launch it records against the plain version
 RECORDERS = []
@@ -77,7 +84,8 @@ def _lib():
             so.mj_p1_blocks.argtypes = [vp, ci, cl, cl, cl, ci, ci, ci, vp,
                                         ci, ci, vp, vp, vp, vp, vp, vp]
             so.mj_p1_eob_hist.restype = ci
-            so.mj_p1_eob_hist.argtypes = [vp, vp, ci, cl, cl, vp]
+            so.mj_p1_eob_hist.argtypes = [vp, vp, ci, cl, cl, vp, cl, vp, cl,
+                                          vp]
             _LIB = so
     return _LIB
 
@@ -243,15 +251,34 @@ def p1_eob_hist(flags: torch.Tensor, hist: torch.Tensor, batch: int,
     lib = _lib()
     for r in RECORDERS:
         r("p1_eob_hist", (flags, hist, batch, ri))
+    n = flags.numel() // batch
     with record_function("p1:hist"), torch.cuda.device(dev):
-        rc = lib.mj_p1_eob_hist(flags.data_ptr(), hist.data_ptr(), batch,
-                                flags.numel() // batch, ri,
-                                torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        done, summ = _eob_scratch(dev, stream, batch,
+                                  batch * -(-n // EOB_TILE))
+        rc = lib.mj_p1_eob_hist(flags.data_ptr(), hist.data_ptr(), batch, n,
+                                ri, summ.data_ptr(), summ.numel() // 2,
+                                done.data_ptr(), done.numel(), stream)
     if rc != 0:
         raise RuntimeError("p1_eob_hist kernel launch failed: CUDA error %d"
                            % rc)
     p1_eob_hist.launches += 1
     return hist
+
+
+def _eob_scratch(dev, stream, batch: int, tiles: int):
+    """The EOB kernel's scratch on dev for launches on `stream` (one
+    stream's launches run in turn, so they may share it): at least batch
+    counters, zeroed once, and 2 * tiles ints of tile summaries."""
+    key = (dev.index, stream)
+    with _LOCK:
+        done, summ = _EOB_SCRATCH.get(key, (None, None))
+        if done is None or done.numel() < batch:
+            done = torch.zeros(max(batch, 8), dtype=torch.int32, device=dev)
+        if summ is None or summ.numel() < 2 * tiles:
+            summ = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+        _EOB_SCRATCH[key] = (done, summ)
+    return done, summ
 
 
 def p1_eob_hist_plain(flags: torch.Tensor, hist: torch.Tensor, batch: int,
@@ -263,6 +290,28 @@ def p1_eob_hist_plain(flags: torch.Tensor, hist: torch.Tensor, batch: int,
             lambda f: symbols.eob_run_hist((f & 1) != 0, (f & 2) != 0),
             flags, batch, ri)
         return hist.add_(runs)
+
+
+EDGE_N = 3 * EOB_TILE + 77     # one image's blocks in edge_flags
+
+
+def edge_flags(seed: int = 0) -> np.ndarray:
+    """Seeded (6, EDGE_N) flag bytes for the EOB kernel's tile edges, for
+    tests and the smoke run (all-zero blocks 2, nonzero blocks 3 with a
+    zero last coefficient or 1 without): in images 0-2 nonzero blocks at
+    k * EOB_TILE + d, d = -1, 0, +1, so that runs end a block before, at
+    and after each tile edge; in image 3 a run that starts in a tile's
+    last block and one that ends at a tile's first; one nonzero block in
+    image 4; image 5 all zero."""
+    rng = np.random.default_rng(seed)
+    f = np.full((6, EDGE_N), 2, np.uint8)
+    for img, d in enumerate((-1, 0, 1)):
+        at = [0] + [k * EOB_TILE + d for k in (1, 2, 3)]
+        f[img, at] = rng.choice([1, 3], len(at))
+    f[3, [EOB_TILE - 1, 2 * EOB_TILE - 1]] = 3
+    f[3, [2 * EOB_TILE, 3 * EOB_TILE]] = rng.choice([1, 3], 2)
+    f[4, 300] = 3
+    return f
 
 
 def example_plane(b: int, bh: int, bw: int, precision: int = 8,

@@ -22,6 +22,10 @@ raises.
   - eob_dp: trellis_eob_opt's DP over whole blocks of every block row,
     from the AC kernel's `ei` strip and each image's EOBn code lengths.
     Plain version: eob_dp_plain over eob_block_dp.
+
+For measurement only (counted nowhere): trellis_dc_clocks, the DC
+kernel's instantiation that counts each chain's SM cycles by step, and
+empty_launch, a kernel that does nothing (the launch floor).
 """
 from __future__ import annotations
 
@@ -67,6 +71,12 @@ def _lib():
             so.mj_trellis_dc.restype = ci
             so.mj_trellis_dc.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, cf,
                                          vp, ci, ci, cf, ci, vp]
+            so.mj_trellis_dc_clocks.restype = ci
+            so.mj_trellis_dc_clocks.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                                ci, cf, vp, ci, ci, cf, ci,
+                                                vp, vp]
+            so.mj_empty.restype = ci
+            so.mj_empty.argtypes = [vp]
             so.mj_eob_dp.restype = ci
             so.mj_eob_dp.argtypes = [vp, vp, vp, ctypes.c_longlong, ci, ci,
                                      vp]
@@ -135,6 +145,46 @@ def trellis_dc(raw_dc, lam, q0: int, ltbl0: float, dc_si, nc: int, v: int,
                            % rc)
     trellis_dc.launches += 1
     return out
+
+
+def trellis_dc_clocks(raw_dc, lam, q0: int, ltbl0: float, dc_si, nc: int,
+                      v: int, delta_w: float = 0.0, maxq: int = 1023):
+    """trellis_dc's launch on a CUDA tensor through the kernel's
+    instantiation that counts each chain's SM cycles by step, for the
+    measurement of where its time goes (not counted in
+    trellis_dc.launches) -> (the same output, (chains, 4) int64 cycles:
+    the per-row pass, the chain, the walk back, the output)."""
+    dev = raw_dc.device
+    if dev.type != "cuda":
+        raise ValueError("trellis_dc_clocks: needs a CUDA tensor")
+    _want("trellis_dc_clocks", raw_dc, raw_dc.shape, torch.int32, dev)
+    _want("trellis_dc_clocks", lam, raw_dc.shape, torch.float32, dev)
+    si = np.asarray(dc_si, np.int32).reshape(-1)
+    lib = _lib()
+    b, bh, bw = raw_dc.shape
+    out = torch.empty((b, bh, bw), dtype=torch.int32, device=dev)
+    clocks = torch.zeros((b * -(-bh // v), 4), dtype=torch.int64,
+                         device=dev)
+    tab = (ctypes.c_int * DC_SI_N)(*si[:DC_SI_N].tolist())
+    with torch.cuda.device(dev):
+        rc = lib.mj_trellis_dc_clocks(
+            raw_dc.data_ptr(), lam.data_ptr(), out.data_ptr(), b, bh, bw, v,
+            q0, ltbl0, ctypes.cast(tab, ctypes.c_void_p), nc,
+            int(delta_w > 0.0), delta_w, maxq, clocks.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("trellis_dc_clocks launch failed: CUDA error %d"
+                           % rc)
+    return out, clocks
+
+
+def empty_launch(dev):
+    """One launch of a kernel that does nothing on dev's current stream
+    (through ctypes, as the wrappers launch): the launch floor."""
+    with torch.cuda.device(dev):
+        rc = _lib().mj_empty(torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("empty kernel launch failed: CUDA error %d" % rc)
 
 
 def trellis_dc_plain(raw_dc, lam, q0: int, ltbl0: float, dc_si, nc: int,
@@ -326,7 +376,10 @@ def dc_example_inputs(kind: str, b: int, bh: int, bw: int, q0: int,
     dc_si (256,) int32) for the DC trellis, for tests and the smoke run.
     tie: raw on the rounding midpoints of q8 = 8 and their neighbours,
     lambda 1 and equal code lengths, so that with q0 = 1 (1/q0^2 = 1)
-    every cost is an integer and ties are common; seeded: raw spread past
+    every cost is an integer and ties are common; alltie: one raw value
+    for every block, lambda 0 and code lengths si[k] = 16 - k, so that
+    every transition costs 16 and all candidates tie at every step;
+    seeded: raw spread past
     the candidates' clamp for q0 <= 2 (1023, and 16383 at precision 12),
     and at 12 bits to 260,000 for larger q0, where with a 16-bit quant
     value the squares and cand * q8 products wrap int32."""
@@ -337,6 +390,10 @@ def dc_example_inputs(kind: str, b: int, bh: int, bw: int, q0: int,
         raw = rng.integers(-30, 31, shape) * 4
         lam = np.ones(shape, np.float32)
         si[:DC_SI_N] = 3
+    elif kind == "alltie":
+        raw = np.full(shape, int(rng.integers(-2000, 2001)))
+        lam = np.zeros(shape, np.float32)
+        si[:DC_SI_N] = 16 - np.arange(DC_SI_N)
     else:
         top = {8: 20000, 12: 140000}[precision] if q0 <= 2 else \
             {8: 8000, 12: 260000}[precision]

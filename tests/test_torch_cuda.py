@@ -27,11 +27,13 @@ and encode_many with each codec flag on the card against the CPU, and
 the remote decode routes (host render, packed with and without the plane
 pack) against the card's default; and the trellis program's row scans:
 the DC trellis and EOB-run DP kernels against their plain versions on
-seeded, tie, 12-bit and wide inputs, and the eob_opt and delta-weight
+seeded, tie, all-tie (nc 1 to 9), 12-bit, tile-crossing and wide inputs,
+and the eob_opt and delta-weight
 encodes with one launch of each per component; and p1's two kernels
 (csrc/p1.cu) against their plain versions on ops/p1.example_plane's
 adversarial planes (uint8 and int32 samples, views into a host-prep
-buffer at the chroma offsets, B = 1 and 8, restart intervals), and
+buffer at the chroma offsets, B = 1 and 8, restart intervals), the EOB
+kernel on runs at its tile edges and a 12 MP plane's flags, and
 encode_many at 8 and 12 bits with two p1 launches a component against
 the CPU. They skip without a GPU;
 run them on one with
@@ -721,8 +723,18 @@ def test_remote_decode_routes_on_the_card_equal_cpu(cuda, port_jpegs,
     ("seeded", 2, 7, 40, 1, 1, 9, 0.0, 12),
     ("seeded", 1, 7, 3, 4, 5, 1, 1.0, 8),
     ("seeded", 1, 2, 8192, 1, 40, 3, 0.0, 8),
-], ids=["group-luma", "odd-delta", "tie", "12bit-wrap", "12bit-clamp",
-        "v4-nc1", "bw8192"])
+    ("seeded", 1, 378, 504, 2, 8, 9, 0.0, 8),
+    ("tie", 1, 3, 260, 2, 1, 9, 0.5, 8),
+    ("seeded", 1, 3, 33, 1, 3000, 9, 0.0, 12),
+    ("seeded", 1, 3, 33, 1, 1, 9, 0.0, 12),
+    ("seeded", 2, 5, 33, 2, 2, 9, 0.5, 8),
+] + [("alltie", 2, 3, bw, 2, 8, nc, 0.5, 8) for nc in (1, 2, 8, 9)
+     for bw in (1, 33)],
+    ids=["group-luma", "odd-delta", "tie", "12bit-wrap", "12bit-clamp",
+         "v4-nc1", "bw8192", "12mp-luma", "tiles-260", "12bit-wrap-bw33",
+         "12bit-clamp-16383", "grad-v2-odd-bh"]
+    + ["alltie-nc%d-bw%d" % (nc, bw) for nc in (1, 2, 8, 9)
+       for bw in (1, 33)])
 def test_dc_trellis_kernel_equals_plain_on_the_card(
         cuda, kind, b, bh, bw, v, q0, nc, delta_w, precision):
     raw, lam, si = trw.dc_example_inputs(kind, b, bh, bw, q0, precision,
@@ -831,6 +843,43 @@ def test_p1_eob_kernel_past_0x7fff_on_the_card(cuda):
                                            device=cuda), 3, ri)
         want = tp1.p1_eob_hist_plain(f, torch.zeros(
             (3, 256), dtype=torch.int32, device=cuda), 3, ri)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want)
+
+
+@pytest.mark.parametrize("ri", [0, 1, 5, tp1.EOB_TILE - 1, tp1.EOB_TILE,
+                                tp1.EOB_TILE + 1, tp1.EDGE_N - 1,
+                                tp1.EDGE_N, tp1.EDGE_N + 3])
+def test_p1_eob_kernel_at_tile_edges_on_the_card(cuda, ri):
+    """The tiled EOB kernel on ops/p1.edge_flags (runs ending beside and
+    on tile edges, one nonzero block, an all-zero image) at each restart
+    interval, exactly against its plain version."""
+    f = torch.as_tensor(tp1.edge_flags(17).reshape(-1), device=cuda)
+    zero = torch.zeros((6, 256), dtype=torch.int32, device=cuda)
+    before = tp1.p1_eob_hist.launches
+    h = tp1.p1_eob_hist(f, zero.clone(), 6, ri)
+    assert tp1.p1_eob_hist.launches == before + 1
+    want = tp1.p1_eob_hist_plain(f, zero.clone(), 6, ri)
+    torch.cuda.synchronize()
+    assert torch.equal(h, want)
+
+
+@pytest.mark.parametrize("ri", [0, 504, 0x7FFF])
+def test_p1_eob_kernel_12mp_on_the_card(cuda, ri):
+    """One 12 MP luma plane's flags (190,512 blocks: 745 tiles, so that
+    the combine runs over three blocks of 256 tiles), three images, and
+    the same launch twice (the counters back at 0 after each)."""
+    rng = np.random.default_rng(ri)
+    n = 378 * 504
+    flags = np.where(rng.random(3 * n) < 0.05,
+                     rng.choice([1, 3], 3 * n), 2).astype(np.uint8)
+    flags[n:n + 40000] = 2                   # a run past 0x7FFF
+    f = torch.as_tensor(flags, device=cuda)
+    want = tp1.p1_eob_hist_plain(f, torch.zeros(
+        (3, 256), dtype=torch.int32, device=cuda), 3, ri)
+    for _ in range(2):
+        h = tp1.p1_eob_hist(f, torch.zeros((3, 256), dtype=torch.int32,
+                                           device=cuda), 3, ri)
         torch.cuda.synchronize()
         assert torch.equal(h, want)
 

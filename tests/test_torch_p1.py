@@ -20,12 +20,19 @@ algorithm.
   division written out, the post-dering clamp on the int16 value, the
   within-block symbols by a run counter, the flag byte, and the norm as
   a serial f32 sum in natural order.
-  EOB model: one warp per restart segment walking the flag bytes 32 at a
-  time: the ballots of "nonzero" and "trailing zero", each nonzero
-  block's run from the previous nonzero block of the chunk or the carried
-  run, the carry after the chunk, the run left open at the segment's end,
-  and the 0x7FFF split.
+  EOB model: fixed tiles of 256 blocks of an image, one warp a tile,
+  walking its flag bytes 32 at a time: the ballots of "nonzero",
+  "trailing zero" and "segment start"; each nonzero block's run from the
+  highest event below it in the chunk (a segment start cuts the run) or
+  the carried run, each segment start's final run of the segment before;
+  the tile's first event leaves its head run to the combine, and the
+  tile's summary is (head, the run open at its end); then the last
+  CTA's combine, 256 tiles at a time: a scan of the associative (has an
+  event, open run) operator as warp shfl_up scans and a warps' prefix,
+  each event tile's head run, the image's final run, and the 0x7FFF
+  split.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -316,53 +323,132 @@ def model_blocks(plane, bh, bw, qtbl, dering_on, precision):
     return q_zz, raw_zz, norm, hist, flags
 
 
-def _emit(c, run):
-    c[14] += run // 0x7FFF
-    r = run % 0x7FFF
-    if r > 0:
-        c[r.bit_length() - 1] += 1
+EOB_TILE = 256     # blocks a warp of the EOB kernel walks (csrc/p1.cu)
+EOB_WARPS = 8      # tiles a CTA, and the combine's warps
+LANES = np.arange(32)
 
 
-def model_eob(flags, hist, batch, ri):
-    """p1_eob_hist_kernel: one warp per (image, segment), 32 flag bytes a
-    chunk -> hist with the EOB runs added."""
+def _emit(counts, runs):
+    """emit_run for each of runs: run // 0x7FFF forced EOB14 symbols,
+    then EOBn for a remainder above 0."""
+    runs = np.asarray(runs, np.int64).ravel()
+    counts[14] += int((runs // 0x7FFF).sum())
+    r = runs % 0x7FFF
+    r = r[r > 0]
+    np.add.at(counts, np.frexp(r.astype(np.float64))[1] - 1, 1)
+
+
+def _hi_below(m, incl):
+    """31 - clz of each lane's ballot of m (T, 32) masked to the lanes
+    below it (and itself with incl): the highest such lane, else -1."""
+    acc = np.maximum.accumulate(np.where(m, LANES, -1), axis=1)
+    if incl:
+        return acc
+    return np.concatenate([np.full((m.shape[0], 1), -1), acc[:, :-1]], 1)
+
+
+def _run_below(p, q, tr, at):
+    """run_below: the run open just before lane `at` from the highest
+    nonzero block p and segment start q below it, -1 if neither."""
+    trp = np.take_along_axis(tr, np.maximum(p, 0), 1)
+    return np.where(q > p, at - q, np.where(p >= 0, at - p - 1 + trp, -1))
+
+
+def _up(x, off):
+    """__shfl_up_sync over the warps' lanes (W, 32): lane i reads lane
+    i - off (the lanes below off keep their own value)."""
+    return np.concatenate([x[:, :off], x[:, :-off]], 1)
+
+
+def model_eob(flags, hist, batch, ri, warps=EOB_WARPS):
+    """p1_eob_hist_kernel: every tile of EOB_TILE blocks of an image side
+    by side (a warp each), 32 flag bytes a chunk: the ballots of
+    "nonzero", "trailing zero" and "segment start"; each nonzero block's
+    run from the highest event below it in the chunk or the carried run,
+    each segment start's final run of the segment before; the tile's
+    first event leaves its head (the blocks from the tile's start) to
+    the combine; the carry after each chunk. Then the last CTA's combine
+    of the image's (head, carry) summaries, EOB_WARPS * 32 tiles at a
+    time: the warps' inclusive shfl_up scans of (has an event, open
+    run), the lanes' exclusive prefix, the warps' prefix, each event
+    tile's head run and the image's final run. -> hist with the runs
+    added. `warps` other than the kernel's EOB_WARPS narrows the
+    combine's blocks, so that short images cross several."""
     hist = np.array(hist, np.int64)
     n = flags.size // batch
     if ri <= 0 or ri > n:
         ri = n
-    nseg = -(-n // ri)
-    lanes = np.arange(32)
-    for w in range(batch * nseg):
-        img, s = divmod(w, nseg)
-        s0 = s * ri
-        ln = min(n - s0, ri)
-        f = flags[img * n + s0:img * n + s0 + ln]
-        c = [0] * 15
-        carry = 0
-        for base in range(0, ln, 32):
-            fl = np.zeros(32, np.int64)
-            cnt = min(32, ln - base)
-            fl[:cnt] = f[base:base + cnt]
-            nz = int(((fl & 1) << lanes).sum())          # __ballot_sync
-            tr = int((((fl >> 1) & 1) << lanes).sum())
-            for lane in range(32):
-                if fl[lane] & 1:
-                    below = nz & ((1 << lane) - 1)
-                    if below:
-                        p = below.bit_length() - 1
-                        run = lane - p - 1 + ((tr >> p) & 1)
-                    else:
-                        run = carry + lane
-                    if run > 0:
-                        _emit(c, run)
-            if nz:
-                p = nz.bit_length() - 1
-                carry = cnt - 1 - p + ((tr >> p) & 1)
-            else:
-                carry += cnt
-        _emit(c, carry)
-        for q in range(15):
-            hist[img, q << 4] += c[q]
+    tiles = -(-n // EOB_TILE)
+    t0 = np.arange(tiles) * EOB_TILE
+    tn = np.minimum(EOB_TILE, n - t0)
+    rows = np.arange(tiles)
+    for img in range(batch):
+        counts = np.zeros(15, np.int64)
+        f = np.zeros(tiles * EOB_TILE, np.int64)
+        f[:n] = flags[img * n:(img + 1) * n]
+        fl = f.reshape(tiles, EOB_TILE // 32, 32)
+        seen = np.zeros(tiles, bool)
+        carry = np.zeros(tiles, np.int64)
+        head = np.full(tiles, -1, np.int64)
+        for u in range(EOB_TILE // 32):
+            base = u * 32
+            act = base < tn                     # the others have left
+            cnt = np.clip(tn - base, 0, 32)
+            pos = t0[:, None] + base + LANES
+            nz = (fl[:, u] & 1) != 0
+            tr = (fl[:, u] >> 1) & 1
+            ss = (LANES < cnt[:, None]) & (pos % ri == 0)
+            p = _hi_below(nz, False)
+            hv = np.full((tiles, 32), -1, np.int64)
+            for at_ev, q in ((nz, _hi_below(ss, True)),
+                             (ss, _hi_below(ss, False))):
+                run = _run_below(p, q, tr, LANES)
+                first = at_ev & (run < 0)
+                run = np.where(first, carry[:, None] + LANES, run)
+                hd = first & ~seen[:, None]
+                hv = np.where(hd, run, hv)
+                run = np.where(hd, 0, run)
+                _emit(counts, run[at_ev & (run > 0)])
+            ev = act & (nz | ss).any(1)
+            new = ev & ~seen
+            head = np.where(new, hv[rows, np.argmax(hv >= 0, 1)], head)
+            seen |= ev
+            pm, qm = _hi_below(nz, True)[:, -1], _hi_below(ss, True)[:, -1]
+            trp = tr[rows, np.maximum(pm, 0)]
+            carry = np.where(ev, np.where(qm > pm, cnt - qm,
+                                          cnt - 1 - pm + trp),
+                             np.where(act, carry + cnt, carry))
+        # the combine
+        R = 0
+        width = warps * 32
+        for base in range(0, tiles, width):
+            k = min(width, tiles - base)
+            hs = np.full(width, -1, np.int64)
+            vs = np.zeros(width, np.int64)
+            hs[:k], vs[:k] = head[base:base + k], carry[base:base + k]
+            E, V = (hs >= 0).astype(np.int64).reshape(warps, 32), \
+                vs.reshape(warps, 32)
+            for off in (1, 2, 4, 8, 16):
+                oe, ov = _up(E, off), _up(V, off)
+                on = LANES >= off
+                V = np.where(on & (E == 0), V + ov, V)
+                E = np.where(on, E | oe, E)
+            xe = np.where(LANES == 0, 0, _up(E, 1))
+            xv = np.where(LANES == 0, 0, _up(V, 1))
+            pe = pv = 0
+            for w in range(warps):
+                ce = pe | xe[w]
+                cv = np.where(xe[w] != 0, xv[w], pv + xv[w])
+                rj = np.where(ce != 0, cv, R + cv)
+                h = hs.reshape(warps, 32)[w]
+                _emit(counts, (rj + h)[h >= 0])
+                if E[w, 31]:
+                    pe, pv = 1, int(V[w, 31])
+                else:
+                    pv += int(V[w, 31])
+            R = pv if pe else R + pv
+        _emit(counts, [R])
+        hist[img, 0:0xF0:16] += counts
     return hist
 
 
@@ -444,3 +530,72 @@ def test_eob_model_across_chunks_and_past_0x7fff(long_runs, ri):
         tp1.p1_eob_hist_plain(_t(flags), within.clone(), 3, ri))
     if ri == 0 or ri >= N_LONG - 1:
         assert got[1, 0xE0] == got[2, 0xE0] == 1   # the forced flush
+
+
+N_EDGE = tp1.EDGE_N     # one image's blocks in the tile-edge cases
+
+
+def _q_zz_of(flags):
+    """(64, n) int16 coefficients whose flag bytes over the band [62, 63]
+    are `flags`: a nonzero block holds coefficient 62 where its bit 1 is
+    set (63 zero), else coefficient 63. The EOB runs depend on the flags
+    alone, and a two-coefficient band keeps the JAX compiles short."""
+    q = np.zeros((64, flags.size), np.int16)
+    q[62] = (flags == 3) * 3
+    q[63] = (flags == 1) * -1
+    return q
+
+
+# the JAX package's AC-first histogram, one compile per shape and interval
+jax_ac_first = jax.jit(jsymbols.ac_first_histogram_t,
+                       static_argnums=(1, 2, 3))
+
+
+@pytest.fixture(scope="module")
+def edge_jax():
+    """The tile-edge flags and, per restart interval, each image's EOB
+    counts (the histogram's 16 * q bins) from the JAX package."""
+    flags = tp1.edge_flags(17)
+    out = {}
+    for ri in EDGE_RIS:
+        jri = 0 if ri >= N_EDGE else ri       # one segment an image
+        out[ri] = np.stack([np.asarray(jax_ac_first(
+            jnp.asarray(_q_zz_of(f)), 62, 63, jri))[0:0xF0:16]
+            for f in flags])
+    return flags, out
+
+
+EDGE_RIS = [0, 1, 5, EOB_TILE - 1, EOB_TILE, EOB_TILE + 1, N_EDGE - 1,
+            N_EDGE, N_EDGE + 3]
+
+
+@pytest.mark.parametrize("ri", EDGE_RIS)
+def test_eob_model_at_tile_edges_matches_plain_and_jax(edge_jax, ri):
+    """The tiled EOB kernel's model and the plain version against the
+    JAX package at each restart interval (every block a segment, segment
+    starts on and beside the tile edges, one segment an image): runs
+    ending beside and on tile edges, one nonzero block, all zero."""
+    flags, want = edge_jax
+    flat = flags.reshape(-1)
+    zero = np.zeros((6, 256), np.int32)
+    got = model_eob(flat, zero, 6, ri)
+    _eq(got[:, 0:0xF0:16], want[ri].astype(np.int64))
+    plain = tp1.p1_eob_hist_plain(_t(flat), _t(zero), 6, ri).numpy()
+    _eq(plain[:, 0:0xF0:16], want[ri].astype(np.int32))
+    assert not got[:, np.arange(256) % 16 != 0].any()
+
+
+def test_eob_model_long_runs_match_jax(long_runs):
+    """Runs past 0x7FFF blocks across more than a hundred tiles (images 1
+    and 2 of long_runs, one segment an image): the model's forced EOB14
+    flushes and EOBn remainders equal the JAX package's, also with the
+    combine in blocks of 32 tiles."""
+    flags, _ = long_runs
+    zero = np.zeros((3, 256), np.int32)
+    got = model_eob(flags, zero, 3, 0)
+    # the combine over blocks of 32 tiles: the open run carried between
+    _eq(model_eob(flags, zero, 3, 0, warps=1), got)
+    for img in (1, 2):
+        f = flags[img * N_LONG:(img + 1) * N_LONG]
+        want = np.asarray(jax_ac_first(jnp.asarray(_q_zz_of(f)), 62, 63, 0))
+        _eq(got[img, 0:0xF0:16], want[0:0xF0:16].astype(np.int64))

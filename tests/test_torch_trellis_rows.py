@@ -10,12 +10,17 @@ order of work, against the plain versions bit for bit: the kernels cannot
 run without a card, so these models are the CPU check of their algorithm.
 
   DC model: one warp per chain (an image's iMCU row), its v block rows in
-  turn with lastDC carried from row to row and reset at each chain; lane k
-  holds candidate k (lanes past nc shadow candidate nc - 1), reads each
-  predecessor's cost and value by shuffle, folds the predecessors l
-  ascending with strict '<' after l = 0; the final choice is the warp's
-  lexicographic (cost, lane) minimum with idle lanes at +inf; the walk
-  back runs on one lane; the chosen row is the next row's above_dc.
+  turn with lastDC carried from row to row and reset at each chain; per
+  row and tile of 256 columns, every candidate and distortion first (one
+  division a column), the pair costs trans(c[t][k] - c[t-1][l]) +
+  dist[t][k] ahead of the chain, and a chain step that adds the
+  predecessors' costs and takes the first minimum by a tree over l (the
+  left, lower-index child unless the right one is strictly smaller); the
+  final choice is the warp's lexicographic (cost, lane) minimum with idle
+  lanes at +inf; the walk back runs in segments of ceil(bw / 32) columns
+  (each segment's map of its end states, the maps chained from the last
+  segment down, each segment walked); the chosen row is the next row's
+  above_dc.
   EOB model: one warp per block row; the serial azbc prefix on one lane;
   step b folds i = lane, lane + 32, ... <= b + 1 with strict '<' and
   reduces the warp's lexicographic (cost, i) minimum; the final run over
@@ -74,29 +79,35 @@ def dc_inputs(name, b, bh, bw, q0, precision, seed):
                                  bh, bw, q0, precision, seed)
 
 
+def _jax_dc_program(case, inputs):
+    """The JAX trellis program's DC trellis of one component."""
+    name, b, bh, bw, v, q0, nc, delta_w, precision = case
+    raw_dc, lam, si = inputs
+    geom = JGeom(h=1, v=v, w=8 * bw, hgt=8 * bh, bw=bw, bh=bh,
+                 bw_pad=bw, bh_pad=bh)
+    n = b * bh * bw
+    raws = np.zeros((64, n), np.int32)
+    raws[0] = raw_dc.reshape(-1)
+    qz = np.full(64, 7, np.int32)
+    qz[0] = q0
+    run = jtr.make_trellis_all_t((geom,), None, (), True, (nc,),
+                                 batch=b, precision=precision,
+                                 delta_w=delta_w)
+    packed = jtr.pack_trellis_inputs(
+        [lam.reshape(-1)], [np.zeros((b, 256), np.int32)], [si], [qz])
+    got = run((jnp.asarray(raws),),
+              (jnp.zeros((64, n), jnp.int16),), jnp.asarray(packed))
+    return np.asarray(got[0])[0].astype(np.int32).reshape(b, bh, bw)
+
+
 @pytest.fixture(scope="module")
 def dc_jax():
     """Each DC case through the JAX program: (case, inputs, DC out)."""
     out = {}
     for i, case in enumerate(DC_CASES):
         name, b, bh, bw, v, q0, nc, delta_w, precision = case
-        raw_dc, lam, si = dc_inputs(name, b, bh, bw, q0, precision, 40 + i)
-        geom = JGeom(h=1, v=v, w=8 * bw, hgt=8 * bh, bw=bw, bh=bh,
-                     bw_pad=bw, bh_pad=bh)
-        n = b * bh * bw
-        raws = np.zeros((64, n), np.int32)
-        raws[0] = raw_dc.reshape(-1)
-        qz = np.full(64, 7, np.int32)
-        qz[0] = q0
-        run = jtr.make_trellis_all_t((geom,), None, (), True, (nc,),
-                                     batch=b, precision=precision,
-                                     delta_w=delta_w)
-        packed = jtr.pack_trellis_inputs(
-            [lam.reshape(-1)], [np.zeros((b, 256), np.int32)], [si], [qz])
-        got = run((jnp.asarray(raws),),
-                  (jnp.zeros((64, n), jnp.int16),), jnp.asarray(packed))
-        want = np.asarray(got[0])[0].astype(np.int32).reshape(b, bh, bw)
-        out[name] = (case, (raw_dc, lam, si), want)
+        inputs = dc_inputs(name, b, bh, bw, q0, precision, 40 + i)
+        out[name] = (case, inputs, _jax_dc_program(case, inputs))
     return out
 
 
@@ -236,26 +247,64 @@ def warp_first_min(v, i):
     return v, i
 
 
-def model_dc(raw_dc, lam, q0, ltbl0, dc_si, nc, v, delta_w, maxq):
+DC_TC = 256        # columns a tile of the kernel's per-row pass
+
+
+def first_min_tree(v):
+    """The kernel's first-minimum tree over v (nc, ...): each node keeps
+    its left (lower-index) child unless the right one is strictly
+    smaller -> (value, index), each of shape v.shape[1:]."""
+    nc = v.shape[0]
+    vals = [v[l] for l in range(nc)]
+    idx = [np.full(v.shape[1:], l, np.int64) for l in range(nc)]
+    s = 1
+    while s < nc:
+        for j in range(0, nc - s, 2 * s):
+            take = vals[j + s] < vals[j]
+            vals[j] = np.where(take, vals[j + s], vals[j])
+            idx[j] = np.where(take, idx[j + s], idx[j])
+        s *= 2
+    return vals[0], idx[0]
+
+
+def model_dc(raw_dc, lam, q0, ltbl0, dc_si, nc, v, delta_w, maxq,
+             tile=DC_TC):
+    """trellis_dc_kernel's order of work, one chain (an image's iMCU row,
+    its v rows in turn, lastDC from 0) at a time. Per row: per tile of
+    `tile` columns, the per-row pass (one division a column, every
+    candidate and distortion, slot 0 the column before the tile); the
+    pair costs trans(c[t][k] - c[t-1][l]) + dist[t][k], formed ahead of
+    the chain; the chain, whose step adds the predecessors' costs to the
+    pairs and takes the first-minimum tree; the final choice as the
+    warp's lexicographic (cost, lane) minimum with idle lanes at +inf;
+    the walk back in segments of S = ceil(bw / 32) columns (each
+    segment's map from its NC end states, the maps chained from the last
+    segment down, each segment's walk); the chosen DC recomputed from the
+    raw value, which is the next row's above_dc."""
     raw_dc, lam = raw_dc.numpy(), lam.numpy()
     b, bh, bw = raw_dc.shape
     si = np.asarray(dc_si, np.int64)[:17]
     q8, half = q0 * 8, nc // 2
-    k = np.minimum(LANES, nc - 1)
     w, ltbl0 = F32(delta_w), F32(ltbl0)
+    tw = min(tile, bw)
+    tf = (np.arange(17) + si).astype(F32)           # trans by nbits(|d|)
+    ks = np.arange(nc)
     out = np.zeros(raw_dc.shape, np.int32)
 
     def trans(d):
-        nb = _nbits(np.abs(d))
-        return (nb + si[nb]).astype(F32)
+        return tf[_nbits(np.abs(d))]
 
-    def cand(r, kk):
-        x = abs(int(r))
-        cm = np.clip((x + (q8 >> 1)) // q8 - half + kk, -maxq, maxq)
-        return cm, (-cm if r < 0 else cm)
+    def cands(r, sel):
+        x = np.abs(r.astype(np.int64))
+        base = (x + (q8 >> 1)) // q8 - half           # x >= 0: C's division
+        cm = np.clip(base[..., None] + sel, -maxq, maxq)
+        return cm, np.where((r < 0)[..., None], -cm, cm)
 
-    for chain in range(b * -(-bh // v)):
-        img, r0 = chain // -(-bh // v), chain % -(-bh // v) * v
+    per_img = -(-bh // v)
+    S = -(-bw // 32)
+    nseg = -(-bw // S)
+    for chain in range(b * per_img):
+        img, r0 = chain // per_img, chain % per_img * v
         last, s_dc = 0, None
         for p in range(v):
             row = r0 + p
@@ -264,39 +313,64 @@ def model_dc(raw_dc, lam, q0, ltbl0, dc_si, nc, v, delta_w, maxq):
             grad = delta_w > 0.0 and p > 0
             rr, lr = raw_dc[img, row], lam[img, row]
             bts = np.zeros((bw, nc), np.int64)
-            acc, pc = None, None
-            for t in range(bw):
-                r = int(rr[t])
-                cm, c = cand(r, k)
-                lam_dc = F32(lr[t]) * ltbl0
-                d = _wrap(cm * q8 - abs(r))
-                dist = _wrap(d * d).astype(F32) * lam_dc
+            acc = None
+            prev_c = None                              # tile slot 0
+            for ts in range(0, bw, tw):
+                tn = min(tw, bw - ts)
+                cols = slice(ts, ts + tn)
+                # 1. the per-row pass over the tile
+                r = rr[cols]
+                cm, c = cands(r, ks)
+                lam_dc = lr[cols].astype(F32) * ltbl0
+                d = _wrap(cm * q8 - np.abs(r.astype(np.int64))[:, None])
+                dist = _wrap(d * d).astype(F32) * lam_dc[:, None]
                 if grad:
-                    vd = _wrap(_wrap(int(raw_dc[img, row - 1, t]) - r)
-                               - _wrap(_wrap(int(s_dc[t]) * q8)
+                    ar = raw_dc[img, row - 1, cols].astype(np.int64)
+                    vd = _wrap(_wrap(ar - r)[:, None]
+                               - _wrap(_wrap(s_dc[cols].astype(np.int64)
+                                             * q8)[:, None]
                                        - _wrap(c * q8)))
-                    vdist = _wrap(vd * vd).astype(F32) * lam_dc
+                    vdist = _wrap(vd * vd).astype(F32) * lam_dc[:, None]
                     dist = dist + w * (vdist - dist)
-                if t == 0:
-                    acc = trans(c - last) + dist
-                else:
-                    best, bl = None, np.zeros(32, np.int64)
-                    for lp in range(nc):          # shuffles from lane lp
-                        cost = (trans(c - pc[lp]) + dist) + acc[lp]
-                        upd = np.ones(32, bool) if lp == 0 else cost < best
-                        best = cost if lp == 0 else np.where(upd, cost, best)
-                        bl = np.where(upd, lp, bl)
-                    bts[t] = bl[:nc]
+                slots = c if prev_c is None else np.concatenate(
+                    [prev_c[None], c])
+                off = 0 if prev_c is None else 1      # slot of column ts
+                # 2. the pair costs ahead of the chain, then the chain
+                i0 = 0
+                if ts == 0:
+                    acc = trans(c[0] - last) + dist[0]
+                    i0 = 1
+                for i in range(i0, tn):
+                    pair = (trans(slots[i + off][None, :]
+                                  - slots[i + off - 1][:, None])
+                            + dist[i][None, :])        # (l, k)
+                    best, bl = first_min_tree(pair + acc[:, None])
+                    bts[ts + i] = bl
                     acc = best
-                pc = c
-            fv, fi = warp_first_min(np.where(LANES < nc, acc, INF), LANES)
-            cur = int(fi[0])
+                prev_c = c[-1]
+            lanes_acc = np.where(LANES < nc, acc[np.minimum(LANES, nc - 1)],
+                                 INF)
+            _, fi = warp_first_min(lanes_acc, LANES)
+            # 3. the walk back in segments
+            seg_map = {}
+            for j in range(1, nseg):
+                t0, t1 = j * S, min(j * S + S, bw) - 1
+                cur = ks.copy()
+                for t in range(t1, t0, -1):
+                    cur = bts[t, cur]
+                seg_map[j] = bts[t0, cur]
             sel = np.zeros(bw, np.int64)
-            for t in range(bw - 1, 0, -1):
-                sel[t], cur = cur, int(bts[t, cur])
-            sel[0] = cur
-            vals = np.array([cand(rr[t], sel[t])[1] for t in range(bw)],
-                            np.int32)
+            for j in range(nseg):
+                t0, t1 = j * S, min(j * S + S, bw) - 1
+                cur = int(fi[0])
+                for jj in range(nseg - 1, j, -1):
+                    cur = int(seg_map[jj][cur])
+                for t in range(t1, t0, -1):
+                    sel[t], cur = cur, int(bts[t, cur])
+                sel[t0] = cur
+            # 4. the chosen DC of every column
+            vals = np.take_along_axis(cands(rr, ks)[1], sel[:, None],
+                                      1)[:, 0].astype(np.int32)
             out[img, row] = vals
             s_dc, last = vals, int(vals[-1])
     return out
@@ -389,3 +463,68 @@ def test_eob_kernel_model_matches_plain(seed, b, bh, bw):
     with np.errstate(over="ignore"):
         want = trw.eob_dp_plain(_t(ei), _t(si), bh, bw).numpy()
     np.testing.assert_array_equal(model_eob(ei, si, bh, bw), want)
+
+
+# (name, B, bh, bw, v, q0, nc, delta_w, precision) of the inputs built to
+# break the kernel: every candidate tied (one raw value, lambda 0, equal
+# transitions) at nc 1, 2, 8 and 9 and bw 1 and 33 (33: the walk back's
+# 17 segments of 2 columns); 12-bit squares that wrap int32
+# and the clamp at 16383; the vertical gradient at v = 2 with an odd bh
+DC_MORE = [("alltie-nc%d-bw%d" % (nc, bw), 1, 2, bw, 1, 8, nc, 0.0, 8)
+           for nc in (1, 2, 8, 9) for bw in (1, 33)] + [
+    ("12bit-wrap", 1, 3, 33, 1, 3000, 9, 0.0, 12),
+    ("12bit-clamp-16383", 1, 3, 33, 1, 1, 9, 0.0, 12),
+    ("grad-v2-odd-bh", 2, 5, 33, 2, 2, 9, 0.5, 8),
+]
+
+
+@pytest.fixture(scope="module")
+def dc_jax_more():
+    """Each DC_MORE case through the JAX package: trellis_dc_rows over
+    the rows for v = 1 (independent rows, lastDC 0, lambda * 1/q0^2 in
+    f32), the trellis program for v = 2."""
+    out = {}
+    for i, case in enumerate(DC_MORE):
+        name, b, bh, bw, v, q0, nc, delta_w, precision = case
+        kind = "alltie" if name.startswith("alltie") else "seeded"
+        inputs = trw.dc_example_inputs(kind, b, bh, bw, q0, precision,
+                                       500 + i)
+        if v == 1:
+            raw_dc, lam, si = inputs
+            lam_dc = lam * F32(ttr.recip2_table()[q0])
+            got, _ = jtr.trellis_dc_rows(
+                jnp.asarray(raw_dc.reshape(-1, bw)),
+                jnp.zeros(b * bh, jnp.int32), jnp.int32(q0),
+                jnp.asarray(si), jnp.asarray(lam_dc.reshape(-1, bw)), nc,
+                ttr.kmax_maxq(precision)[1])
+            want = np.asarray(got).astype(np.int32).reshape(b, bh, bw)
+        else:
+            want = _jax_dc_program(case, inputs)
+        out[name] = (case, inputs, want)
+    return out
+
+
+@pytest.mark.parametrize("name", [c[0] for c in DC_MORE])
+def test_dc_adversarial_inputs_match_plain_and_jax(dc_jax_more, name):
+    """The plain version and the DC kernel's model on the inputs built
+    to break the kernel (ties everywhere, nc 1-9, one column and two
+    walk-back segments, int32 wrap, the 16383 clamp, the gradient at an
+    odd bh) equal the JAX package."""
+    case, inputs, want = dc_jax_more[name]
+    args = _dc_args(case, inputs)
+    np.testing.assert_array_equal(trw.trellis_dc_plain(*args).numpy(), want)
+    np.testing.assert_array_equal(model_dc(*args), want)
+
+
+@pytest.mark.parametrize("kind,q0", [("tie", 1), ("seeded", 2)])
+@pytest.mark.parametrize("bw,tile", [(260, DC_TC), (45, 8)])
+def test_dc_model_across_tiles_matches_plain(bw, tile, kind, q0):
+    """Rows past one tile of the per-row pass (the kernel's 256 columns,
+    and 8-column tiles over a short row), with the vertical gradient, on
+    tie-heavy small steps and on spread values: each tile's slot 0
+    carries the column before it."""
+    case = (kind, 1, 3, bw, 2, q0, 9, 0.5, 8)
+    inputs = trw.dc_example_inputs(kind, 1, 3, bw, q0, 8, 300 + bw)
+    args = _dc_args(case, inputs)
+    np.testing.assert_array_equal(model_dc(*args, tile=tile),
+                                  trw.trellis_dc_plain(*args).numpy())
