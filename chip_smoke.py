@@ -28,8 +28,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and p1_eob_hist on runs that end beside and on its tile edges, one
      nonzero block and an all-zero image (restart intervals 0, 1, 5, 255,
      256, 257, n - 1, n, n + 3) and on a 12 MP plane's flags (745 tiles,
-     a run past 0x7FFF; intervals 0, 504, 0x7FFF), each output exactly
-     equal to the plain version's; the card's lambda
+     a run past 0x7FFF; intervals 0, 504, 0x7FFF), p1_blocks on
+     ops/p1.adversarial_plane's planes (int32 samples whose FDCT wraps,
+     the DC at -2^30, at quant values 1, 65535 and a ramp; all-, half-
+     and top-half-clipped blocks with deringing) and a view with a column
+     stride at an odd offset, each output exactly equal to the plain
+     version's; the EOB-run DP on adversarial rows (every cost tied, all
+     zero, every other block all zero, keep-heavy) at L = 1, 31, 32, 33,
+     96, 504, 513 and 1,024; the card's lambda
      of both groups against the CPU's and numpy's, exactly;
   4. the slice: encode_many of sixteen 768x512 and three 1021x683 seeded
      photo-like images on the card, warm-up first, on the device-tablegen
@@ -163,8 +169,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      encode_raw_yuv) exactly against the plain versions, the DC stage
      of the 12 MP group with the kernel and the plain version in turns
      and where the DC kernel's luma launch spends its cycles, and
-     p1_eob_hist over the image's three components (held, with gaps,
-     plain, bound); yuvjpeg on the image's I420
+     p1_eob_hist and p1_blocks over the image's three components (held,
+     with gaps, plain, bound); encode() of the image with trellis_eob_opt,
+     its 3 EOB-run DP launches (a luma row of 504 blocks) exactly against
+     the plain version and timed as phase 7 times a group's (held, with
+     gaps, plain, bound, us a step); yuvjpeg on the image's I420
      planes (made on the card with rgb_to_ycc and downsample_h2v2) equal
      to encode() of the image at yuvjpeg's configuration on the CPU, and
      encode_raw_yuv of the planes at quality 75 equal to encode() of the
@@ -259,7 +268,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      versions in the child; the port's
      tjbench on a 4032x3024 photo at q95 4:2:0, plain and -progressive
      -optimize (compress and decompress MP/s, no kernel launch), and
-     -tile at 768x512 for 4:4:4 and gray (every tile size exact, the
+     -tile on a 384x256 crop at 4:4:4 (every tile size exact, the
      JPEG's size equal to the same call without -tile on the CPU); the
      port's rd_collect over that photo and phase 4's sixteen 768x512
      ones at -q 50,75,95 -average -plot (3 trellis_ac and 1 tablegen
@@ -1848,6 +1857,25 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
         "p1_eob_hist", recs["cjpeg"]["p1_eob_hist"],
         "cjpeg's %s image (3 components)" % size, smi, 10).items()
         if k != "bound_by"}
+    p1b12 = {k + "_12mp": v for k, v in p1_kernel_times(
+        "p1_blocks", recs["cjpeg"]["p1_blocks"],
+        "cjpeg's %s image (3 components)" % size, smi, 10).items()
+        if k != "bound_by"}
+    # the EOB-run DP at 12 MP (a luma row of 504 blocks): encode() with
+    # trellis_eob_opt, its launches held against the plain version, timed
+    erec = {}
+    with recording(erec):
+        mjt.encode(big, mjt.EncoderConfig(quality=75, trellis_eob_opt=True),
+                   device=dev)
+    torch.cuda.synchronize()
+    if len(erec.get("trellis_eob", [])) != 3:
+        raise SystemExit("expected 3 EOB-run DP launches in encode() of the "
+                         "%s photo with trellis_eob_opt" % size)
+    check_rows(erec, "phase 12 encode() %s trellis_eob_opt" % size)
+    dp12 = {k + "_12mp": v for k, v in row_stage(
+        "trellis_eob", erec["trellis_eob"],
+        "encode() of the %s photo with trellis_eob_opt" % size, smi,
+        10)[0].items() if k != "bound_by"}
 
     # 2. yuvjpeg and encode_raw_yuv on the card
     ycc = color.rgb_to_ycc(torch.from_numpy(big).to(dev))
@@ -2023,7 +2051,7 @@ def remaining_surfaces(kodak, dev, smi, compare, h=3024, w=4032):
         % (host_s, json.dumps(launches), json.dumps(dc_launches),
            time.perf_counter() - t_phase))
     tmp.cleanup()
-    return launches, max_err, dc12, eob12
+    return launches, max_err, dc12, eob12, p1b12, dp12
 
 
 def row_stage(kind, recorded, label, smi, reps=20):
@@ -3189,8 +3217,8 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
     library and the three CUDA libraries from the copy and encodes
     kodak[0] on the card, byte-equal to this process, with 3 trellis_ac,
     1 tablegen and 3 trellis_dc launches; (2) the port's tjbench on an h x w
-    photo at q95 4:2:0, plain and -progressive -optimize, and -tile at
-    768x512 for 4:4:4 and gray, every tile exact and the JPEG's size equal
+    photo at q95 4:2:0, plain and -progressive -optimize, and -tile on a
+    384x256 crop at 4:4:4, every tile exact and the JPEG's size equal
     to the same call without -tile on the CPU; (3) the port's rd_collect
     over the h x w photo and phase 4's sixteen 768x512 ones at
     -q 50,75,95 -average -plot, the 768x512 rows equal to the CPU's and
@@ -3282,9 +3310,11 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
         if n != (0, 0, 0):
             raise SystemExit("tjbench launched a kernel: TurboJPEG's "
                              "defaults have no trellis")
-    for sub in ("444", "gray"):
+    crop_path = write_ppm(os.path.join(d, "crop.ppm"),
+                          np.ascontiguousarray(kodak[0][:256, :384]))
+    for sub in ("444",):
         t0 = time.perf_counter()
-        argv = [paths[0], "95", "-subsamp", sub, "-reps", "1", "-warmup",
+        argv = [crop_path, "95", "-subsamp", sub, "-reps", "1", "-warmup",
                 "0", "-json"]
         counts_from_0()
         card = json.loads(run_tool(tjbench.main, argv + ["-tile"], dev)[0])
@@ -3295,7 +3325,7 @@ def standalone_and_tools(kodak, dev, smi, compare, h=3024, w=4032):
               and all(v["exact"] for v in tiles.values())
               and (card["jpeg_bytes"], card["ratio"])
               == (cpu["jpeg_bytes"], cpu["ratio"]) and n == (0, 0, 0))
-        log("phase 16 tjbench -tile 768x512 q95 %s on %s: %s; jpeg_bytes "
+        log("phase 16 tjbench -tile 384x256 q95 %s on %s: %s; jpeg_bytes "
             "%d (cpu %d); launches %d (%.1f s)"
             % (sub, smi, json.dumps(tiles), card["jpeg_bytes"],
                cpu["jpeg_bytes"], sum(n), time.perf_counter() - t0))
@@ -3525,11 +3555,38 @@ def main():
         (f12, torch.zeros((3, 256), dtype=torch.int32, device=dev), 3, ri)
         for ri in (0, 504, 0x7FFF)]}
     check_p1(eob_rec, "EOB tile edges and 12 MP flags")
+    # p1_blocks on the planes built to break it (ops/p1.adversarial_plane):
+    # int32 samples whose FDCT wraps (the DC at -2^30; deringing off) at
+    # quant values 1, 65535 and a ramp, clipped blocks with deringing, and
+    # a view with a column stride at an odd offset
+    ramp = np.arange(1, 65, dtype=np.int32)
+    adv = {"p1_blocks": []}
+    for prec in (8, 12):
+        wrap = torch.as_tensor(tp1.adversarial_plane("wrap", 2, 16, 24, prec,
+                                                     5), device=dev)
+        for qv in (np.ones(64, np.int32), np.full(64, 65535, np.int32),
+                   ramp):
+            adv["p1_blocks"].append((wrap, 16, 24, qv, False, prec))
+        clipped = torch.as_tensor(tp1.adversarial_plane(
+            "clipped", 2, 16, 24, prec, 6), device=dev)
+        adv["p1_blocks"].append((clipped, 16, 24, ramp, True, prec))
+        wide = torch.as_tensor(tp1.example_plane(2, 9, 20, prec, 7, 73,
+                                                 3 * 161 + 1), device=dev)
+        adv["p1_blocks"].append((wide[:, 1:, 1::3], 9, 20, ramp, True, prec))
+    check_p1(adv, "adversarial planes: int32 wrap, clipped, strided")
     for shape in ((8, 64, 96), (3, 4, 70), (2, 5, 1), (1, 4, 2048)):
         ei, si = trw.eob_example_inputs(shape[2], *shape)
         rows_vs_plain("trellis_eob", (torch.as_tensor(ei, device=dev),
                                       torch.as_tensor(si, device=dev),
                                       shape[1], shape[2]), "seeded")
+    # rows of every cost tied, all zero, every other block all zero,
+    # keep-heavy, around a warp, at 504 (12 MP luma) and past the
+    # kernel's 512 register steps
+    for L in (1, 31, 32, 33, 96, 504, 513, 1024):
+        ei, si = trw.eob_example_inputs(L, 2, 5, L, "adversarial")
+        rows_vs_plain("trellis_eob", (torch.as_tensor(ei, device=dev),
+                                      torch.as_tensor(si, device=dev), 5, L),
+                      "adversarial L=%d" % L)
 
     # the main path's lambda on the card vs the CPU and numpy, exactly
     s1, s2 = ctx.cfg.lambda_log_scale1, ctx.cfg.lambda_log_scale2
@@ -3694,9 +3751,12 @@ def main():
     k12 = precision_phase(kodak[:8], outs[:8], dev, compare)
 
     # ---- 12. the remaining surfaces ----
-    l12, err12, dc12, eob12 = remaining_surfaces(kodak, dev, smi, compare)
+    l12, err12, dc12, eob12, p1b12, dp12 = remaining_surfaces(
+        kodak, dev, smi, compare)
     k_dc.update(dc12)
+    k_p1[0].update(p1b12)
     k_p1[1].update(eob12)
+    k_eob.update(dp12)
     max_err = max(max_err, err12)
 
     # ---- 13. the device engines ----

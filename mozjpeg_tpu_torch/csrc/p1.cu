@@ -19,23 +19,49 @@
 //     encode_mcu_AC_first, with the 0x7FFF forced flush and the flush at
 //     each restart.
 //
-// Bound: bytes. A block reads 64 samples (64 B at 8 bits, 256 at 12) and
-// writes 64 int16 + 64 int32 coefficients, its norm and a flag byte (389
-// B at 8 bits); its arithmetic is a few hundred integer operations and at
-// most 64 f32 curve points, far under the card's rates. What the design
-// does about it: one thread per 8x8 block, threads of a warp on
-// neighbouring blocks of a block row, so that the coefficient-major
-// stores (coefficient k of blocks n..n+31 are neighbours) coalesce and
-// each sample row is read once; the samples, the FDCT and the quantized
-// values stay in registers (every index into them is a compile-time
-// constant after unrolling), and only deringing's run walk, whose indices
-// are data-dependent, goes through a 64-entry local array, and only for
-// the blocks that hold a clipped sample. The symbol counts go to a
-// histogram per warp in shared memory (symbol 0x01 is hot: one address
-// for the whole CTA would serialise every warp on it), summed and added
-// to the image's histogram once per CTA. The EOB kernel reads one flag
-// byte a block and is bound by the runs' chain, not by bytes: fixed tiles
-// of 256 blocks, a warp each, walk their 8 chunks of 32 with
+// Bound: bytes by the roofline. A block reads 64 samples (64 B at 8
+// bits, 256 at 12) and writes 64 int16 + 64 int32 coefficients, its norm
+// and a flag byte (389 B at 8 bits); its arithmetic is about 1,700 integer
+// operations (16 FDCT passes, quantization, zigzag, symbols) and at most
+// 64 f32 curve points, three quarters of the bytes' time at the INT32
+// rate. The design: eight lanes a block, 32 neighbouring blocks of one
+// image a CTA of 256 threads, so that a group's luma is 1,536 CTAs (many
+// waves, not one thread's chain a launch). Lane r loads sample row r (one
+// 8-byte load at 8 bits, two 16-byte loads at 12, where the plane's
+// columns are contiguous and the row aligned; else the element loop, any
+// strides), runs the row pass in registers, and the block goes through
+// shared memory (rows of 9 ints, free of bank conflicts) to the column
+// pass on lane c. Lane c then quantizes its column without a runtime
+// division: floor(s / d) is the high word of s * mhi + umulhi(s, mlo) for
+// 0 <= s < 2^31, d = 8q and ceil(2^64 / d) = mhi * 2^32 + mlo, exact
+// because the product's error s * (M - 2^64/d) / 2^64 < 2^-32 is under
+// 1/d; s < 0 (|c| + 4q wrapped int32, which the FDCT's outputs never give:
+// its last descale keeps |c| <= 2^30) keeps the division, once a lane,
+// outside the loop. The values are staged in shared memory, natural-major
+// (strides 36 and 40 keep the lanes' writes on distinct banks), and
+// written one zigzag coefficient row of 32 blocks at a time (128 B of raw
+// and 64 B of quantized values a warp). The block's 64-bit nonzero mask
+// is the OR of the lanes' one-hot bits (three shuffles a half); with a
+// sentinel at bit 0, a nonzero at zigzag k >= 1 has run clz64(mask << (64
+// - k)) = k - 1 - (its highest nonzero in [1, k - 1], or 0), ZRLs run >>
+// 4, and the flag byte comes from the mask. Equal symbols of one warp
+// instruction are added once (__match_any_sync, the leader adds the
+// popcount) into a histogram per warp, and rows of zeros across the warp
+// are skipped. Warp 0 sums each block's squares from the staged raw
+// values, a block a lane, in natural order 1..63 (the norm). Deringing's
+// clipped count and sum are reduced over the eight lanes, and a block
+// with 0 < cnt < 64 runs the run walk on one lane over its samples in
+// shared memory (no local array). What bounds it on the card, measured:
+// not bytes but latency. A variant that skips the stores, the norm, the
+// symbols and the histogram's atomics still takes most of a 12 MP luma
+// launch's time; the 8-lane split issues more thread instructions a block
+// than one thread a block (the transposes and the staging through shared
+// memory, the per-lane table loads, the symbol rounds), and occupancy
+// moves it most (MIN_CTAS). Tensor cores are
+// not used: the FDCT's integer constants reach 25,172, each pass ends in
+// a rounding shift, and int32 wraps exactly. The EOB kernel reads one
+// flag byte a block and is bound by the runs' chain, not by bytes: fixed
+// tiles of 256 blocks, a warp each, walk their 8 chunks of 32 with
 // __ballot_sync whatever the restart interval, and the last CTA of each
 // image joins the tiles' runs in the same launch (a scan of the tiles'
 // summaries).
@@ -43,25 +69,36 @@
 // Exactness (the plain versions in ops/p1.py are the spec): int32
 // arithmetic that the JAX program lets wrap is computed unsigned, whose
 // wrap is defined; C division truncates like the plain version's
-// rounding_mode="trunc", and the quantizer's floor division is written
-// out; build with -fmad=false, every f32 operation of the dering curve
-// and the norm is an explicit _rn intrinsic in the plain version's order,
-// and the step 1/(len + 1) is an IEEE division. The run walk rewrites the
-// block in place, as hostenc.cpp's does, while the plain version derives
-// every run from the samples as they came in; the two agree because only
-// a run's f2 edge can read an earlier run's new value, and a new value is
-// either >= 127 (then f1 - f2 < 0 < 127 - f1 and the slope is 127 - f1
-// either way) or the cap below 127, which every value of the later run
-// takes whatever its slope (the curve never falls under 127).
+// rounding_mode="trunc", and the quantizer's floor division is exact in
+// both branches; build with -fmad=false, every f32 operation of the dering
+// curve and the norm is an explicit _rn intrinsic in the plain version's
+// order, and the step 1/(len + 1) is an IEEE division. The run walk
+// rewrites the block in place, as hostenc.cpp's does, while the plain
+// version derives every run from the samples as they came in; the two
+// agree because only a run's f2 edge can read an earlier run's new value,
+// and a new value is either >= 127 (then f1 - f2 < 0 < 127 - f1 and the
+// slope is 127 - f1 either way) or the cap below 127, which every value of
+// the later run takes whatever its slope (the curve never falls under
+// 127).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int TPB = 256;             // blocks (threads) per CTA of p1_blocks
+constexpr int TPB = 256;             // threads per CTA of p1_blocks
+// CTAs of p1_blocks a multiprocessor holds at once: the kernel waits on
+// memory and shared-memory round trips more than it issues, and five CTAs
+// (48 registers a thread, 34 KB of shared memory each) hide more of that
+// than four (63 registers) or six (spills)
+constexpr int MIN_CTAS = 5;
+constexpr int LPB = 8;               // lanes an 8x8 block
+constexpr int GB = TPB / LPB;        // blocks a CTA
 constexpr int WARPS = TPB / 32;
 static_assert(TPB == 256, "the histogram flush gives each thread one bin");
+constexpr int BUF = 72;              // ints of a block's buffer: 8 rows of 9
+constexpr int SR = 36;               // raw staging: ints a natural index
+constexpr int SQ = 40;               // quantized staging: int16 an index
 constexpr int EOB_TILE = 256;        // blocks a warp of the EOB kernel walks
 constexpr int EOB_CHUNKS = EOB_TILE / 32;
 constexpr int EOB_WARPS = 8;         // tiles (warps) per CTA of the EOB kernel
@@ -70,22 +107,44 @@ constexpr int MAXS = 127;            // 255 - CENTERJSAMPLE at every precision
 constexpr int CONST_BITS = 13;
 constexpr int EOB_MAX = 0x7FFF;      // jcphuff.c's forced EOBRUN flush
 
-// the quant table, natural order, and (q << 3) in zigzag order
+// The quantizer of one natural index: d = 8q, ceil(2^64 / d) as its
+// 32-bit halves, the index's zigzag position, and that position as a
+// one-hot 64-bit mask's halves (two 16-byte loads).
+struct __align__(16) QEntry {
+  unsigned mlo, mhi;
+  int d, zz;
+  unsigned blo, bhi, pad0, pad1;
+};
+
+// The quantizer by natural index; nat[k] the natural index of zigzag
+// position k; q0 the DC quant value (deringing's cap).
 struct P1Tables {
-  int qv_zz[64];
+  QEntry q[64];
+  unsigned char nat[64];
   int q0;
 };
 
-// natural index of zigzag position i (jpeg_natural_order); called with a
-// compile-time index after unrolling, so it folds to a constant
-__host__ __device__ constexpr int zz_nat(int i) {
-  const int t[64] = {
-      0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-      12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-      35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-      58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
-  return t[i];
-}
+// A CTA's shared memory: the tables; each block's 8x9 buffer (the
+// samples for deringing, then the transpose between the passes); the raw
+// and quantized values natural-major, GB blocks a row; the per-warp
+// histograms; the flag bytes.
+struct P1Shared {
+  QEntry q[64];
+  unsigned char nat[64];
+  unsigned char off[64];             // zigzag k -> its slot in a buffer
+  int buf[GB * BUF];
+  int raw[64 * SR];
+  short q16[64 * SQ];
+  __align__(16) int hs[WARPS][256];
+  unsigned char flags[GB];
+};
+
+// natural index of zigzag position i (jpeg_natural_order); host only
+constexpr int ZZ_NAT[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
 __device__ __forceinline__ int nbits(int v) {  // JPEG_NBITS for v >= 0
   return v > 0 ? 32 - __clz(v) : 0;
@@ -150,11 +209,21 @@ __device__ __forceinline__ void fdct_1d(int& d0, int& d1, int& d2, int& d3,
   d1 = descale(wadd(wadd(t7, z1), z4), descale_n);
 }
 
+// A block's samples in zigzag order, read and written in place in its
+// shared buffer: zigzag k lives at buf[off[k]].
+struct ZzView {
+  int* buf;
+  const unsigned char* off;
+  __device__ __forceinline__ int& operator[](int k) const {
+    return buf[off[k]];
+  }
+};
+
 // Overshoot deringing of one block (ops/dering.py dering_t): zz the
 // block's 64 centered samples in zigzag order, m its clipped positions
 // (bit i: zz[i] >= 127), 0 < cnt < 64 of them, total their sum.
-__device__ void dering_zz(int* zz, unsigned long long m, int cnt, int total,
-                          int q0) {
+__device__ void dering_zz(ZzView zz, unsigned long long m, int cnt,
+                          int total, int q0) {
   // C's int division truncates toward zero (the numerator can go
   // negative at 12 bits)
   const int headroom = (MAXS * 64 - total) / cnt;
@@ -200,132 +269,248 @@ __device__ void dering_zz(int* zz, unsigned long long m, int cnt, int total,
   }
 }
 
-// Sample value of one plane element, centered.
-__device__ __forceinline__ int sample(const uint8_t* p, int center) {
-  return (int)*p - center;
+// Sample row r of a block, centered, into v[0..7]: one 8-byte load where
+// the columns are contiguous and the row 8-byte aligned, else 8 loads.
+__device__ __forceinline__ void load_row(const uint8_t* p, long long s_col,
+                                         int center, int (&v)[8]) {
+  if (s_col == 1 && ((uintptr_t)p & 7) == 0) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      v[x] = (int)((w.x >> (8 * x)) & 0xff) - center;
+      v[x + 4] = (int)((w.y >> (8 * x)) & 0xff) - center;
+    }
+  } else {
+#pragma unroll
+    for (int x = 0; x < 8; ++x) v[x] = (int)p[x * s_col] - center;
+  }
 }
-__device__ __forceinline__ int sample(const int32_t* p, int center) {
-  return wsub(*p, center);
+// int32 samples: two 16-byte loads where contiguous and 16-byte aligned
+__device__ __forceinline__ void load_row(const int32_t* p, long long s_col,
+                                         int center, int (&v)[8]) {
+  if (s_col == 1 && ((uintptr_t)p & 15) == 0) {
+    const int4 a = reinterpret_cast<const int4*>(p)[0];
+    const int4 b = reinterpret_cast<const int4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int x = 0; x < 8; ++x) v[x] = p[x * s_col];
+  }
+#pragma unroll
+  for (int x = 0; x < 8; ++x) v[x] = wsub(v[x], center);
 }
 
-// One thread per 8x8 block; grid (ceil(n / TPB), B), blockIdx.y the image.
-// plane: the image's samples at plane + b*s_img + y*s_row + x*s_col
-// (elements). Outputs: q_zz / raw_zz (64, N) zigzag coefficient-major,
-// norm (N,), flags (N,) (bit 0: a nonzero AC in [1, 63], bit 1:
-// coefficient 63 is zero), and the within-block AC-first symbols added
-// into hist (B, 256).
+// Eight lanes an 8x8 block, GB blocks of one image a CTA; grid (ceil(n /
+// GB), B), blockIdx.y the image. plane: the image's samples at plane +
+// b*s_img + y*s_row + x*s_col (elements); mbw = ceil(2^64 / bw) (0 for bw
+// = 1) splits a block index into its row and column. Outputs: q_zz /
+// raw_zz (64, N) zigzag coefficient-major, norm (N,), flags (N,) (bit 0: a
+// nonzero AC in [1, 63], bit 1: coefficient 63 is zero), and the
+// within-block AC-first symbols added into hist (B, 256).
+//   1. lane r loads sample row r; with deringing the eight lanes reduce
+//      the clipped count and the sum, and a block with 0 < cnt < 64 runs
+//      the run walk on its lane 0 over its shared buffer;
+//   2. the row pass on lane r, the buffer, the column pass on lane c;
+//   3. lane c quantizes its column (natural index 8y + c), stages the raw
+//      and quantized values;
+//   4. the nonzero mask (OR over the lanes), each nonzero's symbol from
+//      it, added per warp instruction once a bin, the ZRLs, the flag byte;
+//   5. the CTA's rows of q_zz and raw_zz a warp at a time, warp 0's lane
+//      g the norm of block g, the flag bytes, and the histogram.
 template <typename T>
-__global__ void __launch_bounds__(TPB)
+__global__ void __launch_bounds__(TPB, MIN_CTAS)
 p1_blocks_kernel(const T* __restrict__ plane, long long s_img,
                  long long s_row, long long s_col, int bh, int bw,
-                 long long N, P1Tables tab, int dering_on, int precision,
-                 int16_t* __restrict__ q_zz, int32_t* __restrict__ raw_zz,
-                 float* __restrict__ norm, int32_t* __restrict__ hist,
-                 uint8_t* __restrict__ flags) {
-  __shared__ int hs[WARPS][256];
-  for (int i = threadIdx.x; i < WARPS * 256; i += TPB) (&hs[0][0])[i] = 0;
+                 unsigned long long mbw, long long N,
+                 const __grid_constant__ P1Tables tab, int dering_on,
+                 int precision, int16_t* __restrict__ q_zz,
+                 int32_t* __restrict__ raw_zz, float* __restrict__ norm,
+                 int32_t* __restrict__ hist, uint8_t* __restrict__ flags) {
+  __shared__ __align__(16) P1Shared sh;
+  const int t = threadIdx.x;
+  if (t < 64) {
+    sh.q[t] = tab.q[t];
+    const int nat = tab.nat[t];
+    sh.nat[t] = (unsigned char)nat;
+    sh.off[t] = (unsigned char)((nat >> 3) * 9 + (nat & 7));
+  }
+#pragma unroll
+  for (int i = t; i < WARPS * 64; i += TPB)
+    reinterpret_cast<int4*>(&sh.hs[0][0])[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
+  const int lane = t & 31, warp = t >> 5;
+  const int g = t >> 3;                  // the CTA's block
+  const int r = t & 7;                   // sample row, then column
   const int b = blockIdx.y;
   const long long n = (long long)bh * bw;
-  const long long i = (long long)blockIdx.x * TPB + threadIdx.x;
-  int* h = hs[threadIdx.x >> 5];
-  if (i < n) {
-    const int br = (int)(i / bw), bc = (int)(i % bw);
-    const int center = 1 << (precision - 1);
-    const int pass1 = precision == 8 ? 2 : 1;
-    const T* src = plane + b * s_img + (long long)br * 8 * s_row
-                   + (long long)bc * 8 * s_col;
-    int blk[64];                                   // natural order
-#pragma unroll
-    for (int y = 0; y < 8; ++y)
-#pragma unroll
-      for (int x = 0; x < 8; ++x)
-        blk[y * 8 + x] = sample(src + y * s_row + x * s_col, center);
+  const long long i0 = (long long)blockIdx.x * GB;
+  const long long i = i0 + g;
+  const bool valid = i < n;
+  int* buf = sh.buf + g * BUF;
+  const int center = 1 << (precision - 1);
 
-    if (dering_on) {
-      unsigned long long m = 0;
-      int cnt = 0, total = 0;
+  // 1. the samples, and deringing
+  int v[8];
+  if (valid) {
+    const unsigned iu = (unsigned)i;
+    const int br = bw == 1 ? (int)iu : (int)__umul64hi(iu, mbw);
+    const int bc = (int)iu - br * bw;
+    load_row(plane + b * s_img + ((long long)br * 8 + r) * s_row
+                 + (long long)bc * 8 * s_col,
+             s_col, center, v);
+  } else {
 #pragma unroll
-      for (int k = 0; k < 64; ++k) {
-        const int v = blk[zz_nat(k)];
-        total += v;
-        const bool c = v >= MAXS;
-        cnt += c;
-        m |= (unsigned long long)c << k;
+    for (int x = 0; x < 8; ++x) v[x] = 0;
+  }
+  if (dering_on) {
+    int cnt = 0, total = 0;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      total += v[x];
+      cnt += v[x] >= MAXS;
+    }
+#pragma unroll
+    for (int o = 1; o < LPB; o <<= 1) {
+      cnt += __shfl_xor_sync(FULL, cnt, o);
+      total += __shfl_xor_sync(FULL, total, o);
+    }
+    const bool dr = valid && cnt > 0 && cnt < 64;
+    if (__any_sync(FULL, dr)) {
+      if (dr) {
+#pragma unroll
+        for (int x = 0; x < 8; ++x) buf[r * 9 + x] = v[x];
       }
-      if (cnt > 0 && cnt < 64) {
-        int zz[64];
-#pragma unroll
-        for (int k = 0; k < 64; ++k) zz[k] = blk[zz_nat(k)];
+      __syncwarp();
+      if (dr && r == 0) {
+        const ZzView zz{buf, sh.off};
+        unsigned long long m = 0;
+        for (int k = 0; k < 64; ++k)
+          m |= (unsigned long long)(zz[k] >= MAXS) << k;
         dering_zz(zz, m, cnt, total, tab.q0);
+      }
+      __syncwarp();
+      if (dr) {
 #pragma unroll
-        for (int k = 0; k < 64; ++k) blk[zz_nat(k)] = zz[k];
+        for (int x = 0; x < 8; ++x) v[x] = buf[r * 9 + x];
       }
     }
+  }
 
+  // 2. the islow FDCT: rows on lane r, columns on lane c = r
+  const int pass1 = precision == 8 ? 2 : 1;
+  fdct_1d(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], pass1,
+          CONST_BITS - pass1);
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      int* d = blk + 8 * r;
-      fdct_1d(d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7], pass1,
-              CONST_BITS - pass1);
-    }
+  for (int x = 0; x < 8; ++x) buf[r * 9 + x] = v[x];
+  __syncwarp();
+  int c[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      int* d = blk + c;
-      fdct_1d(d[0], d[8], d[16], d[24], d[32], d[40], d[48], d[56], -pass1,
-              CONST_BITS + pass1);
-    }
+  for (int y = 0; y < 8; ++y) c[y] = buf[y * 9 + r];
+  fdct_1d(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], -pass1,
+          CONST_BITS + pass1);
 
-    // zigzag, quantize (round half away from zero by 8q), the post-dering
-    // clamp, and the within-block AC-first symbols of band [1, 63]
-    const long long gi = (long long)b * n + i;
-    const int maxc = (1 << (precision + 2)) - 1;
-    int run = 0, zrl = 0;
-    bool any = false;
-    int last = 0;
+  // 3. quantize (round half away from zero by d = 8q: floor(s / d) is
+  // the high word of s * mhi + umulhi(s, mlo) for 0 <= s < 2^31), the
+  // post-dering clamp, the staging, the lane's nonzero bits
+  const int maxc = (1 << (precision + 2)) - 1;
+  int qv[8];
+  bool wrapped = false;
 #pragma unroll
-    for (int k = 0; k < 64; ++k) {
-      const int c = blk[zz_nat(k)];
-      const int q = tab.qv_zz[k];
-      const int a = c < 0 ? wsub(0, c) : c;
-      const int s = wadd(a, q >> 1);
-      // floor division (the plain version's //; s < 0 only if a wraps)
-      int mag = s / q;
-      if ((s % q != 0) && s < 0) mag -= 1;
-      int qv = (int)(int16_t)(c < 0 ? wsub(0, mag) : mag);
-      if (dering_on) qv = qv < -maxc ? -maxc : (qv > maxc ? maxc : qv);
-      q_zz[(long long)k * N + gi] = (int16_t)qv;
-      raw_zz[(long long)k * N + gi] = c;
-      if (k > 0) {
-        if (qv != 0) {
-          const int mg = qv < 0 ? -qv : qv;
-          atomicAdd(&h[((run & 15) << 4) | nbits(mg)], 1);
-          zrl += run >> 4;
-          run = 0;
-          any = true;
-        } else {
-          ++run;
-        }
+  for (int y = 0; y < 8; ++y) {
+    const QEntry e = sh.q[8 * y + r];
+    const int cv = c[y];
+    const int s = wadd(cv < 0 ? wsub(0, cv) : cv, e.d >> 1);
+    wrapped |= s < 0;
+    const unsigned long long p =
+        (unsigned long long)(unsigned)s * e.mhi + __umulhi(s, e.mlo);
+    const int mag = (int)(p >> 32);
+    qv[y] = (int)(int16_t)(cv < 0 ? wsub(0, mag) : mag);
+  }
+  if (wrapped) {         // |c| + 4q wrapped int32: floor division, as the
+#pragma unroll           // plain version's //
+    for (int y = 0; y < 8; ++y) {
+      const int d = sh.q[8 * y + r].d;
+      const int cv = c[y];
+      const int s = wadd(cv < 0 ? wsub(0, cv) : cv, d >> 1);
+      if (s < 0) {
+        int mag = s / d;
+        if (s % d != 0) mag -= 1;
+        qv[y] = (int)(int16_t)(cv < 0 ? wsub(0, mag) : mag);
       }
-      if (k == 63) last = qv;
     }
-    if (zrl) atomicAdd(&h[0xF0], zrl);
-    flags[gi] = (uint8_t)((any ? 1 : 0) | (last == 0 ? 2 : 0));
+  }
+  unsigned lo = 0, hi = 0;               // nonzeros at zigzag 0-31, 32-63
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    const int nat = 8 * y + r;
+    int q = qv[y];
+    if (dering_on) q = q < -maxc ? -maxc : (q > maxc ? maxc : q);
+    qv[y] = q;
+    sh.raw[nat * SR + g] = c[y];
+    sh.q16[nat * SQ + g] = (short)q;
+    lo |= q != 0 ? sh.q[nat].blo : 0u;
+    hi |= q != 0 ? sh.q[nat].bhi : 0u;
+  }
 
-    // serial f32 sum of the squares in NATURAL index order 1..63
-    float acc = 0.0f;
+  // 4. the symbols of band [1, 63] from the block's nonzero mask: with a
+  // sentinel at bit 0, the run before zigzag k is the count of leading
+  // zeros of the mask shifted left by 64 - k
+#pragma unroll
+  for (int o = 1; o < LPB; o <<= 1) {
+    lo |= __shfl_xor_sync(FULL, lo, o);
+    hi |= __shfl_xor_sync(FULL, hi, o);
+  }
+  const unsigned long long ms = ((unsigned long long)hi << 32) | lo | 1ull;
+  int zrl = 0;
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    const bool nz = qv[y] != 0 && (y | r) != 0;
+    if (__any_sync(FULL, nz)) {          // a row of zeros adds nothing
+      const int k = sh.q[8 * y + r].zz;
+      const int run = __clzll((long long)(ms << ((64 - k) & 63)));
+      const int mg = qv[y] < 0 ? -qv[y] : qv[y];
+      const int sym = nz ? ((run & 15) << 4) | (32 - __clz(mg)) : -1;
+      zrl += nz ? run >> 4 : 0;
+      const unsigned same = __match_any_sync(FULL, sym);
+      if (nz && lane == __ffs(same) - 1)
+        atomicAdd(&sh.hs[warp][sym], __popc(same));
+    }
+  }
+  zrl = __reduce_add_sync(FULL, zrl);
+  if (lane == 0 && zrl) atomicAdd(&sh.hs[warp][0xF0], zrl);
+  if (r == 0)
+    sh.flags[g] = (uint8_t)(((lo & ~1u) | hi ? 1 : 0) | (hi >> 31 ? 0 : 2));
+  __syncthreads();
+
+  // 5. the CTA's outputs: a zigzag row of GB blocks a warp at a time
+  const long long gi0 = (long long)b * n + i0;
+  const int cnt = (int)(n - i0 < GB ? n - i0 : GB);
+#pragma unroll
+  for (int p = 0; p < 64 / WARPS; ++p) {
+    const int k = p * WARPS + warp;
+    const int nat = sh.nat[k];
+    if (lane < cnt) {
+      raw_zz[(long long)k * N + gi0 + lane] = sh.raw[nat * SR + lane];
+      q_zz[(long long)k * N + gi0 + lane] = sh.q16[nat * SQ + lane];
+    }
+  }
+  if (warp == 0) {       // the norm: block `lane`'s serial f32 sum of the
+    float acc = 0.0f;    // squares in NATURAL index order 1..63
 #pragma unroll
     for (int k = 1; k < 64; ++k) {
-      const float rf = (float)blk[k];
+      const float rf = (float)sh.raw[k * SR + lane];
       acc = __fadd_rn(acc, __fmul_rn(rf, rf));
     }
-    norm[gi] = acc;
+    if (lane < cnt) {
+      norm[gi0 + lane] = acc;
+      flags[gi0 + lane] = sh.flags[lane];
+    }
   }
-  __syncthreads();
   int sum = 0;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) sum += hs[w][threadIdx.x];
-  if (sum) atomicAdd(&hist[(long long)b * 256 + threadIdx.x], sum);
+  for (int w = 0; w < WARPS; ++w) sum += sh.hs[w][t];
+  if (sum) atomicAdd(&hist[(long long)b * 256 + t], sum);
 }
 
 // One EOB run of `run` blocks into the lane's counts: k = run / 0x7FFF
@@ -535,22 +720,30 @@ extern "C" int mj_p1_blocks(const void* plane, int sample_bytes,
     return (int)cudaErrorInvalidValue;
   P1Tables tab;
   for (int k = 0; k < 64; ++k) {
-    if (qtbl[k] < 1) return (int)cudaErrorInvalidValue;
-    tab.qv_zz[k] = qtbl[zz_nat(k)] << 3;
+    const int nat = ZZ_NAT[k];
+    if (qtbl[nat] < 1 || qtbl[nat] > 65535) return (int)cudaErrorInvalidValue;
+    const unsigned long long d = (unsigned long long)qtbl[nat] << 3;
+    const unsigned long long m = ~0ull / d + 1;   // ceil(2^64 / d), d > 1
+    tab.q[nat] = QEntry{(unsigned)m, (unsigned)(m >> 32), (int)d, k,
+                        k < 32 ? 1u << k : 0u, k < 32 ? 0u : 1u << (k - 32),
+                        0u, 0u};
+    tab.nat[k] = (unsigned char)nat;
   }
   tab.q0 = qtbl[0];
   const long long n = (long long)bh * bw;
+  if (n > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   const long long N = n * B;
-  const dim3 grid((unsigned)((n + TPB - 1) / TPB), (unsigned)B);
+  const unsigned long long mbw = bw > 1 ? ~0ull / (unsigned)bw + 1 : 0;
+  const dim3 grid((unsigned)((n + GB - 1) / GB), (unsigned)B);
   cudaStream_t st = (cudaStream_t)stream;
   if (sample_bytes == 1)
     p1_blocks_kernel<uint8_t><<<grid, TPB, 0, st>>>(
-        (const uint8_t*)plane, s_img, s_row, s_col, bh, bw, N, tab,
+        (const uint8_t*)plane, s_img, s_row, s_col, bh, bw, mbw, N, tab,
         dering_on, precision, (int16_t*)q_zz, (int32_t*)raw_zz,
         (float*)norm, (int32_t*)hist, (uint8_t*)flags);
   else
     p1_blocks_kernel<int32_t><<<grid, TPB, 0, st>>>(
-        (const int32_t*)plane, s_img, s_row, s_col, bh, bw, N, tab,
+        (const int32_t*)plane, s_img, s_row, s_col, bh, bw, mbw, N, tab,
         dering_on, precision, (int16_t*)q_zz, (int32_t*)raw_zz,
         (float*)norm, (int32_t*)hist, (uint8_t*)flags);
   return (int)cudaGetLastError();

@@ -29,9 +29,16 @@
 // part runs, and that part is nc independent shuffles of the
 // predecessors' costs, nc adds and a first-minimum tree of depth
 // ceil(log2 nc); the walk back runs in up to 32 segments side by side.
-// The EOB DP's predecessors come from shared memory, its next column's
-// inputs load one step ahead, and nothing returns to the host between
-// steps.
+// The EOB DP runs in push order: only candidate t of step t depends on
+// step t - 1, so each lane folds every candidate into the later steps it
+// owns as soon as that candidate's cost is final, and a step's chain is
+// one shuffle and about seven dependent operations (two adds, a compare,
+// selects, a max and a min); measured on the H100, a step still costs
+// 0.1-0.2 us of one warp's dependent issue, so the DP stays chain-bound;
+// the running states stay in registers up to EOB_REG_L steps a row, the
+// row's inputs arrive in coalesced loads, the walk back follows the
+// back-pointers alone and the kept bytes leave in coalesced stores.
+// Nothing returns to the host between steps.
 //
 // Exactness (the plain versions in ops/trellis_rows.py are the spec):
 // build with -fmad=false, and every f32 operation that feeds another is an
@@ -41,7 +48,9 @@
 // whose wrap is defined, and converted back. First-minimum ties as
 // torch.argmin: the lexicographic (value, index) minimum, by a tree over
 // a lane's candidates (the DC trellis), a strict '<' fold in ascending
-// index (the EOB DP), and across lanes a warp reduction.
+// index (each EOB-DP step on its owner lane; the final run's lanes), and
+// across lanes a warp reduction (the DC trellis's final choice, the EOB
+// DP's final run).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +70,9 @@ constexpr int DC_PER = DC_TC / 32;  // columns a lane takes in that pass
 constexpr int SMEM_MAX = 227 * 1024 - 1024;
 constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr float BIGF = 1e38f;       // the EOB DP's "invalid" cost
+// steps of an EOB-DP row whose running states stay in registers (16 a
+// lane; a 12 MP luma row is 504)
+constexpr int EOB_REG_L = 512;
 
 struct DcTable {
   int si[DC_SI_N];
@@ -349,13 +361,163 @@ trellis_dc_kernel(const int32_t* __restrict__ raw,
 // EOB-run DP
 // ---------------------------------------------------------------------------
 
-// One warp per block row of L blocks. Before the DP the warp stages the
-// row's skip costs and req = [0, has_eob...] and the serial prefix azbc of
-// the all-zero costs (lane 0, C order), and each row's EOBn cost by run
-// bit length, nb + ac_si[img][16 * nb]. Step b of the DP then takes the
-// first minimum over i in [0, b + 1] (index b + 1 and every later one are
-// BIG in the plain version, so no later index can be its first minimum):
-// lanes fold i = lane, lane + 32, ... and the warp reduces.
+// One warp per block row of L blocks, in push order. Before the DP the
+// warp stages the row's czero (coalesced, then summed on one lane in C
+// order into the prefix azbc), base[b] = skip[b] + azbc[b], req = [0,
+// has_eob...] and the row's EOBn cost by run bit length, nb +
+// ac_si[img][16 * nb]. Step b takes the first minimum over candidates i
+// in [0, b + 1] of (((base[b] - azbc[i]) + abc[i]) + rate(b - i +
+// req[i])), BIG where req[i] is 2 or i = b + 1 (every later index is BIG
+// too in the plain version, so none can be its first minimum). Lane l
+// owns steps l, l + 32, ... and keeps each one's running (cost, index).
+// When abc[t] is final, every lane folds candidate t into its steps b >=
+// t with a strict '<' (candidates come in ascending order, so the first
+// minimum survives, as torch.argmin's); step t's owner then folds the
+// BIG candidate t + 1, or takes (BIG, 0) if block t is all zero, and one
+// shuffle hands abc[t + 1] to every lane. The chain of a step is that
+// shuffle, two dependent adds (the owner's own candidate has the run
+// req[t], 0 or 1, so its rate is one of two registers), a compare and a
+// select, and the close as a max and a min: every other candidate of a
+// step was known a step or more earlier, the other steps' folds issue
+// beside the chain, and nothing on it branches or waits on shared memory.
+// Up to EOB_REG_L steps the running states live in registers (SLOTS steps
+// a lane, a compile-time count); longer rows keep them in shared memory.
+template <int SLOTS>
+__device__ __forceinline__ void eob_push_regs(
+    const float* s_rate, const float* azbc, const float* base_s,
+    const int8_t* req, int16_t* brs, int L, int lane) {
+  float bv[SLOTS], base[SLOTS];
+  int bi[SLOTS];
+  unsigned zero = 0;                 // bit j: block 32j + lane is all zero
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int b = 32 * j + lane;
+    base[j] = b < L ? base_s[b] : 0.0f;
+    bv[j] = __int_as_float(0x7f800000);
+    bi[j] = 0;
+    if (b < L && req[b + 1] == 2) zero |= 1u << j;
+  }
+  float abc = 0.0f;                  // abc[t], the same in every lane
+  // step t's own candidate t has the run req[t], 0 or 1: its rate
+  const float r0 = s_rate[0], r1 = s_rate[1];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    if (32 * j >= L) break;
+    const int tn = min(32, L - 32 * j);
+    // step t's close on its owner: (BIG, 0) for an all-zero block, else
+    // the BIG candidate t + 1: min(max(cost, floor), BIG) with the floor
+    // BIG or -inf
+    const float floor_j = (zero >> j) & 1u ? BIGF
+                                           : -__int_as_float(0x7f800000);
+    float az = azbc[32 * j];
+    int rq = req[32 * j];
+    for (int tt = 0; tt < tn; ++tt) {
+      const int t = 32 * j + tt;
+      const float az_n = azbc[t + 1];            // the next step's, ahead
+      const int rq_n = req[t + 1];
+      const bool live = rq != 2;
+      const float x = __fsub_rn(base[j], az);
+      // the chain: candidate t on its owner lane tt, the close, one
+      // shuffle
+      const float co = __fadd_rn(__fadd_rn(x, abc), rq == 1 ? r1 : r0);
+      const float cvo = live ? co : BIGF;
+      const bool updo = cvo < bv[j];
+      const float bvo = updo ? cvo : bv[j];
+      const float fin = fminf(fmaxf(bvo, floor_j), BIGF);
+      const float abc_n = __shfl_sync(FULL, fin, tt);
+      // beside the chain: the owner's index, and candidate t on the
+      // lanes > tt of chunk j and on every later chunk
+      const int bio = (zero >> j) & 1u ? 0
+                      : (BIGF < bvo ? t + 1 : (updo ? t : bi[j]));
+      const int d0 = lane - t + rq;              // run of slot 0 minus 32 jj
+      {
+        const float c = __fadd_rn(__fadd_rn(x, abc),
+                                  s_rate[(32 - __clz(32 * j + d0)) & 31]);
+        const float cv = live ? c : BIGF;
+        const bool upd = (lane > tt) & (cv < bv[j]);
+        bv[j] = upd ? cv : bv[j];
+        bi[j] = lane == tt ? bio : (upd ? t : bi[j]);
+      }
+#pragma unroll
+      for (int jj = j + 1; jj < SLOTS; ++jj) {
+        const float c2 = __fadd_rn(__fadd_rn(__fsub_rn(base[jj], az), abc),
+                                   s_rate[(32 - __clz(32 * jj + d0)) & 31]);
+        const float cv2 = live ? c2 : BIGF;
+        const bool upd2 = cv2 < bv[jj];
+        bv[jj] = upd2 ? cv2 : bv[jj];
+        bi[jj] = upd2 ? t : bi[jj];
+      }
+      abc = abc_n;
+      az = az_n;
+      rq = rq_n;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int b = 32 * j + lane;
+    if (b < L) brs[b] = (int16_t)bi[j];
+  }
+}
+
+// The same push order with the running states in shared memory (bv, and
+// the running index in brs), for rows longer than EOB_REG_L.
+__device__ __forceinline__ void eob_push_smem(
+    const float* s_rate, const float* azbc, const float* base_s,
+    const int8_t* req, float* bv, int16_t* brs, int L, int lane) {
+  for (int b = lane; b < L; b += 32) {
+    bv[b] = __int_as_float(0x7f800000);
+    brs[b] = 0;
+  }
+  __syncwarp();
+  float abc = 0.0f;
+  for (int t = 0; t < L; ++t) {
+    const float az = azbc[t];
+    const int rq = req[t];
+    const int j = t >> 5, tt = t & 31;
+    float fin = 0.0f;
+    {                                            // the owner's chunk
+      const int b = 32 * j + lane;
+      if (lane >= tt && b < L) {
+        float v = bv[b];
+        int bi = brs[b];
+        const float c = rq != 2
+            ? __fadd_rn(__fadd_rn(__fsub_rn(base_s[b], az), abc),
+                        s_rate[nbits(b - t + rq)])
+            : BIGF;
+        if (c < v) {
+          v = c;
+          bi = t;
+        }
+        if (lane == tt) {                        // close step t
+          const bool z = req[t + 1] == 2;
+          const bool big = BIGF < v;
+          fin = z ? BIGF : (big ? BIGF : v);
+          bi = z ? 0 : (big ? t + 1 : bi);
+        }
+        bv[b] = v;
+        brs[b] = (int16_t)bi;
+      }
+    }
+    const float abc_n = __shfl_sync(FULL, fin, tt);
+    for (int b = 32 * (j + 1) + lane; b < L; b += 32) {
+      const float c = rq != 2
+          ? __fadd_rn(__fadd_rn(__fsub_rn(base_s[b], az), abc),
+                      s_rate[nbits(b - t + rq)])
+          : BIGF;
+      if (c < bv[b]) {
+        bv[b] = c;
+        brs[b] = (int16_t)t;
+      }
+    }
+    abc = abc_n;
+  }
+  __syncwarp();
+}
+
+// A warp's shared memory: s_rate (32 f32, the EOBn costs by bit length
+// and padding), azbc (L + 1 f32), base (L f32), for SLOTS = 0 the running
+// costs (L f32), brs (L int16), req (L + 1 int8, then the kept marks).
+template <int SLOTS>
 __global__ void __launch_bounds__(WARPS * 32)
 eob_dp_kernel(const float* __restrict__ ei, const int32_t* __restrict__ ac_si,
               uint8_t* __restrict__ kept, long long N, long long R, int L,
@@ -364,65 +526,44 @@ eob_dp_kernel(const float* __restrict__ ei, const int32_t* __restrict__ ac_si,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long r = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (r >= R) return;
-  float* s_rate = (float*)(smem + (size_t)warp * warp_bytes);   // 16
-  float* azbc = s_rate + 16;                                    // L + 1
-  float* abc = azbc + (L + 1);                                  // L + 1
-  float* skip = abc + (L + 1);                                  // L
-  int16_t* brs = (int16_t*)(skip + L);                          // L
+  float* s_rate = (float*)(smem + (size_t)warp * warp_bytes);   // 32
+  float* azbc = s_rate + 32;                                    // L + 1
+  float* base = azbc + (L + 1);                                 // L
+  float* bv = base + L;                                         // L or 0
+  int16_t* brs = (int16_t*)(bv + (SLOTS ? 0 : L));              // L
   int8_t* req = (int8_t*)(brs + L);                             // L + 1
   const long long o = r * L;
   const int32_t* si = ac_si + (r / bh) * 256;
-  if (lane < 16)
-    s_rate[lane] = __fadd_rn((float)lane, (float)si[16 * lane]);
+  s_rate[lane] = lane < 16 ? __fadd_rn((float)lane, (float)si[16 * lane])
+                           : 0.0f;
   for (int b = lane; b < L; b += 32) {
     azbc[b + 1] = ei[o + b];                    // czero, summed below
-    skip[b] = ei[N + o + b];
+    base[b] = ei[N + o + b];                    // skip, azbc added below
     req[b + 1] = (int8_t)(int)ei[2 * N + o + b];
   }
   if (lane == 0) {
     req[0] = 0;
-    abc[0] = 0.0f;
     azbc[0] = 0.0f;
   }
   __syncwarp();
   if (lane == 0) {                              // azbc[b+1] = azbc[b] + czero[b]
     float a = 0.0f;
+#pragma unroll 8
     for (int b = 1; b <= L; ++b) {
       a = __fadd_rn(a, azbc[b]);
       azbc[b] = a;
     }
   }
   __syncwarp();
-  const float inf = __int_as_float(0x7f800000);
-  for (int b = 0; b < L; ++b) {
-    float bv = BIGF;
-    int bi = 0;
-    if (req[b + 1] != 2) {                      // the block is not all zero
-      const float base = __fadd_rn(skip[b], azbc[b]);
-      bv = inf;
-      bi = 1 << 30;
-      for (int i0 = 0; i0 <= b + 1; i0 += 32) {
-        const int i = i0 + lane;
-        if (i > b + 1) break;
-        float c = BIGF;
-        const int rq = req[i];
-        if (i <= b && rq != 2)
-          c = __fadd_rn(__fadd_rn(__fsub_rn(base, azbc[i]), abc[i]),
-                        s_rate[nbits(b - i + rq)]);
-        if (c < bv) {
-          bv = c;
-          bi = i;
-        }
-      }
-      warp_first_min(bv, bi);
-    }
-    if (lane == 0) {
-      abc[b + 1] = bv;
-      brs[b] = (int16_t)bi;
-    }
-    __syncwarp();
-  }
+  for (int b = lane; b < L; b += 32) base[b] = __fadd_rn(base[b], azbc[b]);
+  __syncwarp();
+  if (SLOTS)
+    eob_push_regs<SLOTS ? SLOTS : 1>(s_rate, azbc, base, req, brs, L, lane);
+  else
+    eob_push_smem(s_rate, azbc, base, req, bv, brs, L, lane);
+  __syncwarp();
   // the final EOB run to the end of the row, over i in [0, L]
+  const float inf = __int_as_float(0x7f800000);
   const float az_l = azbc[L];
   float fv = inf;
   int fi = 1 << 30;
@@ -437,14 +578,22 @@ eob_dp_kernel(const float* __restrict__ ei, const int32_t* __restrict__ ac_si,
     }
   }
   warp_first_min(fv, fi);
-  if (lane == 0) {                              // the walk back
-    int lastb = fi - 1;
-    for (int b = L - 1; b >= 0; --b) {
-      const bool k = lastb == b;
-      kept[o + b] = k;
-      if (k) lastb = brs[b] - 1;
+  // the walk back: lane 0 marks the kept blocks, then coalesced stores
+  uint8_t* keep = (uint8_t*)req;
+  __syncwarp();
+  for (int b = lane; b < L; b += 32) keep[b] = 0;
+  __syncwarp();
+  if (lane == 0) {
+    int last = fi - 1;
+    while (last >= 0 && last < L) {
+      keep[last] = 1;
+      const int nxt = brs[last] - 1;
+      if (nxt >= last) break;
+      last = nxt;
     }
   }
+  __syncwarp();
+  for (int b = lane; b < L; b += 32) kept[o + b] = keep[b];
 }
 
 // warps per CTA for a per-warp shared size, or 0 if one warp does not fit
@@ -577,25 +726,51 @@ extern "C" int mj_empty(void* stream) {
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <int SLOTS>
+int launch_eob(const void* ei, const void* ac_si, void* kept, long long N,
+               long long R, int L, int bh, cudaStream_t stream) {
+  const int warp_bytes = align16(32 * 4 + 4 * (L + 1) + 4ll * L
+                                 + (SLOTS ? 0 : 4ll * L) + 2ll * L
+                                 + (L + 1));
+  const int warps = warps_for(warp_bytes);
+  if (!warps) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * warp_bytes;
+  const int rc = prepare(eob_dp_kernel<SLOTS>, smem);
+  if (rc) return rc;
+  const long long grid = (R + warps - 1) / warps;
+  eob_dp_kernel<SLOTS><<<(unsigned)grid, warps * 32, smem, stream>>>(
+      (const float*)ei, (const int32_t*)ac_si, (uint8_t*)kept, N, R, L, bh,
+      warp_bytes);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // ei (8, N) f32, the AC kernel's strip (rows czero, skip, has_eob), ac_si
 // (B, 256) int32 -> kept (R, L) bool with R = N / L block rows of bh per
-// image. One launch on `stream`; returns cudaGetLastError().
+// image. One launch on `stream`: the instantiation whose registers hold
+// ceil(L / 32) running states a lane (the next count it has), or, past
+// EOB_REG_L, the one that keeps them in shared memory. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a row whose shared memory
+// does not fit).
 extern "C" int mj_eob_dp(const void* ei, const void* ac_si, void* kept,
                          long long N, int L, int bh, void* stream) {
   if (N <= 0) return 0;
   if (L <= 0 || L >= 32768 || bh <= 0 || N % L)
     return (int)cudaErrorInvalidValue;
   const long long R = N / L;
-  const int warp_bytes =
-      align16(16 * 4 + 4 * (3ll * L + 2) + 2ll * L + (L + 1));
-  const int warps = warps_for(warp_bytes);
-  if (!warps) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)warps * warp_bytes;
-  int rc = prepare(eob_dp_kernel, smem);
-  if (rc) return rc;
-  const long long grid = (R + warps - 1) / warps;
-  eob_dp_kernel<<<(unsigned)grid, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)ei, (const int32_t*)ac_si, (uint8_t*)kept, N, R, L, bh,
-      warp_bytes);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int slots = (L + 31) / 32;
+  if (slots <= 1) return launch_eob<1>(ei, ac_si, kept, N, R, L, bh, st);
+  if (slots <= 2) return launch_eob<2>(ei, ac_si, kept, N, R, L, bh, st);
+  if (slots <= 3) return launch_eob<3>(ei, ac_si, kept, N, R, L, bh, st);
+  if (slots <= 4) return launch_eob<4>(ei, ac_si, kept, N, R, L, bh, st);
+  if (slots <= 6) return launch_eob<6>(ei, ac_si, kept, N, R, L, bh, st);
+  if (slots <= 8) return launch_eob<8>(ei, ac_si, kept, N, R, L, bh, st);
+  if (slots <= 12) return launch_eob<12>(ei, ac_si, kept, N, R, L, bh, st);
+  static_assert(EOB_REG_L == 16 * 32, "the largest register instantiation");
+  if (slots <= 16) return launch_eob<16>(ei, ac_si, kept, N, R, L, bh, st);
+  return launch_eob<0>(ei, ac_si, kept, N, R, L, bh, st);
 }

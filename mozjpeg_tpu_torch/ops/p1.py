@@ -9,13 +9,15 @@ the butterflies, the zigzag gathers, 63 serial norm adds, the histogram's
 cummax and bincount chain); on the card the wrappers instead launch
 csrc/p1.cu twice a component:
 
-  - p1_blocks: one thread per 8x8 block reads the component's samples
-    straight from the plane view (any strides; uint8, or int32 above 8
-    bits), and writes q_zz (64, N) int16 and raw_zz (64, N) int32
-    coefficient-major in zigzag order, the f32 norm of every block, one
-    flag byte a block (bit 0: a nonzero AC in [1, 63]; bit 1:
-    coefficient 63 is zero), and adds the within-block AC-first symbols
-    into the image's (B, 256) histogram. Plain version: p1_blocks_plain,
+  - p1_blocks: eight threads per 8x8 block, 32 blocks a CTA, read the
+    component's samples straight from the plane view (a row a thread;
+    any strides; uint8, or int32 above 8 bits), run the islow FDCT's rows
+    and columns, quantize by a reciprocal multiply, and write q_zz (64,
+    N) int16 and raw_zz (64, N) int32 coefficient-major in zigzag order,
+    the f32 norm of every block, one flag byte a block (bit 0: a nonzero
+    AC in [1, 63]; bit 1: coefficient 63 is zero), and add the
+    within-block AC-first symbols (from each block's nonzero mask) into
+    the image's (B, 256) histogram. Plain version: p1_blocks_plain,
     today's quantize, norm_seq and symbols.within_block_hist.
   - p1_eob_hist: the cross-block EOB runs of each image's restart
     segments, from the flag bytes, added into that histogram: a warp per
@@ -378,6 +380,62 @@ def example_plane(b: int, bh: int, bw: int, precision: int = 8,
     blocks = blocks.reshape(b, bh, bw, 8, 8).transpose(0, 1, 3, 2, 4)
     plane = rng.integers(0, top + 1, (b, max(ph, bh * 8), max(pw, bw * 8)))
     plane[:, :bh * 8, :bw * 8] = blocks.reshape(b, bh * 8, bw * 8)
+    return plane.astype(np.uint8 if precision == 8 else np.int32)
+
+
+def adversarial_plane(kind: str, b: int, bh: int, bw: int,
+                      precision: int = 12, seed: int = 0) -> np.ndarray:
+    """Seeded numpy planes (b, bh*8, bw*8) built to break p1_blocks, for
+    tests and the smoke run.
+
+    wrap: int32 samples whose FDCT wraps int32, block kinds in turn: flat
+    at 2^(precision-1) + 2^24 (at 12 bits the DC's column sum is 2^31,
+    which wraps to INT_MIN and descales to -2^30, the largest |c| the
+    FDCT can give: its pass-2 descale of at least one bit keeps |c| <=
+    2^30, so |c| + 4q never reaches 2^31 and the quantizer's s < 0 branch
+    is unreachable from samples), flat at the negated offset, any int32,
+    and rows alternating INT_MIN and INT_MAX. Deringing is defined for
+    samples of the precision only (the plain version sums them in f32),
+    so these planes go with deringing off.
+    clipped: samples of the precision, block kinds in turn: every sample
+    clipped (at or above the dering threshold), half the zigzag positions
+    clipped (even ones), the top four rows clipped, and noise below the
+    threshold."""
+    rng = np.random.default_rng(seed)
+    n = b * bh * bw
+    blocks = np.empty((n, 64), np.int64)
+    center = 1 << (precision - 1)
+    top = (1 << precision) - 1
+    clip = center + 127
+    for i in range(n):
+        k = i % 4
+        if kind == "wrap":
+            if k == 0:
+                blocks[i] = center + (1 << 24)
+            elif k == 1:
+                blocks[i] = center - (1 << 24)
+            elif k == 2:
+                blocks[i] = rng.integers(-2 ** 31, 2 ** 31, 64)
+            else:
+                blocks[i] = np.repeat(np.where(np.arange(8) % 2, 2 ** 31 - 1,
+                                               -2 ** 31), 8)
+        else:
+            zz = rng.integers(0, clip, 64)
+            if k == 0:
+                zz[:] = rng.integers(clip, top + 1, 64)
+            elif k == 1:
+                zz[::2] = rng.integers(clip, top + 1, 32)
+            elif k == 2:
+                zz[:] = 0
+                nat = np.zeros(64, np.int64)
+                nat[:32] = rng.integers(clip, top + 1, 32)
+                nat[32:] = rng.integers(0, clip, 32)
+                zz = nat[np.asarray(JPEG_ZIGZAG)]
+            blocks[i][np.asarray(JPEG_ZIGZAG)] = zz
+    plane = blocks.reshape(b, bh, bw, 8, 8).transpose(0, 1, 3, 2, 4)
+    plane = plane.reshape(b, bh * 8, bw * 8)
+    if kind == "wrap":
+        return plane.astype(np.int32)
     return plane.astype(np.uint8 if precision == 8 else np.int32)
 
 

@@ -403,29 +403,52 @@ def dc_example_inputs(kind: str, b: int, bh: int, bw: int, q0: int,
     return raw.astype(np.int32), lam, si
 
 
-def eob_example_inputs(seed: int, b: int, bh: int, bw: int):
+def eob_example_inputs(seed: int, b: int, bh: int, bw: int,
+                       kind: str = "seeded"):
     """Seeded numpy (ei (8, N) f32, ac_si (b, 256) int32) for the EOB-run
-    DP, N = b * bh * bw (at least 4 block rows): an all-zero row (has_eob
-    2), a row with no all-zero block, a row that is one long zero run and
-    one with EOBs every 7 blocks (runs past 16), tie-heavy integer costs,
-    and skip costs at BIG and past it."""
+    DP, N = b * bh * bw (at least 4 block rows).
+
+    seeded: an all-zero row (has_eob 2), a row with no all-zero block, a
+    row that is one long zero run and one with EOBs every 7 blocks (runs
+    past 16), tie-heavy integer costs, and skip costs at BIG and past it.
+    adversarial: the rows cycle through every cost tied (czero = skip =
+    1, and image 0's EOBn costs all 16: ac_si[16 * k] = 16 - k), all
+    zero, every other block all zero, zeroing dearer than keeping (long
+    walks back), and seeded rows (skip at BIG in a tenth of the blocks)."""
     rng = np.random.default_rng(seed)
     r, n = b * bh, b * bh * bw
     czero = rng.integers(0, 6, (r, bw)).astype(np.float32)
     skip = rng.integers(0, 6, (r, bw)).astype(np.float32)
     has_eob = rng.integers(0, 3, (r, bw))
-    has_eob[0] = 2
-    has_eob[1] = rng.integers(0, 2, bw)
-    has_eob[2, 1:-2] = 2
-    has_eob[3] = np.where(np.arange(bw) % 7 == 0, 1, 2)
-    skip[2] = czero[2]
-    skip[rng.random((r, bw)) < 0.1] = np.float32(BIGF)
-    skip[rng.random((r, bw)) < 0.05] = np.float32(2.5e38)
+    if kind == "adversarial":
+        skip[rng.random((r, bw)) < 0.1] = np.float32(BIGF)
+        for row in range(r):
+            k = row % 5
+            if k == 0:
+                czero[row] = skip[row] = 1.0
+                has_eob[row] = rng.integers(0, 2, bw)
+            elif k == 1:
+                has_eob[row] = 2
+            elif k == 2:
+                has_eob[row, 1::2] = 2
+                has_eob[row, 0::2] = rng.integers(0, 2, -(-bw // 2))
+            elif k == 3:
+                czero[row] += 40.0
+        si = rng.integers(2, 17, (b, 256)).astype(np.int32)
+        si[0, 0:256:16] = 16 - np.arange(16)
+    else:
+        has_eob[0] = 2
+        has_eob[1] = rng.integers(0, 2, bw)
+        has_eob[2, 1:-2] = 2
+        has_eob[3] = np.where(np.arange(bw) % 7 == 0, 1, 2)
+        skip[2] = czero[2]
+        skip[rng.random((r, bw)) < 0.1] = np.float32(BIGF)
+        skip[rng.random((r, bw)) < 0.05] = np.float32(2.5e38)
+        si = rng.integers(2, 17, (b, 256)).astype(np.int32)
+        si[0, 0:256:16] = 4              # equal EOBn lengths
     ei = np.zeros((8, n), np.float32)
     ei[0], ei[1], ei[2] = czero.reshape(-1), skip.reshape(-1), \
         has_eob.reshape(-1)
-    si = rng.integers(2, 17, (b, 256)).astype(np.int32)
-    si[0, 0:256:16] = 4                  # equal EOBn lengths
     return ei, si
 
 

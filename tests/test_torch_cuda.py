@@ -33,9 +33,11 @@ encodes with one launch of each per component; and p1's two kernels
 (csrc/p1.cu) against their plain versions on ops/p1.example_plane's
 adversarial planes (uint8 and int32 samples, views into a host-prep
 buffer at the chroma offsets, B = 1 and 8, restart intervals), the EOB
-kernel on runs at its tile edges and a 12 MP plane's flags, and
-encode_many at 8 and 12 bits with two p1 launches a component against
-the CPU. They skip without a GPU;
+kernel on runs at its tile edges and a 12 MP plane's flags, p1_blocks
+on a 12 MP image's components, a strided view at an odd offset, int32
+samples whose FDCT wraps and clipped blocks, the EOB-run DP on
+adversarial rows up to 1,024 blocks, and encode_many at 8 and 12 bits
+with two p1 launches a component against the CPU. They skip without a GPU;
 run them on one with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -882,6 +884,87 @@ def test_p1_eob_kernel_12mp_on_the_card(cuda, ri):
                                            device=cuda), 3, ri)
         torch.cuda.synchronize()
         assert torch.equal(h, want)
+
+
+def _p1_equal(plane, bh, bw, qt, dering, precision):
+    """One p1_blocks launch against its plain version, every output."""
+    before = tp1.p1_blocks.launches
+    got = tp1.p1_blocks(plane, bh, bw, qt, dering, precision)
+    assert tp1.p1_blocks.launches == before + 1
+    want = tp1.p1_blocks_plain(plane, bh, bw, qt, dering, precision)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+def test_p1_blocks_12mp_components_on_the_card(cuda, precision):
+    """p1_blocks on a 4032x3024 image's three components (4:2:0: 378 x
+    504 luma blocks, 189 x 252 chroma), deringing on."""
+    qt = np.random.default_rng(precision).integers(1, 60, 64).astype(np.int32)
+    for i, (bh, bw) in enumerate(((378, 504), (189, 252), (189, 252))):
+        plane = torch.as_tensor(tp1.example_plane(1, bh, bw, precision,
+                                                  40 + i), device=cuda)
+        _p1_equal(plane, bh, bw, qt, True, precision)
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+def test_p1_blocks_strided_unaligned_view_on_the_card(cuda, precision):
+    """A plane view with a column stride of 3 at an odd element offset,
+    and a row view at an odd offset (contiguous columns, rows that no
+    vector load may take)."""
+    p = tp1.example_plane(2, 5, 9, precision, 11, 41, 3 * 73 + 1)
+    flat = torch.as_tensor(p, device=cuda)
+    strided = flat[:, 1:, 1::3]
+    assert strided.stride(2) == 3
+    _p1_equal(strided, 5, 9, np.arange(1, 65, dtype=np.int32), True,
+              precision)
+    buf = torch.as_tensor(tp1.example_plane(1, 6, 9, precision, 12, 48, 80)
+                          .reshape(-1), device=cuda)
+    odd = buf[3:3 + 47 * 79].reshape(1, 47, 79)
+    _p1_equal(odd, 5, 9, np.full(64, 7, np.int32), True, precision)
+
+
+@pytest.mark.parametrize("q", [1, 65535, 0], ids=["q1", "q65535", "q1-64"])
+@pytest.mark.parametrize("precision", [8, 12])
+def test_p1_blocks_int32_wrap_on_the_card(cuda, precision, q):
+    """int32 samples whose FDCT wraps int32 (ops/p1.adversarial_plane
+    "wrap": the DC at -2^30, the largest |c| the FDCT gives), deringing
+    off, with quant values 1, 65535 and 1..64."""
+    qt = (np.full(64, q, np.int32) if q else
+          np.arange(1, 65, dtype=np.int32))
+    plane = torch.as_tensor(tp1.adversarial_plane("wrap", 3, 4, 10,
+                                                  precision, 5), device=cuda)
+    _p1_equal(plane, 4, 10, qt, False, precision)
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+def test_p1_blocks_clipped_blocks_on_the_card(cuda, precision):
+    """Deringing on all-clipped, half-clipped (even zigzag positions) and
+    top-half-clipped blocks (ops/p1.adversarial_plane "clipped")."""
+    plane = torch.as_tensor(tp1.adversarial_plane("clipped", 2, 6, 11,
+                                                  precision, 6), device=cuda)
+    for q0 in (1, 5, 40):
+        qt = np.full(64, 3, np.int32)
+        qt[0] = q0
+        _p1_equal(plane, 6, 11, qt, True, precision)
+
+
+@pytest.mark.parametrize("bw", [1, 31, 32, 33, 96, 504, 513, 1024])
+def test_eob_dp_kernel_adversarial_rows_on_the_card(cuda, bw):
+    """The EOB-run DP on rows of every cost tied, all zero, every other
+    block all zero, keep-heavy and seeded (trellis_rows.eob_example_inputs
+    "adversarial"), at row lengths around a warp, the group's luma, a 12
+    MP luma row, past the registers' 512 steps and at 1,024."""
+    ei, si = trw.eob_example_inputs(bw, 2, 5, bw, "adversarial")
+    args = (torch.as_tensor(ei, device=cuda), torch.as_tensor(si, device=cuda),
+            5, bw)
+    before = trw.eob_dp.launches
+    got = trw.eob_dp(*args)
+    assert trw.eob_dp.launches == before + 1
+    want = trw.eob_dp_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("precision", [8, 12])

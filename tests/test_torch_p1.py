@@ -9,17 +9,26 @@ the unaligned 27x42 4:2:0 geometry of test_torch_encode_ops.py's
 device-prep p1 and an unaligned 139x75 gray plane, the planes seeded by ops/p1.example_plane (deringing's
 edge cases, flat runs) and read as views of one host-prep buffer.
 
+The reciprocal quantizer against floor division at every quant value
+1..65535 and the numerators where it could fail, and its s < 0 branch
+against the plain quantizer; the mask-derived symbols against
+symbols.within_block_hist on zero runs at each multiple of 16 and beside
+it, a nonzero only at 63, all zero and all nonzero blocks.
+
 Then numpy models of the two CUDA kernels of csrc/p1.cu, each following
 its kernel's order of work, against the same JAX outputs: the kernels
 cannot run without a card, so these models are the CPU check of their
 algorithm.
 
-  blocks model: one block at a time, the serial chain of hostenc.cpp's
-  p1_rows: the samples centered, deringing's run walk in zigzag order
-  over a 64-bit clipped mask, rewriting the block as it goes, the islow FDCT in wrapping int32, quantization with the floor
-  division written out, the post-dering clamp on the int16 value, the
-  within-block symbols by a run counter, the flag byte, and the norm as
-  a serial f32 sum in natural order.
+  blocks model: every block at once in the kernel's order of work
+  (eight lanes a block): sample rows centered, deringing's clipped count
+  over the block and the run walk in zigzag order over the block's
+  buffer, rewriting it as it goes, the row and column passes of the islow
+  FDCT in wrapping int32, quantization by the reciprocal (floor(s / d)
+  as the high 64 bits of s * ceil(2^64 / d), the s < 0 branch's
+  division), the post-dering clamp on the int16 value, the within-block
+  symbols and the flag byte from each block's 64-bit nonzero mask, and
+  the norm as a serial f32 sum in natural order (a lane a block).
   EOB model: fixed tiles of 256 blocks of an image, one warp a tile,
   walking its flag bytes 32 at a time: the ballots of "nonzero",
   "trailing zero" and "segment start"; each nonzero block's run from the
@@ -46,6 +55,8 @@ from mozjpeg_tpu_torch.codec import pipeline_t as tpt
 from mozjpeg_tpu_torch.codec.pipeline import geometry
 from mozjpeg_tpu_torch.consts import JPEG_ZIGZAG
 from mozjpeg_tpu_torch.ops import p1 as tp1
+from mozjpeg_tpu_torch.ops import quant
+from mozjpeg_tpu_torch.ops import symbols as tsymbols
 
 F32 = np.float32
 H, W = 27, 42                       # test_torch_encode_ops' device-prep p1
@@ -177,46 +188,6 @@ ZZ = np.asarray(JPEG_ZIGZAG)        # natural index of zigzag position k
 MAXS = 127
 
 
-def w32(x):
-    """int32 two's complement wrap of a Python int."""
-    return ((int(x) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
-
-
-def _descale(x, n):
-    return w32(x + (1 << (n - 1))) >> n
-
-
-def _fdct_1d(d, shift_even, n):
-    tmp0, tmp7 = w32(d[0] + d[7]), w32(d[0] - d[7])
-    tmp1, tmp6 = w32(d[1] + d[6]), w32(d[1] - d[6])
-    tmp2, tmp5 = w32(d[2] + d[5]), w32(d[2] - d[5])
-    tmp3, tmp4 = w32(d[3] + d[4]), w32(d[3] - d[4])
-    tmp10, tmp13 = w32(tmp0 + tmp3), w32(tmp0 - tmp3)
-    tmp11, tmp12 = w32(tmp1 + tmp2), w32(tmp1 - tmp2)
-    o = [0] * 8
-    if shift_even >= 0:
-        o[0] = w32((tmp10 + tmp11) << shift_even)
-        o[4] = w32((tmp10 - tmp11) << shift_even)
-    else:
-        o[0] = _descale(tmp10 + tmp11, -shift_even)
-        o[4] = _descale(tmp10 - tmp11, -shift_even)
-    z1 = w32(w32(tmp12 + tmp13) * 4433)
-    o[2] = _descale(z1 + w32(tmp13 * 6270), n)
-    o[6] = _descale(z1 + w32(tmp12 * -15137), n)
-    z1, z2 = w32(tmp4 + tmp7), w32(tmp5 + tmp6)
-    z3, z4 = w32(tmp4 + tmp6), w32(tmp5 + tmp7)
-    z5 = w32(w32(z3 + z4) * 9633)
-    t4, t5 = w32(tmp4 * 2446), w32(tmp5 * 16819)
-    t6, t7 = w32(tmp6 * 25172), w32(tmp7 * 12299)
-    z1, z2 = w32(z1 * -7373), w32(z2 * -20995)
-    z3, z4 = w32(w32(z3 * -16069) + z5), w32(w32(z4 * -3196) + z5)
-    o[7] = _descale(w32(t4 + z1) + z3, n)
-    o[5] = _descale(w32(t5 + z2) + z4, n)
-    o[3] = _descale(w32(t6 + z2) + z3, n)
-    o[1] = _descale(w32(t7 + z1) + z4, n)
-    return o
-
-
 def _dering(zz, q0):
     """The kernel's run walk on zz (64 ints, zigzag), in place."""
     m = 0
@@ -262,64 +233,189 @@ def _dering(zz, q0):
             zz[i] = min(int(np.ceil(val)), maxover)
 
 
+def w32(x):
+    """int32 two's complement wrap of an int64 array (or a Python int)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _descale(x, n):
+    return w32(x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d, shift_even, n):
+    """fdct_1d on int64 arrays d[0..7] (each any shape), wrapping int32."""
+    tmp0, tmp7 = w32(d[0] + d[7]), w32(d[0] - d[7])
+    tmp1, tmp6 = w32(d[1] + d[6]), w32(d[1] - d[6])
+    tmp2, tmp5 = w32(d[2] + d[5]), w32(d[2] - d[5])
+    tmp3, tmp4 = w32(d[3] + d[4]), w32(d[3] - d[4])
+    tmp10, tmp13 = w32(tmp0 + tmp3), w32(tmp0 - tmp3)
+    tmp11, tmp12 = w32(tmp1 + tmp2), w32(tmp1 - tmp2)
+    o = [None] * 8
+    if shift_even >= 0:
+        o[0] = w32((tmp10 + tmp11) << shift_even)
+        o[4] = w32((tmp10 - tmp11) << shift_even)
+    else:
+        o[0] = _descale(tmp10 + tmp11, -shift_even)
+        o[4] = _descale(tmp10 - tmp11, -shift_even)
+    z1 = w32(w32(tmp12 + tmp13) * 4433)
+    o[2] = _descale(z1 + w32(tmp13 * 6270), n)
+    o[6] = _descale(z1 + w32(tmp12 * -15137), n)
+    z1, z2 = w32(tmp4 + tmp7), w32(tmp5 + tmp6)
+    z3, z4 = w32(tmp4 + tmp6), w32(tmp5 + tmp7)
+    z5 = w32(w32(z3 + z4) * 9633)
+    t4, t5 = w32(tmp4 * 2446), w32(tmp5 * 16819)
+    t6, t7 = w32(tmp6 * 25172), w32(tmp7 * 12299)
+    z1, z2 = w32(z1 * -7373), w32(z2 * -20995)
+    z3, z4 = w32(w32(z3 * -16069) + z5), w32(w32(z4 * -3196) + z5)
+    o[7] = _descale(w32(t4 + z1) + z3, n)
+    o[5] = _descale(w32(t5 + z2) + z4, n)
+    o[3] = _descale(w32(t6 + z2) + z3, n)
+    o[1] = _descale(w32(t7 + z1) + z4, n)
+    return o
+
+
+U64 = np.uint64
+
+
+def recip(d):
+    """The kernel's reciprocal of each divisor d >= 2: ceil(2^64 / d) as
+    uint64, computed as (2^64 - 1) // d + 1."""
+    return U64(0xFFFFFFFFFFFFFFFF) // np.asarray(d, U64) + U64(1)
+
+
+def umulhi(s, m):
+    """__umul64hi(s, m) for 0 <= s < 2^32: the high 64 bits of the
+    128-bit product, from m's 32-bit halves (each partial product stays
+    under 2^64)."""
+    s, m = np.asarray(s, U64), np.asarray(m, U64)
+    lo = s * (m & U64(0xFFFFFFFF))
+    return (s * (m >> U64(32)) + (lo >> U64(32))) >> U64(32)
+
+
+def quantize_model(c, d, m):
+    """The kernel's quantizer on int64 arrays: c the raw coefficients, d
+    = 8q, m = recip(d) -> the int16 value before the post-dering clamp.
+    s = |c| + d/2 in wrapping int32; s >= 0: umulhi(s, m); s < 0: C's
+    truncating division, then the floor fix."""
+    a = np.where(c < 0, w32(-c), c)
+    s = w32(a + (d >> 1))
+    pos = s >= 0
+    mag_pos = umulhi(np.where(pos, s, 0), m).astype(np.int64)
+    trunc = np.where(pos, 0, -(np.abs(s) // d))       # s < 0: toward zero
+    mag_neg = trunc - ((~pos) & (trunc * d != s))
+    mag = np.where(pos, mag_pos, mag_neg)
+    v = w32(np.where(c < 0, -mag, mag))
+    return ((v + 32768) & 0xFFFF) - 32768             # to int16
+
+
+def hibit64(x):
+    """The highest set bit of each uint64 of x (63 - __clzll), -1 for 0."""
+    x = np.asarray(x, U64)
+    out = np.full(x.shape, -1, np.int64)
+    nz = x != 0
+    pos = np.zeros(x.shape, np.int64)
+    y = x.copy()
+    for sh in (32, 16, 8, 4, 2, 1):
+        big = y >= (U64(1) << U64(sh))
+        pos = np.where(big, pos + sh, pos)
+        y = np.where(big, y >> U64(sh), y)
+    return np.where(nz, pos, out)
+
+
+def clz64(x):
+    """Leading zeros of each uint64 of x (__clzll), 64 for 0."""
+    return 63 - hibit64(x)
+
+
+def mask_symbols(q):
+    """The kernel's within-block symbols from each block's nonzero mask:
+    q (..., 64) int zigzag-ordered quantized values -> (sym (..., 64),
+    -1 where no symbol; zrl (...,)). With a sentinel at bit 0, a nonzero
+    at zigzag k >= 1 has run clz64(mask << (64 - k)) = k - 1 - (its
+    highest nonzero in [1, k - 1], or 0)."""
+    nz = q != 0
+    m = (nz.astype(U64) << np.arange(64, dtype=U64)).sum(-1, dtype=U64)
+    ms = m | U64(1)
+    sym = np.full(q.shape, -1, np.int64)
+    zrl = np.zeros(q.shape[:-1], np.int64)
+    mg = np.abs(q.astype(np.int64))
+    nb = np.frexp(mg.astype(np.float64))[1]
+    for k in range(1, 64):
+        run = clz64(ms << U64(64 - k))
+        on = nz[..., k]
+        sym[..., k] = np.where(on, ((run & 15) << 4) | nb[..., k], -1)
+        zrl += np.where(on, run >> 4, 0)
+    return sym, zrl
+
+
 def model_blocks(plane, bh, bw, qtbl, dering_on, precision):
-    """p1_blocks_kernel over plane (B, >= bh*8, >= bw*8) one block at a
-    time -> (q_zz (64, N) int16, raw_zz (64, N) int32, norm (N,) f32,
-    hist (B, 256), flags (N,) uint8)."""
+    """p1_blocks_kernel's order of work, every block of plane (B, >= bh*8,
+    >= bw*8) at once -> (q_zz (64, N) int16, raw_zz (64, N) int32, norm
+    (N,) f32, hist (B, 256), flags (N,) uint8):
+      1. lane r's sample row r, centered; with deringing the lanes' clipped
+         counts and sums reduced over the block, and the run walk (lane 0)
+         on the blocks with 0 < cnt < 64, in zigzag order over the block's
+         buffer;
+      2. the row pass on the lanes, the transpose through the buffer, the
+         column pass;
+      3. lane c quantizes natural index 8y + c by the reciprocal (d = 8q,
+         umulhi(|c| + d/2, ceil(2^64 / d)), the s < 0 branch's division),
+         the int16 value, the post-dering clamp;
+      4. the nonzero mask (the OR of the lanes' bits at their zigzag
+         positions), each nonzero's symbol and ZRLs from it (with a
+         sentinel at bit 0, the run before zigzag k is the count of
+         leading zeros of the mask shifted left by 64 - k), the flag byte
+         from the mask;
+      5. the norm: lane g of warp 0 sums block g's squares from the staged
+         raw values in natural order 1..63.
+    The histogram adds count each (warp instruction, bin) once with its
+    popcount, the same sum as a count a symbol."""
+    plane = np.asarray(plane)
     b = plane.shape[0]
     n = bh * bw
     q = np.asarray(qtbl).reshape(64).astype(np.int64)
-    qv = [int(q[ZZ[k]]) << 3 for k in range(64)]
-    q_zz = np.zeros((64, b * n), np.int16)
-    raw_zz = np.zeros((64, b * n), np.int32)
-    norm = np.zeros(b * n, np.float32)
-    hist = np.zeros((b, 256), np.int64)
-    flags = np.zeros(b * n, np.uint8)
     center = 1 << (precision - 1)
     pass1 = 2 if precision == 8 else 1
     maxc = (1 << (precision + 2)) - 1
-    for img in range(b):
-        for i in range(n):
-            br, bc = divmod(i, bw)
-            blk = [int(v) - center for v in
-                   plane[img, br * 8:br * 8 + 8, bc * 8:bc * 8 + 8].reshape(64)]
-            if dering_on:
-                zz = [blk[ZZ[k]] for k in range(64)]
-                _dering(zz, int(q[0]))
-                for k in range(64):
-                    blk[ZZ[k]] = zz[k]
-            for r in range(8):
-                blk[8 * r:8 * r + 8] = _fdct_1d(blk[8 * r:8 * r + 8], pass1,
-                                                13 - pass1)
-            for c in range(8):
-                blk[c::8] = _fdct_1d(blk[c::8], -pass1, 13 + pass1)
-            gi = img * n + i
-            run = zrl = 0
-            anynz = False
-            for k in range(64):
-                c = blk[ZZ[k]]
-                a = w32(-c) if c < 0 else c
-                s = w32(a + (qv[k] >> 1))
-                mag = s // qv[k]                         # floor division
-                v = w32(-mag if c < 0 else mag)
-                v = ((v + 32768) & 0xFFFF) - 32768       # to int16
-                if dering_on:
-                    v = max(-maxc, min(maxc, v))
-                q_zz[k, gi], raw_zz[k, gi] = v, c
-                if k > 0:
-                    if v:
-                        hist[img, ((run & 15) << 4) | abs(v).bit_length()] += 1
-                        zrl += run >> 4
-                        run, anynz = 0, True
-                    else:
-                        run += 1
-            hist[img, 0xF0] += zrl
-            flags[gi] = int(anynz) | (2 if q_zz[63, gi] == 0 else 0)
-            acc = F32(0)
-            for k in range(1, 64):
-                rf = F32(blk[k])
-                acc = F32(acc + F32(rf * rf))
-            norm[gi] = acc
+    # (N, lane r, x): sample row r of each block
+    v = plane[:, :bh * 8, :bw * 8].astype(np.int64).reshape(
+        b, bh, 8, bw, 8).transpose(0, 1, 3, 2, 4).reshape(-1, 8, 8)
+    v = w32(v - center)
+    if dering_on:
+        cnt = (v >= MAXS).sum((1, 2))
+        for i in np.nonzero((cnt > 0) & (cnt < 64))[0]:
+            zz = [int(x) for x in v[i].reshape(64)[ZZ]]
+            _dering(zz, int(q[0]))
+            flat = v[i].reshape(64)
+            flat[ZZ] = zz
+            v[i] = flat.reshape(8, 8)
+    rows = _fdct_1d([v[:, :, x] for x in range(8)], pass1, 13 - pass1)
+    rows = np.stack(rows, -1)                       # (N, r, x) after pass 1
+    cols = _fdct_1d([rows[:, y, :] for y in range(8)], -pass1,
+                      13 + pass1)
+    coef = np.stack(cols, 1)                        # (N, y, c) natural
+    raw = coef.reshape(-1, 64)                      # natural index 8y + c
+    d = q << 3
+    qv = quantize_model(raw, d[None, :], recip(d)[None, :])
+    if dering_on:
+        qv = np.clip(qv, -maxc, maxc)
+    q_zz = qv[:, ZZ].T.astype(np.int16)
+    raw_zz = raw[:, ZZ].T.astype(np.int32)
+    rf = raw.astype(F32)
+    sq = rf * rf
+    norm = np.zeros(b * n, F32)
+    for k in range(1, 64):
+        norm = norm + sq[:, k]
+    sym, zrl = mask_symbols(q_zz.T.astype(np.int64))
+    hist = np.zeros((b, 256), np.int64)
+    img = np.repeat(np.arange(b), n)
+    on = sym >= 0
+    np.add.at(hist, (np.broadcast_to(img[:, None], sym.shape)[on],
+                     sym[on]), 1)
+    np.add.at(hist[:, 0xF0], img, zrl)
+    nzm = q_zz != 0
+    flags = (nzm[1:].any(0).astype(np.uint8)
+             | ((~nzm[63]).astype(np.uint8) << 1))
     return q_zz, raw_zz, norm, hist, flags
 
 
@@ -476,6 +572,114 @@ def test_kernel_models_match_jax_p1(jax_p1, name):
         norms.append(norm.reshape(b, -1).view(np.int32))
         hists.append(hist.astype(np.int32))
     _eq(np.concatenate(norms + hists, 1).reshape(-1), small_j)
+
+
+Q_ALL = np.arange(1, 65536, dtype=np.int64)      # every quant value
+
+
+def test_reciprocal_quantizer_every_q():
+    """floor(s / d) = umulhi(s, ceil(2^64 / d)) for d = 8q, q = 1..65535,
+    at s = 0, 1, d - 1, d, d + 1, kd - 1 and kd (k the largest multiple
+    under 2^31, and a seeded one), 2^31 - 1, and |c| + 4q at the FDCT's
+    largest |c|, 2^30 (the 12-bit DC's column sum wrapped to INT_MIN
+    and descaled by one bit)."""
+    d = Q_ALL << 3
+    m = recip(d)
+    kmax = (2 ** 31 - 1) // d
+    k = np.random.default_rng(0).integers(1, kmax + 1)
+    nums = [np.zeros_like(d), np.ones_like(d), d - 1, d, d + 1,
+            kmax * d - 1, kmax * d, k * d - 1, k * d,
+            np.full_like(d, 2 ** 31 - 1), (1 << 30) + (d >> 1)]
+    for s in nums:
+        assert s.min() >= 0 and s.max() < 2 ** 31
+        np.testing.assert_array_equal(umulhi(s, m).astype(np.int64),
+                                      s // d)
+
+
+def test_quantizer_model_matches_plain_at_the_extremes():
+    """The kernel's quantizer (both branches: s < 0 where |c| + 4q wraps
+    int32, C division with the floor fix) against the plain quantizer
+    (ops/quant.quantize_islow_t) at c = INT_MIN, -2^30, values beside
+    2^31 - 4q, zero and small values, for quant values 1, 7, 4096 and
+    65535."""
+    big = 2 ** 31
+    for q in (1, 7, 4096, 65535):
+        d = q << 3
+        c = np.resize(np.array([
+            -big, -big + 1, -(1 << 30), (1 << 30), big - 1, big - 1 - 4 * q,
+            big - 4 * q, -(big - 4 * q), -(big - 4 * q) - 1, 0, 1, -1,
+            4 * q, -4 * q, d, -d, 4 * q - 1, -(4 * q - 1)], np.int64), 128)
+        plain = quant.quantize_islow_t(
+            torch.from_numpy(c.astype(np.int32).reshape(8, 8, -1)),
+            torch.full((8, 8, 1), q, dtype=torch.int32)).numpy()
+        got = quantize_model(c, np.int64(d), recip(np.int64(d)))
+        np.testing.assert_array_equal(got, plain.reshape(-1))
+        a = np.where(c < 0, w32(-c), c)
+        assert (w32(a + 4 * q) < 0).any()         # the s < 0 branch ran
+
+
+def _symbol_blocks():
+    """(n, 64) int16 zigzag blocks: zero runs of 15, 16, 31, 32, 47, 48
+    and 62 between nonzeros (starting after the DC and after a nonzero at
+    1), a nonzero only at 63, all zero, all nonzero, magnitudes up to
+    32767 and -32768, and seeded sparse blocks."""
+    rng = np.random.default_rng(4)
+    out = []
+    for run in (15, 16, 31, 32, 47, 48, 62):
+        for start in (1, 2):
+            q = np.zeros(64, np.int64)
+            if start == 2:
+                q[1] = 3
+            if start + run < 64:
+                q[start + run] = -5
+            if start + run + 1 < 64:
+                q[63] = 1
+            out.append(q)
+    q = np.zeros(64, np.int64)
+    q[63] = -2
+    out += [q, np.zeros(64, np.int64), rng.integers(1, 4, 64)]
+    q = rng.integers(-1000, 1000, 64)
+    q[5], q[9] = 32767, -32768
+    out.append(q)
+    for _ in range(40):
+        q = np.where(rng.random(64) < 0.15, rng.integers(-300, 300, 64), 0)
+        out.append(q)
+    return np.stack(out).astype(np.int16)
+
+
+def test_mask_symbols_match_within_block_hist():
+    """Each block's symbols from its 64-bit nonzero mask (the run as the
+    leading zeros of the mask, with a sentinel at bit 0, shifted left by
+    64 - k; ZRLs run >> 4) give symbols.within_block_hist's counts, block
+    by block."""
+    blocks = _symbol_blocks()
+    sym, zrl = mask_symbols(blocks.astype(np.int64))
+    for i, q in enumerate(blocks):
+        h = np.zeros(256, np.int64)
+        np.add.at(h, sym[i][sym[i] >= 0], 1)
+        h[0xF0] += zrl[i]
+        want = tsymbols.within_block_hist(
+            torch.from_numpy(q[1:].astype(np.int32)).reshape(63, 1, 1))
+        np.testing.assert_array_equal(h, want.numpy()[0])
+
+
+@pytest.mark.parametrize("kind,precision,dering_on", [
+    ("wrap", 8, False), ("wrap", 12, False), ("clipped", 8, True),
+    ("clipped", 12, True), ("clipped", 12, False)])
+def test_blocks_model_on_adversarial_planes_matches_plain(kind, precision,
+                                                          dering_on):
+    """The blocks model against the plain version on ops/p1's adversarial
+    planes: int32 samples whose FDCT wraps (the DC at -2^30), and
+    all-clipped, half-clipped and top-half-clipped blocks, at quant
+    values 1 and 65535 and a ramp."""
+    plane = tp1.adversarial_plane(kind, 2, 3, 5, precision, 8)
+    for qt in (np.ones(64, np.int32), np.full(64, 65535, np.int32),
+               np.arange(1, 65, dtype=np.int32)):
+        got = model_blocks(plane, 3, 5, qt, dering_on, precision)
+        want = tp1.p1_blocks_plain(_t(plane), 3, 5, qt, dering_on,
+                                   precision)
+        for g, w in zip(got, want):
+            _eq(np.asarray(g).astype(w.numpy().dtype), w)
 
 
 def _flags_from(q_zz, batch):

@@ -21,11 +21,15 @@ run without a card, so these models are the CPU check of their algorithm.
   (each segment's map of its end states, the maps chained from the last
   segment down, each segment walked); the chosen row is the next row's
   above_dc.
-  EOB model: one warp per block row; the serial azbc prefix on one lane;
-  step b folds i = lane, lane + 32, ... <= b + 1 with strict '<' and
-  reduces the warp's lexicographic (cost, i) minimum; the final run over
-  i in [0, L] the same way; the walk back on one lane.
+  EOB model: one warp per block row in push order; the serial azbc
+  prefix on one lane; lane l owns steps l, l + 32, ...; once abc[t] is
+  final every lane folds candidate t into its later steps with a strict
+  '<', and step t's owner closes it (the BIG candidate t + 1, or (BIG,
+  0) for an all-zero block) and hands abc[t + 1] to every lane; the
+  final run over i in [0, L] as a warp's lexicographic (cost, i)
+  minimum; the walk back along the back-pointers on one lane.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -377,59 +381,75 @@ def model_dc(raw_dc, lam, q0, ltbl0, dc_si, nc, v, delta_w, maxq,
 
 
 def model_eob(ei, ac_si, bh, bw):
+    """eob_dp_kernel's push order, every block row at once (a warp a row):
+    the row's czero summed on one lane in C order into azbc, base[b] =
+    skip[b] + azbc[b], req = [0, has_eob...]; lane l owns steps l, l + 32,
+    ... (registers up to 512 steps, shared memory past them: the same
+    order). For t = 0..L-1, with abc[t] final: every lane folds candidate
+    t into its steps b >= t with a strict '<' (cost ((base[b] - azbc[t]) +
+    abc[t]) + rate(b - t + req[t]), or BIG where req[t] is 2); step t's
+    owner closes it (the BIG candidate t + 1, or (BIG, 0) for an all-zero
+    block) and abc[t + 1] goes to every lane. Then the final run over i
+    in [0, L] (lanes fold i = lane, lane + 32, ..., the warp's
+    lexicographic minimum) and the walk back along the back-pointers."""
     n = ei.shape[1]
     rows, L = n // bw, bw
+    S = -(-L // 32)
+    steps = np.arange(32 * S)                       # 32 j + lane
     kept = np.zeros((rows, L), bool)
-    with np.errstate(over="ignore"):
+    with np.errstate(over="ignore", invalid="ignore"):
+        si = ac_si[np.arange(rows) // bh].astype(np.int64)
+        rate = np.zeros((rows, 32), F32)
+        rate[:, :16] = np.arange(16).astype(F32) + si[:, 0:256:16].astype(F32)
+        czero = ei[0].reshape(rows, L)
+        req = np.concatenate([np.zeros((rows, 1), np.int64),
+                              ei[2].reshape(rows, L).astype(np.int64)], 1)
+        azbc = np.zeros((rows, L + 1), F32)
+        a = np.zeros(rows, F32)
+        for b in range(L):                          # one lane, C order
+            a = a + czero[:, b]
+            azbc[:, b + 1] = a
+        base = np.zeros((rows, 32 * S), F32)
+        base[:, :L] = ei[1].reshape(rows, L) + azbc[:, :L]
+        zero = np.zeros((rows, 32 * S), bool)
+        zero[:, :L] = req[:, 1:] == 2
+        bv = np.full((rows, 32 * S), INF)
+        bi = np.zeros((rows, 32 * S), np.int64)
+        abc = np.zeros(rows, F32)
+        rix = np.arange(rows)[:, None]
+        for t in range(L):
+            rq = req[:, t]
+            d = np.maximum(steps[None, :] - t + rq[:, None], 0)
+            c = ((base - azbc[:, t, None]) + abc[:, None]) + rate[rix,
+                                                                  _nbits(d)]
+            c = np.where((rq != 2)[:, None], c, BIG)
+            upd = (steps >= t)[None, :] & (c < bv)
+            bv, bi = np.where(upd, c, bv), np.where(upd, t, bi)
+            # the owner closes step t
+            z, big = zero[:, t], BIG < bv[:, t]
+            abc = np.where(z | big, BIG, bv[:, t])
+            bi[:, t] = np.where(z, 0, np.where(big, t + 1, bi[:, t]))
+        brs = bi[:, :L]
         for r in range(rows):
-            si = ac_si[r // bh].astype(np.int64)
-            rate = np.arange(16).astype(F32) + si[0:256:16].astype(F32)
-            o = r * L
-            skip = ei[1, o:o + L]
-            req = np.concatenate([[0], ei[2, o:o + L].astype(np.int64)])
-            azbc = np.zeros(L + 1, F32)
-            a = F32(0)
-            for b in range(L):                 # one lane, C order
-                a = a + ei[0, o + b]
-                azbc[b + 1] = a
-            abc = np.zeros(L + 1, F32)
-            brs = np.zeros(L, np.int64)
-
-            def fold(n_i, cost_of):
-                """Lanes fold i = lane, lane + 32, ... < n_i with strict
-                '<' from +inf, then the warp reduces."""
-                bv, bi = np.full(32, INF), np.full(32, 1 << 30)
-                for i0 in range(0, n_i, 32):
-                    i = i0 + LANES
-                    on = i < n_i
-                    c = cost_of(np.minimum(i, n_i - 1))
-                    upd = on & (c < bv)
-                    bv, bi = np.where(upd, c, bv), np.where(upd, i, bi)
-                return warp_first_min(bv, bi)
-
-            for b in range(L):
-                if req[b + 1] == 2:
-                    abc[b + 1], brs[b] = BIG, 0
-                    continue
-                base = skip[b] + azbc[b]
-
-                def step_cost(i):
-                    ok = (i <= b) & (req[i] != 2)
-                    run = np.maximum(b - i + req[i], 0)
-                    c = ((base - azbc[i]) + abc[i]) + rate[_nbits(run)]
-                    return np.where(ok, c, BIG)
-                bv, bi = fold(b + 2, step_cost)
-                abc[b + 1], brs[b] = bv[0], bi[0]
-
             def end_cost(i):
-                c = (azbc[L] - azbc[i]) + rate[_nbits(L - i + req[i])]
-                return np.where(req[i] != 2, c, BIG)
-            _, fi = fold(L + 1, end_cost)
+                c = (azbc[r, L] - azbc[r, i]) + rate[r, _nbits(L - i
+                                                               + req[r, i])]
+                return np.where(req[r, i] != 2, c, BIG)
+            fv, fi = np.full(32, INF), np.full(32, 1 << 30)
+            for i0 in range(0, L + 1, 32):
+                i = i0 + LANES
+                on = i <= L
+                c = end_cost(np.minimum(i, L))
+                upd = on & (c < fv)
+                fv, fi = np.where(upd, c, fv), np.where(upd, i, fi)
+            _, fi = warp_first_min(fv, fi)
             last = int(fi[0]) - 1
-            for b in range(L - 1, -1, -1):
-                kept[r, b] = last == b
-                if last == b:
-                    last = int(brs[b]) - 1
+            while 0 <= last < L:                    # the walk back
+                kept[r, last] = True
+                nxt = int(brs[r, last]) - 1
+                if nxt >= last:
+                    break
+                last = nxt
     return kept
 
 
@@ -463,6 +483,52 @@ def test_eob_kernel_model_matches_plain(seed, b, bh, bw):
     with np.errstate(over="ignore"):
         want = trw.eob_dp_plain(_t(ei), _t(si), bh, bw).numpy()
     np.testing.assert_array_equal(model_eob(ei, si, bh, bw), want)
+
+
+EOB_LS = (1, 31, 32, 33, 504)     # row lengths around a warp, 12 MP luma
+
+
+@pytest.fixture(scope="module")
+def eob_adversarial_jax():
+    """Adversarial EOB rows (every cost tied, all zero, every other block
+    all zero, keep-heavy, seeded; trellis_rows.eob_example_inputs) for each
+    row length, through the JAX _eob_block_dp (one compile per length)."""
+    dp = jax.jit(jtr._eob_block_dp)
+    out = {}
+    for L in EOB_LS:
+        ei, si = eob_inputs(700 + L, 2, 5, L, "adversarial")
+        with np.errstate(over="ignore"):
+            want = dp(jnp.asarray(ei[0].reshape(-1, L)),
+                      jnp.asarray(ei[1].reshape(-1, L)),
+                      jnp.asarray(ei[2].astype(np.int32).reshape(-1, L)),
+                      jnp.asarray(np.repeat(si.astype(F32), 5, 0)))
+        out[L] = (ei, si, np.asarray(want))
+    return out
+
+
+@pytest.mark.parametrize("L", EOB_LS)
+def test_eob_push_model_on_adversarial_rows_matches_plain_and_jax(
+        eob_adversarial_jax, L):
+    """The push-order model and the plain version against the JAX
+    _eob_block_dp on rows of every cost tied (equal EOBn costs), all-zero
+    rows, every other block all zero, keep-heavy rows (long walks back)
+    and seeded rows, at L = 1, 31, 32, 33 and 504 (a 12 MP luma row)."""
+    ei, si, want = eob_adversarial_jax[L]
+    with np.errstate(over="ignore"):
+        plain = trw.eob_dp_plain(_t(ei), _t(si), 5, L).numpy()
+    np.testing.assert_array_equal(plain, want)
+    np.testing.assert_array_equal(model_eob(ei, si, 5, L), want)
+    assert want[3::5].sum() > L // 2 or L < 4     # keep-heavy rows keep
+
+
+@pytest.mark.parametrize("L", [513, 700])
+def test_eob_push_model_past_the_registers_matches_plain(L):
+    """Rows longer than the kernel's 512 register steps (its shared-memory
+    states), adversarial, against the plain version."""
+    ei, si = eob_inputs(800 + L, 1, 5, L, "adversarial")
+    with np.errstate(over="ignore"):
+        plain = trw.eob_dp_plain(_t(ei), _t(si), 5, L).numpy()
+    np.testing.assert_array_equal(model_eob(ei, si, 5, L), plain)
 
 
 # (name, B, bh, bw, v, q0, nc, delta_w, precision) of the inputs built to
