@@ -1,0 +1,7 @@
+"""ms per megapixel of p1 in the stage pass, each stage
+synchronised (codec/stages.stage): the layer's busy time, not its
+share of the pipelined window."""
+
+
+def read(run):
+    return run.stage_ms_per_mp("p1")
