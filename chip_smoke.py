@@ -72,8 +72,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      group's 3 launches, held, with gaps, its plain version and its bound
      (bytes, or integer operations at the INT32 rate); the p1 stage with
      the kernels and with the plain versions in turns (synchronised) and
-     under torch.profiler, split by p1's ranges (p1:dering,
-     p1:fdct+quantize, p1:norm, p1:hist; p1:blocks with the kernels); the
+     under torch.profiler, split by kernel name; the
      plain p1 without its histogram replayed as one CUDA graph (a
      yardstick only); an empty kernel's launch, held and with gaps (the
      practical floor beside each bytes bound);
@@ -664,12 +663,10 @@ def empty_ms(dev, smi, reps=200):
 
 def is_kernel(e):
     """Whether a torch.profiler event is a kernel or copy on the card, and
-    not the span of a record_function range on the card's timeline (such
-    as ops/p1.py's "p1:..." ranges)."""
+    not the span of a record_function range on the card's timeline."""
     import torch
     return (e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("p1:"))
+            and not getattr(e, "is_user_annotation", False))
 
 
 def sync_ms(fn, reps):
@@ -2148,38 +2145,6 @@ def plain_p1():
         tp1.p1_blocks, tp1.p1_eob_hist = blocks, eob
 
 
-def profiled_ranges(fn, reps=3):
-    """torch.profiler over reps calls of fn -> (device ms a call, kernels a
-    call, {range name: [device ms, kernels] a call}) for the ranges named
-    "p1:..." (ops/p1.py): the kernels that run inside each range's span
-    on the device's timeline (kernels launched through ctypes have no
-    PyTorch op to hang on)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = prof.events()
-    kernels = [e for e in evs if is_kernel(e)]
-    ranges = {}
-    for a in evs:
-        if (a.device_type == torch.autograd.DeviceType.CUDA
-                and a.name.startswith("p1:")):
-            r = ranges.setdefault(a.name, [0.0, 0])
-            for k in kernels:
-                if (k.time_range.start >= a.time_range.start
-                        and k.time_range.end <= a.time_range.end):
-                    r[0] += k.time_range.elapsed_us() / 1e3 / reps
-                    r[1] += 1 / reps
-    total = sum(k.time_range.elapsed_us() for k in kernels) / 1e3 / reps
-    return total, len(kernels) / reps, {k: [round(v[0], 4), round(v[1], 2)]
-                                        for k, v in ranges.items()}
-
-
 def p1_graph_ms(blocks, reps=20):
     """The plain p1 of a group's recorded p1_blocks launches without its
     histogram (whose bincount synchronises): dering, FDCT, quantization
@@ -2305,10 +2270,10 @@ def p1_stage(rec, group, ctx, dev, smi, launches, reps=20):
     prof = {}
     for way in ("plain", "kernels"):
         with plain_p1() if way == "plain" else contextlib.nullcontext():
-            prof[way] = profiled_ranges(stage, 3)
+            prof[way] = profiled_top(stage, 3)
         log("p1 stage of one 8x768x512 group [%s] on %s: synchronised wall "
             "%s ms; %.4f ms of device kernels (torch.profiler), %d kernels; "
-            "by range {name: [device ms, kernels]} %s"
+            "top [kernel, device ms, kernels] %s"
             % ("the plain versions (the route before the kernels)"
                if way == "plain" else "the kernels", smi,
                ["%.3f" % t for t in walls[way]], prof[way][0], prof[way][1],

@@ -60,7 +60,7 @@ from ..entropy.huffman import HuffTable, derive_codes
 from ..ops import bitpack, sparsepack, tablegen, transport
 from ..utils import xfer
 from . import (arith, host_engine, marker, pipeline_t, report, scanopt,
-               scanopt_dev, scans, trellis)
+               scanopt_dev, scans, stages, trellis)
 from .config import (CS_INFO, EncoderConfig, Profile, ResolvedConfig,
                      qt_slots, scan_restart_interval, trellis_ris)
 from .pipeline import geometry
@@ -260,17 +260,25 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
     (encode_group); on the CPU the configurations the JAX package does
     not batch take the host engine where it serves them, as there.
     progress and trace as in encode; the passes of a group's images
-    interleave, so only a group of one image reports in a fixed order."""
+    interleave, so only a group of one image reports in a fixed order.
+    A traced call (codec/stages.py) records the span "enc.call" with its
+    images and pixels, the spans of its groups and stages, each image's
+    "enc.entropy_image" on its pool thread and "enc.entropy_wait", the
+    wait for them."""
     dev = _device(device)
-    with report.reporting(progress, trace):
-        return _encode_many(images, config, dev, overrides)
+    with report.reporting(progress, trace), \
+            stages.call("enc.call", images=len(images)) as sp:
+        return _encode_many(images, config, dev, overrides, sp)
 
 
-def _encode_many(images, config, dev, overrides) -> List[bytes]:
+def _encode_many(images, config, dev, overrides, sp) -> List[bytes]:
     out = [None] * len(images)
     by_shape = {}
     for i, img in enumerate(images):
         by_shape.setdefault(np.asarray(img).shape, []).append(i)
+    if sp:
+        sp.set(pixels=sum(s[0] * s[1] * len(ix)
+                          for s, ix in by_shape.items()))
     chunks, host = [], []
     for idxs in by_shape.values():
         img0 = np.asarray(images[idxs[0]])
@@ -311,11 +319,12 @@ def _encode_many(images, config, dev, overrides) -> List[bytes]:
             pending.append((idxs, per_image,
                             encode_group(imgs, ctx, dev, pool,
                                          per_image=per_image)))
-        for idxs, per_image, futs in pending:
-            for i, f in zip(idxs, futs):
-                out[i] = f.result()
-                if not (per_image or isinstance(futs, _Searched)):
-                    report.pass_done("entropy")
+        with stages.span("enc.entropy_wait"):
+            for idxs, per_image, futs in pending:
+                for i, f in zip(idxs, futs):
+                    out[i] = f.result()
+                    if not (per_image or isinstance(futs, _Searched)):
+                        report.pass_done("entropy")
     return out
 
 
@@ -335,35 +344,37 @@ def encode_group(images, ctx: GroupCtx, dev, pool, times=None,
     of each trellis_ac call and record["tablegen"] the counts of each
     device tablegen call of the trellis. The per-image route reports a
     main and a trellis pass per image, the batched one an entropy pass
-    per image (counted here, done as encode_many takes the result)."""
-    cfg, b = ctx.cfg, len(images)
-    if per_image is None:
-        per_image = not batchable(ctx)
-    if per_image:
-        report.add_passes(b * (2 if cfg.trellis_quant else 1))
-    p1 = _batch_p1(images, ctx, dev, times, batched=not per_image)
-    if per_image:
-        for _ in range(b):
-            report.pass_done("main")
-    finals, qtables = _finals(p1, ctx, dev, b, times, record, per_image)
-    if per_image and cfg.trellis_quant:
-        for _ in range(b):
-            report.pass_done("trellis")
-    if not per_image and _device_search_serves(ctx, p1[0]):
-        try:
-            with stage(times, "device_search", dev):
-                outs = scanopt_dev.encode_batch_scans(
-                    [im.shape[1] for im in images],
-                    [im.shape[0] for im in images], p1[0], finals,
-                    ctx.qtables, cfg, ctx.ncomps, b, _frame_slots(ctx),
-                    ((marker.icc_chunks(cfg.icc) if cfg.icc else [])
-                     + list(ctx.extra_markers)) or None)
-            return _Searched(_done(o) for o in outs)
-        except scanopt_dev.FallbackNeeded:
-            count_host_route("search")
-    codec = None if per_image else _dispatch_download(finals, b, cfg)
-    return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
-                       qtables, entropy_passes=not per_image, codec=codec)
+    per image (counted here, done as encode_many takes the result). A
+    traced call records the span "enc.group" around it."""
+    with stages.span("enc.group", images=len(images)):
+        cfg, b = ctx.cfg, len(images)
+        if per_image is None:
+            per_image = not batchable(ctx)
+        if per_image:
+            report.add_passes(b * (2 if cfg.trellis_quant else 1))
+        p1 = _batch_p1(images, ctx, dev, times, batched=not per_image)
+        if per_image:
+            for _ in range(b):
+                report.pass_done("main")
+        finals, qtables = _finals(p1, ctx, dev, b, times, record, per_image)
+        if per_image and cfg.trellis_quant:
+            for _ in range(b):
+                report.pass_done("trellis")
+        if not per_image and _device_search_serves(ctx, p1[0]):
+            try:
+                with stage(times, "device_search", dev):
+                    outs = scanopt_dev.encode_batch_scans(
+                        [im.shape[1] for im in images],
+                        [im.shape[0] for im in images], p1[0], finals,
+                        ctx.qtables, cfg, ctx.ncomps, b, _frame_slots(ctx),
+                        ((marker.icc_chunks(cfg.icc) if cfg.icc else [])
+                         + list(ctx.extra_markers)) or None)
+                return _Searched(_done(o) for o in outs)
+            except scanopt_dev.FallbackNeeded:
+                count_host_route("search")
+        codec = None if per_image else _dispatch_download(finals, b, cfg)
+        return _batch_host(images, p1[0], finals, ctx, pool, dev, times,
+                           qtables, entropy_passes=not per_image, codec=codec)
 
 
 class _Searched(list):
@@ -433,13 +444,16 @@ def _batch_p1(images, ctx: GroupCtx, dev, times=None,
                 count_codec_route("plane_pack")
                 geom, *up, total = pipeline_t.pack_ycc_batch(images,
                                                              ctx.samp)
-                xfer.add_h2d(sum(a.nbytes for a in up))
-                up = [torch.from_numpy(a.view(np.int32)).to(dev)
-                      for a in up]
+                nbytes = sum(a.nbytes for a in up)
+                xfer.add_h2d(nbytes)
+                with stages.span("enc.upload", bytes=nbytes):
+                    up = [torch.from_numpy(a.view(np.int32)).to(dev)
+                          for a in up]
             else:
                 geom, bufs = pipeline_t.prep_ycc_batch(images, ctx.samp)
                 xfer.add_h2d(bufs.nbytes)
-                bufs_t = torch.from_numpy(bufs).to(dev)
+                with stages.span("enc.upload", bytes=bufs.nbytes):
+                    bufs_t = torch.from_numpy(bufs).to(dev)
         with stage(times, "p1", dev):
             if packed:
                 bufs_t = pipeline_t.unpack_ycc_batch(*up, total)
@@ -451,7 +465,8 @@ def _batch_p1(images, ctx: GroupCtx, dev, times=None,
         with stage(times, "prep", dev):
             stack = np.stack(images)
             xfer.add_h2d(stack.nbytes)
-            imgs_t = pipeline_t.to_samples(stack, dev)
+            with stages.span("enc.upload", bytes=stack.nbytes):
+                imgs_t = pipeline_t.to_samples(stack, dev)
         with stage(times, "p1", dev):
             merged, smalls, norms = pipeline_t.p1_batch(
                 imgs_t, geom, ctx.cs, ctx.qtables,
@@ -759,25 +774,40 @@ def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
     then each image's entropy stage on the pool, each task in a copy of
     the caller's context (its reporter); qtables: each image's own table
     list (trellis_q_opt), else the group's. entropy_passes counts one
-    pass per image (the batched route's)."""
+    pass per image (the batched route's). A traced call records the
+    download's bytes and, on the pool, each image's span with the ns it
+    queued."""
     b = len(images)
-    with stage(times, "download", dev):
+    with stage(times, "download", dev) as sp:
+        before = xfer.snapshot() if sp else None
         per_image = _entropy_planes(geom, finals, b, ctx.cfg.device_entropy,
                                     codec, ctx.cfg.precision)
+        if sp:
+            sp.set(bytes=xfer.delta(before)[1])
     # one image per pool thread; a lone image threads its own search
     nthreads = (os.cpu_count() or 1) if b == 1 else 1
     if entropy_passes:
         report.add_passes(b)
-    with stage(times, "host_entropy", dev):
-        futs = [pool.submit(contextvars.copy_context().run, entropy_image,
-                            img.shape[1], img.shape[0], geom, planes,
-                            ctx._replace(qtables=qtables[i])
+    with stage(times, "host_entropy", dev) as sp:
+        futs = [pool.submit(contextvars.copy_context().run, _entropy_task,
+                            i, sp.now(), img.shape[1], img.shape[0], geom,
+                            planes, ctx._replace(qtables=qtables[i])
                             if qtables else ctx, nthreads)
                 for i, (img, planes) in enumerate(zip(images, per_image))]
         if times is not None:
             for f in futs:
                 f.result()
     return futs
+
+
+def _entropy_task(index: int, submitted: Optional[int], *args) -> bytes:
+    """entropy_image(*args) on a pool thread; in a traced call inside the
+    span "enc.entropy_image" with the image's index in its group and the
+    ns from its submission (stamped at `submitted`) to its start."""
+    with stages.span("enc.entropy_image", image=index) as sp:
+        if submitted is not None:
+            sp.set(queued_ns=sp.start - submitted)
+        return entropy_image(*args)
 
 
 def encode_raw_yuv(planes, width: int, height: int, samp,
@@ -879,7 +909,10 @@ def _fetch_planes(geom, finals, b: int, codec=None, precision: int = 8):
         if planes is not None:
             return planes
     count_codec_route("dense")
-    flat = xfer.to_host(pipeline_t.pack_all_batch(finals, b))
+    packed = pipeline_t.pack_all_batch(finals, b)
+    # the blocking copy, which also waits for the device's queue
+    with stages.span("enc.download_copy", bytes=packed.nbytes):
+        flat = xfer.to_host(packed)
     xfer.add_d2h(flat.nbytes)
     return pipeline_t.split_flat_batch(geom, flat, b)
 

@@ -17,7 +17,10 @@ under -arithmetic). The search runs for grayscale and YCbCr frames only
 
 Progress and trace (codec/report.py) as in the JAX package: the native
 search is one pass, the Python search one pass per candidate scan, and
-both trace each stitched scan's SCAN line.
+both trace each stitched scan's SCAN line. In a traced call
+(codec/stages.py) the native search's counters (native.SEARCH_STATS:
+candidates coded, ns gathering, building tables, emitting, stitching)
+go to the open span.
 
 Both frame headers name the components' quant slots (the
 configuration's, or the source's for a transcode) and write their tables in component
@@ -33,7 +36,7 @@ import numpy as np
 
 from .. import native
 from ..entropy import encode as entenc
-from . import arith, marker, report, scans
+from . import arith, marker, report, scans, stages
 from .config import CS_INFO, scan_restart_interval
 from .scans import ScanInfo
 
@@ -74,13 +77,20 @@ def encode_optimize_scans_native(width: int, height: int, geom, planes,
     cap = total_blocks * 384 + (1 << 20)
     out = np.empty(cap, np.uint8)
     meta = np.zeros(1 + 8 * 40, np.int32)
+    # a traced call's open span gets the search's counters
+    sp = stages.current()
+    stats = (np.zeros(len(native.SEARCH_STATS), np.int64) if sp is not None
+             else None)
     n = native.lib().mj_scan_search(
         arr, ncomps, mcus_x, mcus_y, cfg.dc_scan_opt_mode,
         restarts.ctypes.data_as(native.i32p), out.ctypes.data_as(native.u8p),
-        cap, meta.ctypes.data_as(native.i32p), int(nthreads))
+        cap, meta.ctypes.data_as(native.i32p), int(nthreads),
+        None if stats is None else stats.ctypes.data_as(native.i64p))
     del keep
     if n < 0:
         raise RuntimeError("native scan search: output buffer overflow")
+    if sp is not None:
+        sp.set(**dict(zip(native.SEARCH_STATS, stats.tolist())))
 
     w = marker.MarkerWriter()
     _file_header(w, cfg, extra_markers)

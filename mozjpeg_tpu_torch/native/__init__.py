@@ -1,7 +1,8 @@
 """ctypes bindings for the port's native host library (built at first use).
 
 Binds what the encode path calls (mj_prep_ycc, mj_gen_optimal_table,
-mj_scan_search, and the scan encoders mj_encode_seq and
+mj_scan_search with its optional SEARCH_STATS counters, and the scan
+encoders mj_encode_seq and
 mj_encode_{dc,ac}_{first,refine} of entropy.cpp, which gather symbol
 counts or emit one scan, and mj_ac_refine_schedule, the AC-refinement
 EOB-run and correction-bit flush schedule of the device packers), what the decode path calls (the six Huffman
@@ -56,6 +57,12 @@ class CompPlane(ctypes.Structure):
     ]
 
 
+# mj_scan_search's counters: the candidates coded, then ns in the gather
+# passes, the optimal tables, the emission passes and the stitch
+SEARCH_STATS = ("candidates", "gather_ns", "tables_ns", "emit_ns",
+                "stitch_ns")
+
+
 class SearchComp(ctypes.Structure):
     _fields_ = [
         ("coef", ctypes.c_void_p),
@@ -93,7 +100,7 @@ def _bind(so):
     so.mj_scan_search.restype = ctypes.c_long
     so.mj_scan_search.argtypes = [
         _p(SearchComp), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, i32p, u8p, ctypes.c_long, i32p, ctypes.c_int]
+        ctypes.c_int, i32p, u8p, ctypes.c_long, i32p, ctypes.c_int, i64p]
 
     cpp = _p(CompPlane)
     lng, cint = ctypes.c_long, ctypes.c_int

@@ -13,6 +13,7 @@
 // with codec/scanopt.py (tests/test_scansearch_native.py pins parity).
 
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -108,6 +109,13 @@ static void derive_codes(const uint8_t bits[17], const uint8_t* vals,
   }
 }
 
+// the clock of the search's counters
+static inline int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
 struct HuffSpec {
   uint8_t bits[17];
   uint8_t vals[256];
@@ -123,10 +131,20 @@ struct SearchComp {
   int32_t h, v;
 };
 
+// stats: null, or SEARCH_STATS int64 counters the search fills in:
+// [0] the candidates coded (speculative ones included), and ns spent in
+// [1] the gather passes, [2] building the optimal tables, [3] the
+// emission passes with each candidate's DHT/DRI/SOS buffer, [4] ordering
+// and stitching the winners; times are summed over the candidates on
+// whatever thread coded them. With a null pointer no clock is read.
+enum { ST_CANDIDATES, ST_GATHER, ST_TABLES, ST_EMIT, ST_STITCH,
+       SEARCH_STATS };
+
 extern "C" long mj_scan_search(
     const SearchComp* comps, int ncomps, int mcus_x, int mcus_y,
     int dc_mode, const int32_t* restarts,
-    uint8_t* out, long out_cap, int32_t* meta, int nthreads) {
+    uint8_t* out, long out_cap, int32_t* meta, int nthreads,
+    int64_t* stats) {
   SScan script[64];
   const int nscans = build_script(ncomps, dc_mode, script);
 
@@ -153,6 +171,12 @@ extern "C" long mj_scan_search(
     total_pad_blocks += (long)comps[ci].bw_pad * comps[ci].bh_pad;
   const long ent_cap = total_pad_blocks * 192 + 65536;
   std::vector<uint8_t> ent(ent_cap);
+  const bool timed = stats != nullptr;
+  std::atomic<int64_t> acc_stats[SEARCH_STATS];
+  for (auto& a : acc_stats) a.store(0, std::memory_order_relaxed);
+  auto count = [&](int k, int64_t v) {
+    acc_stats[k].fetch_add(v, std::memory_order_relaxed);
+  };
 
   auto encode_candidate = [&](int sn, const SScan& sc,
                               std::vector<uint8_t>& ent) -> long {
@@ -175,6 +199,7 @@ extern "C" long mj_scan_search(
     }
 
     // gather
+    const int64_t t_gather = timed ? now_ns() : 0;
     int64_t dcc[2 * 257]; memset(dcc, 0, sizeof(dcc));
     int64_t acc[2 * 257]; memset(acc, 0, sizeof(acc));
     const bool is_dc = sc.Ss == 0;
@@ -193,6 +218,7 @@ extern "C" long mj_scan_search(
     if (rc < 0) return -1;
 
     // optimal tables per used slot
+    const int64_t t_tables = timed ? now_ns() : 0;
     HuffSpec dct[2], act[2];
     uint32_t dc_co[2 * 256]; uint8_t dc_si[2 * 256];
     uint32_t ac_co[2 * 256]; uint8_t ac_si[2 * 256];
@@ -229,6 +255,7 @@ extern "C" long mj_scan_search(
     }
 
     // emit entropy data
+    const int64_t t_emit = timed ? now_ns() : 0;
     long n = 0;
     if (is_dc && !refine) {
       n = mj_encode_dc_first(cp, sc.nc, smx, smy, r, sc.Al, dc_co, dc_si,
@@ -290,6 +317,13 @@ extern "C" long mj_scan_search(
     byte(sc.Ss); byte(sc.Se); byte((sc.Ah << 4) | sc.Al);
     b.insert(b.end(), ent.data(), ent.data() + n);
     used[sn] = sc;
+    if (timed) {
+      const int64_t t_end = now_ns();
+      count(ST_CANDIDATES, 1);
+      count(ST_GATHER, t_tables - t_gather);
+      count(ST_TABLES, t_emit - t_tables);
+      count(ST_EMIT, t_end - t_emit);
+    }
     return (long)b.size();
   };
 
@@ -421,6 +455,7 @@ extern "C" long mj_scan_search(
   }
 
   // ---- display order (scanopt.display_order, transcribed) ----
+  const int64_t t_stitch = timed ? now_ns() : 0;
   int order[40]; int nord = 0;
   int min_Al = best_Al_luma < best_Al_chroma ? best_Al_luma : best_Al_chroma;
   order[nord++] = 0;
@@ -477,6 +512,11 @@ extern "C" long mj_scan_search(
     meta[m++] = sc.Ah; meta[m++] = sc.Al;
     meta[m++] = (int32_t)b.size();
     off += (long)b.size();
+  }
+  if (timed) {
+    count(ST_STITCH, now_ns() - t_stitch);
+    for (int k = 0; k < SEARCH_STATS; k++)
+      stats[k] = acc_stats[k].load(std::memory_order_relaxed);
   }
   return off;
 }

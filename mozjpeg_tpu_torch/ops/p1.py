@@ -28,9 +28,6 @@ csrc/p1.cu twice a component:
 The library is built with nvcc at first use into mozjpeg_tpu_torch/_build/
 and called through ctypes on PyTorch's current stream. Tensors on the CPU
 take the plain versions; anything else the kernels cannot take raises.
-The plain versions carry torch.profiler ranges named "p1:dering",
-"p1:fdct+quantize", "p1:norm" and "p1:hist", the kernels "p1:blocks" and
-"p1:hist", so that a profile splits p1's launches and device time.
 """
 from __future__ import annotations
 
@@ -41,7 +38,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..consts import JPEG_ZIGZAG, JPEG_ZIGZAG_INV
 from ..native import build as _build
@@ -150,7 +146,7 @@ def p1_blocks(plane: torch.Tensor, bh: int, bw: int, qtbl, dering_on: bool,
     tab = (ctypes.c_int * 64)(*q.tolist())
     for r in RECORDERS:
         r("p1_blocks", (plane, bh, bw, q, dering_on, precision))
-    with record_function("p1:blocks"), torch.cuda.device(dev):
+    with torch.cuda.device(dev):
         rc = lib.mj_p1_blocks(
             plane.data_ptr(), plane.element_size(), *plane.stride(), b, bh,
             bw, ctypes.cast(tab, ctypes.c_void_p), int(bool(dering_on)),
@@ -172,8 +168,7 @@ def p1_blocks_plain(plane: torch.Tensor, bh: int, bw: int, qtbl,
     q81 = torch.as_tensor(q.reshape(8, 8, 1), device=plane.device)
     q_zz, raw_zz = quantize_islow_plain(plane, bh, bw, q81, int(q[0]),
                                         dering_on, precision)
-    with record_function("p1:norm"):
-        norm = norm_seq(raw_zz)
+    norm = norm_seq(raw_zz)
     hist, flags = block_symbols_plain(q_zz, plane.shape[0])
     return q_zz, raw_zz, norm, hist, flags
 
@@ -185,23 +180,20 @@ def quantize_islow_plain(plane: torch.Tensor, bh: int, bw: int,
     int16, raw_zz (64, N) int32): [dering], islow FDCT, quantization by
     q81 (8, 8, 1) int32 on the plane's device, the post-dering clamp,
     zigzag. Uploads nothing, so a CUDA graph can capture it."""
-    with record_function("p1:dering"):
-        blocks = layout.blockify_t(
-            plane[:, :bh * 8, :bw * 8].to(torch.int32)
-            - (1 << (precision - 1)))
-        # the dering threshold stays 255 - CENTERJSAMPLE's 8-bit literal at
-        # every precision (jcdctmgr.c:419)
-        if dering_on:
-            blocks = layout.from_zigzag_t(
-                dering.dering_t(layout.to_zigzag_t(blocks), q0))
-    with record_function("p1:fdct+quantize"):
-        coeffs = dct.fdct_islow_t(blocks, dct.pass1_bits(precision))
-        qz = quant.quantize_islow_t(coeffs, q81)
-        if dering_on:
-            # post-dering clamp (jcdctmgr.c:706,764)
-            maxc = (1 << (precision + 2)) - 1
-            qz = torch.clamp(qz, -maxc, maxc)
-        return layout.to_zigzag_t(qz), layout.to_zigzag_t(coeffs)
+    blocks = layout.blockify_t(
+        plane[:, :bh * 8, :bw * 8].to(torch.int32) - (1 << (precision - 1)))
+    # the dering threshold stays 255 - CENTERJSAMPLE's 8-bit literal at
+    # every precision (jcdctmgr.c:419)
+    if dering_on:
+        blocks = layout.from_zigzag_t(
+            dering.dering_t(layout.to_zigzag_t(blocks), q0))
+    coeffs = dct.fdct_islow_t(blocks, dct.pass1_bits(precision))
+    qz = quant.quantize_islow_t(coeffs, q81)
+    if dering_on:
+        # post-dering clamp (jcdctmgr.c:706,764)
+        maxc = (1 << (precision + 2)) - 1
+        qz = torch.clamp(qz, -maxc, maxc)
+    return layout.to_zigzag_t(qz), layout.to_zigzag_t(coeffs)
 
 
 def norm_seq(raw_zz: torch.Tensor) -> torch.Tensor:
@@ -220,12 +212,11 @@ def block_symbols_plain(q_zz: torch.Tensor, batch: int):
     """q_zz (64, B*n) -> (hist (B, 256) int32 of each image's
     within-block AC-first symbols over band [1, 63], flags (B*n,) uint8:
     bit 0 a nonzero AC, bit 1 coefficient 63 zero)."""
-    with record_function("p1:hist"):
-        band = q_zz[1:]
-        hist = symbols.within_block_hist(band.reshape(63, batch, -1))
-        nz = band != 0
-        flags = nz.any(0).to(torch.uint8) | ((~nz[-1]).to(torch.uint8) << 1)
-        return hist.to(torch.int32), flags
+    band = q_zz[1:]
+    hist = symbols.within_block_hist(band.reshape(63, batch, -1))
+    nz = band != 0
+    flags = nz.any(0).to(torch.uint8) | ((~nz[-1]).to(torch.uint8) << 1)
+    return hist.to(torch.int32), flags
 
 
 def p1_eob_hist(flags: torch.Tensor, hist: torch.Tensor, batch: int,
@@ -254,7 +245,7 @@ def p1_eob_hist(flags: torch.Tensor, hist: torch.Tensor, batch: int,
     for r in RECORDERS:
         r("p1_eob_hist", (flags, hist, batch, ri))
     n = flags.numel() // batch
-    with record_function("p1:hist"), torch.cuda.device(dev):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         done, summ = _eob_scratch(dev, stream, batch,
                                   batch * -(-n // EOB_TILE))
@@ -287,11 +278,10 @@ def p1_eob_hist_plain(flags: torch.Tensor, hist: torch.Tensor, batch: int,
                       ri: int = 0) -> torch.Tensor:
     """p1_eob_hist's function as PyTorch ops: symbols.eob_run_hist over
     each image's restart segments."""
-    with record_function("p1:hist"):
-        runs = symbols.by_segment(
-            lambda f: symbols.eob_run_hist((f & 1) != 0, (f & 2) != 0),
-            flags, batch, ri)
-        return hist.add_(runs)
+    runs = symbols.by_segment(
+        lambda f: symbols.eob_run_hist((f & 1) != 0, (f & 2) != 0),
+        flags, batch, ri)
+    return hist.add_(runs)
 
 
 EDGE_N = 3 * EOB_TILE + 77     # one image's blocks in edge_flags
