@@ -311,8 +311,10 @@ def _encode_many(images, config, dev, overrides, sp) -> List[bytes]:
                                          np.asarray(images[i]), ctx))
                          for i, ctx in host]:
                 out[i] = f.result()
-    nthreads = max(2, (os.cpu_count() or 4) - 1)
-    with ThreadPoolExecutor(max_workers=nthreads) as pool:
+    # a group's images all enter the native search's workers at once;
+    # their pool threads mostly wait there
+    with ThreadPoolExecutor(max_workers=max(GROUP, os.cpu_count() or 4)) \
+            as pool:
         pending = []
         for idxs, ctx, per_image in chunks:
             imgs = [np.asarray(images[i]) for i in idxs]
@@ -784,15 +786,13 @@ def _batch_host(images, geom, finals, ctx: GroupCtx, pool, dev,
                                     codec, ctx.cfg.precision)
         if sp:
             sp.set(bytes=xfer.delta(before)[1])
-    # one image per pool thread; a lone image threads its own search
-    nthreads = (os.cpu_count() or 1) if b == 1 else 1
     if entropy_passes:
         report.add_passes(b)
     with stage(times, "host_entropy", dev) as sp:
         futs = [pool.submit(contextvars.copy_context().run, _entropy_task,
                             i, sp.now(), img.shape[1], img.shape[0], geom,
                             planes, ctx._replace(qtables=qtables[i])
-                            if qtables else ctx, nthreads)
+                            if qtables else ctx)
                 for i, (img, planes) in enumerate(zip(images, per_image))]
         if times is not None:
             for f in futs:
@@ -853,7 +853,7 @@ def encode_raw_yuv(planes, width: int, height: int, samp,
     if qtables:
         ctx = ctx._replace(qtables=qtables[0])
     out = _entropy_planes(geom, finals, 1, cfg.device_entropy)[0]
-    return entropy_image(width, height, geom, out, ctx, os.cpu_count() or 1)
+    return entropy_image(width, height, geom, out, ctx)
 
 
 class DualPlane(np.ndarray):
@@ -1167,12 +1167,14 @@ def assemble(width: int, height: int, geom, qtables, scan_results,
     return w.bytes()
 
 
-def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
-                  nthreads: int = 1) -> bytes:
+def entropy_image(width: int, height: int, geom, planes,
+                  ctx: GroupCtx) -> bytes:
     """One image's padded (bh_pad, bw_pad, 64) int16 planes -> its JPEG
     bytes: the scan search (progressive with optimize_scans, gray or
-    YCbCr; native unless MJ_NATIVE_SCANSEARCH=0, as in the JAX package),
-    or the scans of a script emitted one by one, a pass each."""
+    YCbCr; native unless MJ_NATIVE_SCANSEARCH=0, as in the JAX package,
+    its candidates coded on the process's search workers beside those of
+    every other search in flight), or the scans of a script emitted one
+    by one, a pass each."""
     cfg, cs, ncomps = ctx.cfg, ctx.cs, ctx.ncomps
     extra = ((marker.icc_chunks(cfg.icc) if cfg.icc else [])
              + list(ctx.extra_markers)) or None
@@ -1192,7 +1194,7 @@ def entropy_image(width: int, height: int, geom, planes, ctx: GroupCtx,
             if os.environ.get("MJ_NATIVE_SCANSEARCH", "1") != "0":
                 return scanopt.encode_optimize_scans_native(
                     width, height, geom, planes, ctx.qtables, cfg, ncomps,
-                    slots, cfg.precision, nthreads, extra)
+                    slots, cfg.precision, extra_markers=extra)
             return scanopt.encode_optimize_scans(
                 width, height, geom, planes, ctx.qtables, cfg, ncomps,
                 slots, cfg.precision, extra)

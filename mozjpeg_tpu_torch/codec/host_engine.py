@@ -235,4 +235,4 @@ def encode_host(image, ctx: "encoder.GroupCtx") -> bytes:
             ns[0], nc[0], ctx.qtables, slots))
     out_planes = [add_dummy_blocks_host(f.reshape(g.bh, g.bw, 64), g)
                   for f, g in zip(finals, comps)]
-    return encoder.entropy_image(w, h, geom, out_planes, ctx, _nthreads())
+    return encoder.entropy_image(w, h, geom, out_planes, ctx)

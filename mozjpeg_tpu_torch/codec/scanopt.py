@@ -2,9 +2,11 @@
 
 Port of mozjpeg_tpu/codec/scanopt.py. With Huffman coding the whole
 candidate sweep, greedy selection and stitching run in C++
-(native/scansearch.cpp mj_scan_search, GIL released), each
-candidate scan with its own restart interval; Python writes the frame
-header around the stitched scans (encode_optimize_scans_native). With
+(native/scansearch.cpp mj_scan_search, GIL released, the candidates
+coded on the process's one set of native workers, native.search_workers,
+which every search in flight shares), each candidate scan with its own
+restart interval; Python writes the frame header around the stitched
+scans (encode_optimize_scans_native). With
 the arithmetic coder, which the native search does not carry, or with
 MJ_NATIVE_SCANSEARCH=0, the same search runs in Python
 (encode_optimize_scans): each candidate scan is coded from the resident
@@ -19,8 +21,8 @@ Progress and trace (codec/report.py) as in the JAX package: the native
 search is one pass, the Python search one pass per candidate scan, and
 both trace each stitched scan's SCAN line. In a traced call
 (codec/stages.py) the native search's counters (native.SEARCH_STATS:
-candidates coded, ns gathering, building tables, emitting, stitching)
-go to the open span.
+candidates read, ns gathering, building tables, emitting, stitching,
+candidates coded ahead and those never read) go to the open span.
 
 Both frame headers name the components' quant slots (the
 configuration's, or the source's for a transcode) and write their tables in component
@@ -47,12 +49,13 @@ NUM_FREQ_SPLITS = len(scans.FREQUENCY_SPLITS)    # 5
 
 def encode_optimize_scans_native(width: int, height: int, geom, planes,
                                  qtables, cfg, ncomps: int, slots,
-                                 precision: int = 8, nthreads: int = 1,
+                                 precision: int = 8, workers=None,
                                  extra_markers=None) -> bytes:
     """planes: per component (bh_pad, bw_pad, 64) int16 zigzag blocks;
-    slots: the components' quant slots in the frame header;
-    extra_markers: [(marker code, payload)] written after the JFIF
-    header (the ICC chunks, a transcode's copied markers)."""
+    slots: the components' quant slots in the frame header; workers: a
+    native.SearchWorkers to code the candidates on, the process's own set
+    if None; extra_markers: [(marker code, payload)] written after the
+    JFIF header (the ICC chunks, a transcode's copied markers)."""
     mcus_x, mcus_y, comps = geom
     script = scans.search_progression(ncomps, cfg.dc_scan_opt_mode)
     restarts = np.asarray([scan_restart_interval(cfg, s, geom)
@@ -81,10 +84,13 @@ def encode_optimize_scans_native(width: int, height: int, geom, planes,
     sp = stages.current()
     stats = (np.zeros(len(native.SEARCH_STATS), np.int64) if sp is not None
              else None)
+    workers = workers or native.search_workers()
+    if not workers.handle:
+        raise ValueError("native scan search: the workers are closed")
     n = native.lib().mj_scan_search(
         arr, ncomps, mcus_x, mcus_y, cfg.dc_scan_opt_mode,
         restarts.ctypes.data_as(native.i32p), out.ctypes.data_as(native.u8p),
-        cap, meta.ctypes.data_as(native.i32p), int(nthreads),
+        cap, meta.ctypes.data_as(native.i32p), workers.handle,
         None if stats is None else stats.ctypes.data_as(native.i64p))
     del keep
     if n < 0:

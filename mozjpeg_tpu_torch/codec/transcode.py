@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -650,8 +649,7 @@ def write_coefficients(ci_img: CoefImage,
     ctx = encoder.GroupCtx(cfg, config.profile, decoder._jpeg_colorspace(jp),
                            ncomps, samp, qtables, slots=qt_slots,
                            extra_markers=tuple(extra))
-    return encoder.entropy_image(jp.width, jp.height, geom, planes, ctx,
-                                 os.cpu_count() or 1)
+    return encoder.entropy_image(jp.width, jp.height, geom, planes, ctx)
 
 
 def perfect_possible(jp, op: str) -> bool:

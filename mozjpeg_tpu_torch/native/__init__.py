@@ -1,7 +1,8 @@
 """ctypes bindings for the port's native host library (built at first use).
 
 Binds what the encode path calls (mj_prep_ycc, mj_gen_optimal_table,
-mj_scan_search with its optional SEARCH_STATS counters, and the scan
+mj_scan_search with its optional SEARCH_STATS counters and the worker
+threads it codes candidates on (SearchWorkers), and the scan
 encoders mj_encode_seq and
 mj_encode_{dc,ac}_{first,refine} of entropy.cpp, which gather symbol
 counts or emit one scan, and mj_ac_refine_schedule, the AC-refinement
@@ -57,10 +58,12 @@ class CompPlane(ctypes.Structure):
     ]
 
 
-# mj_scan_search's counters: the candidates coded, then ns in the gather
-# passes, the optimal tables, the emission passes and the stitch
+# mj_scan_search's counters: the candidates whose size the selection read,
+# ns in the gather passes, the optimal tables, the emission passes (each
+# summed over every candidate coded) and the stitch, then the candidates
+# coded ahead of the selection and those of them it never read
 SEARCH_STATS = ("candidates", "gather_ns", "tables_ns", "emit_ns",
-                "stitch_ns")
+                "stitch_ns", "ahead", "ahead_unused")
 
 
 class SearchComp(ctypes.Structure):
@@ -75,6 +78,8 @@ class SearchComp(ctypes.Structure):
 
 _LIB = None
 _LOCK = threading.Lock()
+_SHARED = None
+_SHARED_LOCK = threading.Lock()
 
 
 def lib():
@@ -89,6 +94,41 @@ def lib():
     return _LIB
 
 
+class SearchWorkers:
+    """n native threads that code the candidates of every mj_scan_search
+    given them (scansearch.cpp Workers), each search offering the
+    candidate its selection needs next. close() stops and joins them;
+    close a set only with no search in flight."""
+
+    def __init__(self, n: int):
+        if n < 1:
+            raise ValueError("a set of search workers needs a thread")
+        self.n = n
+        self.handle = lib().mj_search_workers_new(n)
+
+    def close(self):
+        if self.handle:
+            lib().mj_search_workers_free(self.handle)
+            self.handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def search_workers() -> SearchWorkers:
+    """The process's one set of search workers, os.cpu_count() threads,
+    started at first use (again in a forked child, which has none of its
+    parent's threads) and shared by every search in flight."""
+    global _SHARED
+    with _SHARED_LOCK:
+        if _SHARED is None or _SHARED[0] != os.getpid():
+            _SHARED = (os.getpid(), SearchWorkers(os.cpu_count() or 1))
+        return _SHARED[1]
+
+
 def _bind(so):
     so.mj_prep_ycc.restype = ctypes.c_long
     so.mj_prep_ycc.argtypes = [
@@ -100,7 +140,12 @@ def _bind(so):
     so.mj_scan_search.restype = ctypes.c_long
     so.mj_scan_search.argtypes = [
         _p(SearchComp), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, i32p, u8p, ctypes.c_long, i32p, ctypes.c_int, i64p]
+        ctypes.c_int, i32p, u8p, ctypes.c_long, i32p, ctypes.c_void_p,
+        i64p]
+    so.mj_search_workers_new.restype = ctypes.c_void_p
+    so.mj_search_workers_new.argtypes = [ctypes.c_int]
+    so.mj_search_workers_free.restype = None
+    so.mj_search_workers_free.argtypes = [ctypes.c_void_p]
 
     cpp = _p(CompPlane)
     lng, cint = ctypes.c_long, ctypes.c_int

@@ -4,12 +4,16 @@ The port keeps its own copy of the C++ host engine: the .cpp files beside
 this module, taken byte for byte from the JAX package's mozjpeg_tpu/native
 at commit 0d0dbf6, compile into a library of the port's own under
 mozjpeg_tpu_torch/_build/. Nothing outside the port's package is read.
+Since then the port's scansearch.cpp has gained the search's counters and
+the worker threads that every search in flight shares; the JAX package's
+copy has neither.
 The sources:
 
   entropy.cpp     mj_gen_optimal_table, the scan encoders and decoders,
                   and the transfer codecs' host halves (mj_sparse_expand_flat,
                   mj_transport_decode)
-  scansearch.cpp  mj_scan_search (the jpegrescan candidate sweep)
+  scansearch.cpp  mj_scan_search (the jpegrescan candidate sweep) and its
+                  worker threads (mj_search_workers_new / _free)
   prep.cpp        mj_prep_ycc (RGB -> YCbCr + chroma downsampling)
   hostenc.cpp     the host engine: p1, AC-first histograms, the AC and DC
                   trellis, the arithmetic trellis's row steps, and the

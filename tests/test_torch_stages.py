@@ -12,9 +12,15 @@
 - The native search's candidate counter equals the get_size calls of the
   Python search on the same planes (gray and YCbCr), and the search
   gives the same bytes with and without its counters.
+- The native search's shared workers give the Python search's bytes and
+  candidate counts for any number of searches in flight on any number of
+  workers, with and without restarts, and under three threads calling
+  encode_many at once; they code ahead only without restarts, and a lone
+  image's idle workers do; a group's images all enter the search at once.
 """
 import contextvars
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -23,7 +29,7 @@ import torch
 
 import mozjpeg_tpu_torch as mjt
 from mozjpeg_tpu_torch import native
-from mozjpeg_tpu_torch.codec import scanopt, stages
+from mozjpeg_tpu_torch.codec import encoder, pipeline, scanopt, stages
 from portbench.core import spans as pspans
 
 SHAPES = {"gray": (48, 64), "ycbcr": (48, 64, 3)}
@@ -113,7 +119,8 @@ def test_spans_nest_and_pool_spans_join_their_call(runs, kind):
         assert s.thread != call.thread
         assert by_id[s.parent].name == "enc.host_entropy"
         assert s.attrs["queued_ns"] >= 0 and s.attrs["candidates"] > 0
-        assert all(s.attrs[k] > 0 for k in native.SEARCH_STATS)
+        assert all(s.attrs[k] > 0 for k in native.SEARCH_STATS[:5])
+        assert 0 <= s.attrs["ahead_unused"] <= s.attrs["ahead"]
 
 
 @pytest.mark.parametrize("kind", list(SHAPES))
@@ -160,20 +167,164 @@ def test_candidates_equal_the_python_searchs_get_size_calls(
 @pytest.mark.parametrize("nthreads", [1, 4])
 def test_native_counters_keep_the_bytes(runs, nthreads):
     a, kw = runs["ycbcr"][3][0]
-    a = a[:9] + (nthreads,) + a[10:]
-    plain = scanopt.encode_optimize_scans_native(*a, **kw)
-    with stages.tracing() as got:
-        with stages.call("test.call") as sp:
-            counted = scanopt.encode_optimize_scans_native(*a, **kw)
+    with native.SearchWorkers(nthreads) as workers:
+        kw = dict(kw, workers=workers)
+        plain = scanopt.encode_optimize_scans_native(*a, **kw)
+        with stages.tracing() as got:
+            with stages.call("test.call") as sp:
+                counted = scanopt.encode_optimize_scans_native(*a, **kw)
     assert counted == plain
     assert got[0].name == "test.call" and sp.attrs["candidates"] > 0
     serial = [s.attrs["candidates"] for s in runs["ycbcr"][2]
               if s.name == "enc.entropy_image"]
+    # the selection reads the same candidates whoever codes them
+    assert sp.attrs["candidates"] in serial
     if nthreads == 1:
-        assert sp.attrs["candidates"] in serial
-    else:
-        # threads also code ahead the candidates the early exits skip
-        assert sp.attrs["candidates"] >= min(serial)
+        assert sp.attrs["ahead"] == 0
+
+
+def _made(kind, n, restart, seed=0, h=48, w=64):
+    """n searches' arguments over seeded coefficient planes (a wandering
+    DC, AC thinning out with frequency at a rate of the image's own, so
+    the early exits differ from image to image), with restart_in_rows=1
+    (each scan its own interval) or none."""
+    shape = SHAPES[kind][2:]
+    cfg = mjt.EncoderConfig(quality=75, restart_in_rows=int(restart))
+    ctx = encoder.resolve_group(np.zeros((h, w) + shape, np.uint8), cfg)
+    geom = pipeline.geometry(w, h, ctx.samp)
+    rng = np.random.default_rng([seed, ctx.ncomps, int(restart)])
+    out = []
+    for _ in range(n):
+        planes = []
+        for g in geom[2][:ctx.ncomps]:
+            dims = (g.bh_pad, g.bw_pad)
+            p = np.zeros(dims + (64,), np.int16)
+            p[..., 0] = np.clip(np.cumsum(rng.integers(-40, 41, dims), 1)
+                                + rng.integers(-200, 200), -1023, 1023)
+            scale = rng.uniform(2, 40) * np.exp(
+                -np.arange(1, 64) / rng.uniform(2, 16))
+            p[..., 1:] = np.clip(np.rint(rng.laplace(0, scale, dims + (63,))),
+                                 -1023, 1023)
+            planes.append(p)
+        out.append((w, h, geom, planes, ctx.qtables, ctx.cfg, ctx.ncomps,
+                    encoder._frame_slots(ctx), 8))
+    return out
+
+
+@pytest.fixture(scope="module")
+def made():
+    """Per kind and restarts: nine searches' arguments, the Python
+    search's bytes of each and its get_size calls."""
+    out = {}
+    real = scanopt._run_selection
+    for kind in SHAPES:
+        for restart in (False, True):
+            args, counts = _made(kind, 9, restart), []
+
+            def counting(layout, script, get_size):
+                n = [0]
+
+                def sized(sn, scan):
+                    n[0] += 1
+                    return get_size(sn, scan)
+                res = real(layout, script, sized)
+                counts.append(n[0])
+                return res
+            scanopt._run_selection = counting
+            try:
+                want = [scanopt.encode_optimize_scans(*a) for a in args]
+            finally:
+                scanopt._run_selection = real
+            out[kind, restart] = (args, want, counts)
+    return out
+
+
+def _searched(args, workers):
+    """Each search on its own thread, all released at once -> (bytes,
+    counters) of each."""
+    got = [None] * len(args)
+    ready = threading.Barrier(len(args), timeout=60)
+
+    def one(i):
+        ready.wait()
+        with stages.tracing(), stages.call("test.search") as sp:
+            data = scanopt.encode_optimize_scans_native(*args[i],
+                                                        workers=workers)
+        got[i] = (data, dict(sp.attrs))
+    with ThreadPoolExecutor(len(args)) as pool:
+        for f in [pool.submit(one, i) for i in range(len(args))]:
+            f.result(timeout=60)
+    return got
+
+
+SCHEDULES = ([(kind, restart, n, nw) for kind in SHAPES
+              for restart in (False, True) for n in (1, 3, 9)
+              for nw in (1, 2, 8)]
+             + [(kind, False, "encode_many x3", None) for kind in SHAPES])
+
+
+@pytest.mark.parametrize("kind,restart,images,workers", SCHEDULES)
+def test_shared_workers_give_the_python_searchs_bytes(
+        made, runs, monkeypatch, kind, restart, images, workers):
+    if workers is None:
+        # three callers of encode_many share the process's workers
+        imgs = _images(kind)
+        monkeypatch.setenv("MJ_NATIVE_SCANSEARCH", "0")
+        want = mjt.encode_many(imgs, device="cpu")
+        monkeypatch.delenv("MJ_NATIVE_SCANSEARCH")
+        ready = threading.Barrier(3, timeout=60)
+
+        def call(_):
+            ready.wait()
+            return mjt.encode_many(imgs, device="cpu")
+        with ThreadPoolExecutor(3) as pool:
+            got = [f.result(timeout=120)
+                   for f in [pool.submit(call, k) for k in range(3)]]
+        assert got == [want] * 3 and want == runs[kind][0]
+        return
+    args, want, counts = made[kind, restart]
+    with native.SearchWorkers(workers) as w:
+        got = _searched(args[:images], w)
+    for (data, st), b, n in zip(got, want, counts):
+        assert data == b
+        # the candidates the selection read, even where workers idled
+        assert st["candidates"] == n
+        assert 0 <= st["ahead_unused"] <= st["ahead"]
+        if restart or workers == 1:
+            assert st["ahead"] == 0
+
+
+def test_a_lone_image_codes_ahead_on_idle_workers():
+    """A restart-free 1024x768 search on four workers: the three the
+    selection leaves idle code ahead, and the bytes and the candidates
+    read are the one worker's."""
+    (a,) = _made("ycbcr", 1, False, seed=5, h=768, w=1024)
+    got = {}
+    for n in (1, 4):
+        with native.SearchWorkers(n) as w:
+            got[n] = _searched([a], w)[0]
+    assert got[4][0] == got[1][0]
+    assert got[4][1]["candidates"] == got[1][1]["candidates"]
+    assert got[1][1]["ahead"] == 0 and got[4][1]["ahead"] > 0
+
+
+def test_a_groups_images_all_enter_the_search_at_once(monkeypatch):
+    """Each image's entropy task waits at a barrier of GROUP parties, so
+    the call ends only if all of them start before any finishes."""
+    entered = threading.Barrier(encoder.GROUP, timeout=30)
+    real = encoder.entropy_image
+
+    def held(*a, **kw):
+        entered.wait()
+        return real(*a, **kw)
+    monkeypatch.setattr(encoder, "entropy_image", held)
+    imgs = _images("ycbcr", n=encoder.GROUP, seed=2)
+    with stages.tracing() as got:
+        out = mjt.encode_many(imgs, device="cpu")
+    assert all(o[:2] == b"\xff\xd8" for o in out)
+    spans = [s for s in got if s.name == "enc.entropy_image"]
+    assert len(spans) == encoder.GROUP
+    assert max(s.start_ns for s in spans) < min(s.end_ns for s in spans)
 
 
 def test_untraced_calls_record_nothing_and_read_no_clock(monkeypatch):
