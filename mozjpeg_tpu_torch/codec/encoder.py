@@ -263,8 +263,9 @@ def encode_many(images, config: Optional[EncoderConfig] = None,
     interleave, so only a group of one image reports in a fixed order.
     A traced call (codec/stages.py) records the span "enc.call" with its
     images and pixels, the spans of its groups and stages, each image's
-    "enc.entropy_image" on its pool thread and "enc.entropy_wait", the
-    wait for them."""
+    "enc.entropy_image" on its pool thread (with the native scan search's
+    counters, or the scan_* counters of the scans coded one by one) and
+    "enc.entropy_wait", the wait for them."""
     dev = _device(device)
     with report.reporting(progress, trace), \
             stages.call("enc.call", images=len(images)) as sp:
@@ -1044,13 +1045,28 @@ def _emit(sg, dc_tbls, ac_tbls, dc_tables, ac_tables, restart: int,
                               restart)[0]
 
 
+def _count_scan(sp, sg, data: bytes, gather_ns: int, emit_ns: int):
+    """Add one scan's counters to a traced call's open span: ns in its
+    statistics pass (scan_gather_ns) and its emission (scan_emit_ns), the
+    blocks it codes (scan_blocks) and its entropy-coded bytes
+    (scan_bytes)."""
+    sp.add(scan_gather_ns=gather_ns, scan_emit_ns=emit_ns,
+           scan_blocks=sum(sg.mcus_x * sg.mcus_y * h * v
+                           for _, h, v in sg.entries),
+           scan_bytes=len(data))
+
+
 def encode_scan_optimal(sg, dc_tbls, ac_tbls, restart: int,
                         device: bool = False) -> ScanResult:
     """Gather the scan's statistics, build optimal tables, emit it (on
-    the device with `device`)."""
+    the device with `device`). In a traced call the open span (the
+    image's "enc.entropy_image") sums the scan's counters."""
     scan = sg.scan
+    sp = stages.current()
+    t0 = sp.now() if sp is not None else 0
     _, dcc, acc = entenc.encode_scan(sg, dc_tbls, ac_tbls, {}, {}, restart,
                                      gather=True)
+    gather_ns = sp.now() - t0 if sp is not None else 0
     dc_tables: Dict[int, HuffTable] = {}
     ac_tables: Dict[int, HuffTable] = {}
     for ci in scan.comps:
@@ -1062,22 +1078,30 @@ def encode_scan_optimal(sg, dc_tbls, ac_tbls, restart: int,
             t = ac_tbls[ci]
             if t not in ac_tables and acc[t].any():
                 ac_tables[t] = entenc.gen_optimal_table(acc[t])
+    t1 = sp.now() if sp is not None else 0
     data = _emit(sg, dc_tbls, ac_tbls, dc_tables, ac_tables, restart,
                  device)
+    if sp is not None:
+        _count_scan(sp, sg, data, gather_ns, sp.now() - t1)
     return ScanResult(scan, data, dc_tables, ac_tables, dc_tbls, ac_tbls,
                       restart)
 
 
 def encode_scan_fixed(sg, dc_tbls, ac_tbls, dc_tables, ac_tables,
                       restart: int, device: bool = False) -> ScanResult:
-    """Emit the scan with the given (standard) tables."""
+    """Emit the scan with the given (standard) tables. In a traced call
+    the open span sums the scan's counters (no statistics pass: 0 ns)."""
     scan = sg.scan
     used_dc = {dc_tbls[ci]: dc_tables[dc_tbls[ci]] for ci in scan.comps
                if scan.Ss == 0 and scan.Ah == 0 and dc_tbls[ci] in dc_tables}
     used_ac = {ac_tbls[ci]: ac_tables[ac_tbls[ci]] for ci in scan.comps
                if scan.Se > 0 and ac_tbls[ci] in ac_tables}
+    sp = stages.current()
+    t0 = sp.now() if sp is not None else 0
     data = _emit(sg, dc_tbls, ac_tbls, dc_tables, ac_tables, restart,
                  device)
+    if sp is not None:
+        _count_scan(sp, sg, data, 0, sp.now() - t0)
     return ScanResult(scan, data, used_dc, used_ac, dc_tbls, ac_tbls,
                       restart)
 

@@ -106,6 +106,11 @@ class _Open:
         """Add integer attributes to the span."""
         self.attrs.update(attrs)
 
+    def add(self, **counts):
+        """Add to integer attributes of the span (from 0 where absent)."""
+        for k, v in counts.items():
+            self.attrs[k] = self.attrs.get(k, 0) + v
+
     def now(self) -> int:
         """The span clock's time, to stamp an event inside the span."""
         return _clock()
