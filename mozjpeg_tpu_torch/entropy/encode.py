@@ -115,7 +115,8 @@ def encode_scan(sg: ScanGeometry, dc_tbls: Dict[int, int],
               else so.mj_encode_ac_refine)
         n = fn(arr, scan.Ss, scan.Se, scan.Al, restart_interval,
                p(ac_co, native.u32p), p(ac_si, native.u8p),
-               p(out, native.u8p), out.size, p(ac_counts, native.i64p), g)
+               p(out, native.u8p), out.size, p(ac_counts, native.i64p), g,
+               None)
     del keep
     if n < 0:
         raise RuntimeError("entropy output buffer overflow")

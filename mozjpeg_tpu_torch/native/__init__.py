@@ -5,8 +5,9 @@ mj_scan_search with its optional SEARCH_STATS counters and the worker
 threads it codes candidates on (SearchWorkers), and the scan
 encoders mj_encode_seq and
 mj_encode_{dc,ac}_{first,refine} of entropy.cpp, which gather symbol
-counts or emit one scan, and mj_ac_refine_schedule, the AC-refinement
-EOB-run and correction-bit flush schedule of the device packers), what the decode path calls (the six Huffman
+counts or emit one scan (the AC coders' plain twins
+mj_encode_ac_{first,refine}_plain too, for the tests), and
+mj_ac_refine_schedule, the AC-refinement EOB-run and correction-bit flush schedule of the device packers), what the decode path calls (the six Huffman
 decoders mj_decode_seq, mj_decode_seq_par, mj_decode_{dc,ac}_{first,refine}
 and the warning counter mj_set_warnings / mj_get_warnings, all in
 entropy.cpp), the host engine's steps (hostenc.cpp: mj_host_p1,
@@ -60,10 +61,13 @@ class CompPlane(ctypes.Structure):
 
 # mj_scan_search's counters: the candidates whose size the selection read,
 # ns in the gather passes, the optimal tables, the emission passes (each
-# summed over every candidate coded) and the stitch, then the candidates
-# coded ahead of the selection and those of them it never read
+# summed over every candidate coded) and the stitch, the candidates coded
+# ahead of the selection and those of them it never read, then the blocks
+# the AC candidates' gather and emission passes walked and those of them
+# whose band was all zero after the point transform
 SEARCH_STATS = ("candidates", "gather_ns", "tables_ns", "emit_ns",
-                "stitch_ns", "ahead", "ahead_unused")
+                "stitch_ns", "ahead", "ahead_unused", "blocks",
+                "zero_blocks")
 
 
 class SearchComp(ctypes.Structure):
@@ -156,12 +160,19 @@ def _bind(so):
         cpp, cint, cint, cint, cint, cint, u32p, u8p, u8p, lng, i64p, cint]
     so.mj_encode_dc_refine.argtypes = [
         cpp, cint, cint, cint, cint, cint, u8p, lng]
+    # the AC coders' last argument: null, or the int64 [blocks walked,
+    # blocks with an empty band] they add to; their _plain twins (tests
+    # only) take none
     for fn in (so.mj_encode_ac_first, so.mj_encode_ac_refine):
+        fn.argtypes = [cpp, cint, cint, cint, cint, u32p, u8p, u8p, lng,
+                       i64p, cint, i64p]
+    for fn in (so.mj_encode_ac_first_plain, so.mj_encode_ac_refine_plain):
         fn.argtypes = [cpp, cint, cint, cint, cint, u32p, u8p, u8p, lng,
                        i64p, cint]
     for fn in (so.mj_encode_seq, so.mj_encode_dc_first,
                so.mj_encode_dc_refine, so.mj_encode_ac_first,
-               so.mj_encode_ac_refine):
+               so.mj_encode_ac_refine, so.mj_encode_ac_first_plain,
+               so.mj_encode_ac_refine_plain):
         fn.restype = lng
     so.mj_ac_refine_schedule.restype = lng
     so.mj_ac_refine_schedule.argtypes = [i32p, i32p, i32p, lng, lng] \

@@ -5,8 +5,11 @@ this module, taken byte for byte from the JAX package's mozjpeg_tpu/native
 at commit 0d0dbf6, compile into a library of the port's own under
 mozjpeg_tpu_torch/_build/. Nothing outside the port's package is read.
 Since then the port's scansearch.cpp has gained the search's counters and
-the worker threads that every search in flight shares; the JAX package's
-copy has neither.
+the worker threads that every search in flight shares, and its
+entropy.cpp codes the progressive AC scans by a per-block nonzero bitmap
+(an AVX2 prepare where -march=native offers it, a scalar one otherwise)
+beside the old coders as plain twins; the JAX package's copies have
+none of these.
 The sources:
 
   entropy.cpp     mj_gen_optimal_table, the scan encoders and decoders,

@@ -18,6 +18,9 @@
 #include <cstdlib>
 #include <thread>
 #include <vector>
+#if defined(__AVX2__)
+#include <immintrin.h>
+#endif
 
 namespace {
 
@@ -284,8 +287,11 @@ long mj_encode_dc_refine(const CompPlane* comps, int ncomp,
 }
 
 // ---------------------------------------------------------------------------
-// Progressive AC scans (single component, non-interleaved by spec).
-// State for EOB runs and correction bits matches jcphuff.c.
+// Progressive AC scans (single component, non-interleaved by spec), the
+// plain twins: every coefficient of the band tested one at a time. No
+// path of the program calls them; tests hold mj_encode_ac_first and
+// mj_encode_ac_refine (the bitmap walk, after the extern "C" block) to
+// them. State for EOB runs and correction bits matches jcphuff.c.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -310,11 +316,11 @@ struct ACState {
 
 }  // namespace
 
-long mj_encode_ac_first(const CompPlane* comp,
-                        int Ss, int Se, int Al, int restart_interval,
-                        const uint32_t* ac_co, const uint8_t* ac_si,
-                        uint8_t* out, long cap,
-                        int64_t* ac_counts, int gather) {
+long mj_encode_ac_first_plain(const CompPlane* comp,
+                              int Ss, int Se, int Al, int restart_interval,
+                              const uint32_t* ac_co, const uint8_t* ac_si,
+                              uint8_t* out, long cap,
+                              int64_t* ac_counts, int gather) {
   BitWriter bw; bw.init(out, cap);
   Tables T{nullptr, nullptr, ac_co, ac_si, nullptr, ac_counts, gather != 0, &bw};
   const CompPlane& c = *comp;
@@ -363,11 +369,11 @@ long mj_encode_ac_first(const CompPlane* comp,
   return bw.pos;
 }
 
-long mj_encode_ac_refine(const CompPlane* comp,
-                         int Ss, int Se, int Al, int restart_interval,
-                         const uint32_t* ac_co, const uint8_t* ac_si,
-                         uint8_t* out, long cap,
-                         int64_t* ac_counts, int gather) {
+long mj_encode_ac_refine_plain(const CompPlane* comp,
+                               int Ss, int Se, int Al, int restart_interval,
+                               const uint32_t* ac_co, const uint8_t* ac_si,
+                               uint8_t* out, long cap,
+                               int64_t* ac_counts, int gather) {
   BitWriter bw; bw.init(out, cap);
   Tables T{nullptr, nullptr, ac_co, ac_si, nullptr, ac_counts, gather != 0, &bw};
   const CompPlane& c = *comp;
@@ -1054,6 +1060,307 @@ long mj_decode_ac_refine(const uint8_t* data, long len,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Progressive AC scans through a per-block bitmap of the band's nonzero
+// coefficients (jcphuff.c's encode_mcu_AC_first_prepare and
+// encode_mcu_AC_refine_prepare, SIMD in libjpeg-turbo's jcphuff-sse2.asm).
+// Per block, a prepare step computes the magnitudes after the point
+// transform, the value bits JPEG emits and a 64-bit mask of the
+// coefficients that are nonzero after the transform, cut to the band;
+// the coder then visits only the mask's set bits, each found by count
+// trailing zeros, and a block whose mask is empty goes straight to the
+// EOB run. The prepare is AVX2 where the build targets it (-march=native)
+// and a scalar loop otherwise; both give the same values. Symbols, bits,
+// counts and return values are those of the _plain twins above.
+// ---------------------------------------------------------------------------
+namespace {
+
+// the bits Ss..Se of a 64-bit mask
+static inline uint64_t band_mask(int Ss, int Se) {
+  return (~0ULL >> (63 - Se)) & (~0ULL << Ss);
+}
+
+// Prepare one block: mag[k] = |c| >> Al, and with vals, vals[k] = mag[k]
+// XOR the sign (the first scan's value bits: the complement for a
+// negative coefficient). Returns the mask of nonzero mag[k], and in
+// *ones that of mag[k] == 1 (refinement scans: the newly nonzero
+// coefficients).
+template <bool with_vals, bool with_ones>
+static inline uint64_t prepare(const int16_t* blk, int Al, uint16_t* mag,
+                               uint16_t* vals, uint64_t* ones) {
+#if defined(__AVX2__)
+  const __m128i sh = _mm_cvtsi32_si128(Al);
+  const __m256i zero = _mm256_setzero_si256();
+  const __m256i one = _mm256_set1_epi16(1);
+  __m256i z[4], o[4];
+  for (int v = 0; v < 4; v++) {
+    const __m256i x =
+        _mm256_loadu_si256(reinterpret_cast<const __m256i*>(blk + 16 * v));
+    // abs(-32768) stays 0x8000, which the logical shift reads as 32768
+    const __m256i a = _mm256_srl_epi16(_mm256_abs_epi16(x), sh);
+    _mm256_storeu_si256(reinterpret_cast<__m256i*>(mag + 16 * v), a);
+    if constexpr (with_vals)
+      _mm256_storeu_si256(reinterpret_cast<__m256i*>(vals + 16 * v),
+                          _mm256_xor_si256(a, _mm256_srai_epi16(x, 15)));
+    z[v] = _mm256_cmpeq_epi16(a, zero);
+    if constexpr (with_ones) o[v] = _mm256_cmpeq_epi16(a, one);
+  }
+  // 16-bit lanes of two vectors -> bytes in coefficient order -> bits
+  auto bits32 = [](__m256i lo, __m256i hi) {
+    return (uint32_t)_mm256_movemask_epi8(
+        _mm256_permute4x64_epi64(_mm256_packs_epi16(lo, hi), 0xD8));
+  };
+  if constexpr (with_ones)
+    *ones = bits32(o[0], o[1]) | (uint64_t)bits32(o[2], o[3]) << 32;
+  return ~(bits32(z[0], z[1]) | (uint64_t)bits32(z[2], z[3]) << 32);
+#else
+  uint64_t nz = 0, om = 0;
+  for (int k = 0; k < 64; k++) {
+    const int x = blk[k];
+    const uint16_t a = (uint16_t)((x < 0 ? -x : x) >> Al);
+    mag[k] = a;
+    if (with_vals) vals[k] = (uint16_t)(a ^ (x < 0 ? 0xFFFF : 0));
+    nz |= (uint64_t)(a != 0) << k;
+    if (with_ones) om |= (uint64_t)(a == 1) << k;
+  }
+  if (with_ones) *ones = om;
+  return nz;
+#endif
+}
+
+// The walk's output: symbol counts (gather) or Huffman codes written
+// with their value bits in one put (emission).
+template <bool gather>
+struct ACOut {
+  BitWriter* bw;
+  const uint32_t* co; const uint8_t* si;   // the scan's table
+  int64_t* counts;                          // [257] (gather)
+
+  // symbol sym followed by the n low bits of v (n in [0, 16])
+  inline void sym(int sym, uint32_t v, int n) {
+    if (gather) { counts[sym]++; return; }
+    const int s = si[sym];
+    if (s == 0) { bw->overflow = true; return; }  // JERR_MISSING_HUFF
+    put((uint64_t)co[sym] << n | (v & ((1u << n) - 1)), s + n);
+  }
+  // size in [1, 32]; whole bytes leave the accumulator four at a time,
+  // so up to 31 bits stay in it between puts
+  inline void put(uint64_t code, int size) {
+    BitWriter& w = *bw;
+    w.acc |= (code & ((1ULL << size) - 1)) << (64 - w.nbits - size);
+    w.nbits += size;
+    if (w.nbits < 32) return;
+    const uint32_t top = (uint32_t)(w.acc >> 32);
+    if (((~top - 0x01010101u) & top & 0x80808080u) == 0
+        && w.pos + 4 <= w.cap) {   // no 0xFF byte to stuff
+      const uint32_t be = __builtin_bswap32(top);
+      memcpy(w.out + w.pos, &be, 4);
+      w.pos += 4;
+    } else {
+      for (int i = 0; i < 4; i++) {
+        const uint8_t b = (uint8_t)(top >> (24 - 8 * i));
+        w.put_byte(b);
+        if (b == 0xFF) w.put_byte(0x00);
+      }
+    }
+    w.acc <<= 32;
+    w.nbits -= 32;
+  }
+  // the n (up to 64) bits of v, first bit the most significant
+  inline void bits(uint64_t v, int n) {
+    if (gather) return;
+    while (n > 32) { n -= 32; put(v >> n, 32); }
+    if (n > 0) put(v, n);
+  }
+};
+
+// EOB runs and the refinement scans' buffered correction bits (BE of
+// them, packed first bit first), as jcphuff.c keeps them.
+template <bool gather>
+struct ACRun {
+  ACOut<gather>& o;
+  unsigned eobrun = 0;
+  int BE = 0;
+  uint64_t corr[16] = {0};   // up to 937 + 63 bits
+
+  explicit ACRun(ACOut<gather>& o_) : o(o_) {}
+
+  void add_bits(uint64_t v, int n) {   // n in [0, 63]
+    if (gather) { BE += n; return; }
+    if (n == 0) return;
+    const int w = BE >> 6, b = BE & 63, room = 64 - b;
+    v &= ~0ULL >> (64 - n);
+    if (n <= room) {
+      corr[w] |= v << (room - n);
+    } else {
+      corr[w] |= v >> (n - room);
+      corr[w + 1] = v << (64 - (n - room));
+    }
+    BE += n;
+  }
+  void emit() {
+    if (eobrun == 0) return;
+    const int n = jpeg_nbits((int)eobrun) - 1;
+    o.sym(n << 4, eobrun, n);
+    eobrun = 0;
+    if (!gather) {
+      int left = BE;
+      for (int w = 0; left > 0; w++, left -= 64) {
+        const int m = left < 64 ? left : 64;
+        o.bits(corr[w] >> (64 - m), m);
+        corr[w] = 0;
+      }
+    }
+    BE = 0;
+  }
+  // a block that ends on zeros (or pending correction bits)
+  void add_block() {
+    eobrun++;
+    if (eobrun == 0x7FFF || BE > 1000 - 64 + 1) emit();
+  }
+};
+
+template <bool gather, bool refine>
+long ac_walk(const CompPlane& c, int Ss, int Se, int Al,
+             int restart_interval, ACOut<gather>& o, int64_t* walked) {
+  BitWriter& bw = *o.bw;
+  ACRun<gather> S(o);
+  const uint64_t band = band_mask(Ss, Se);
+  alignas(32) uint16_t mag[64], vals[64];
+  int restarts_to_go = restart_interval;
+  int next_restart = 0;
+  long zero_blocks = 0;
+
+  for (long by = 0; by < c.bh; by++) {
+    const int16_t* row = c.coef + by * c.stride * 64;
+    for (long bx = 0; bx < c.bw; bx++) {
+      if (restart_interval && restarts_to_go == 0) {
+        S.emit();
+        if (!gather) bw.restart_marker(next_restart);
+        next_restart = (next_restart + 1) & 7;
+        restarts_to_go = restart_interval;
+        S.eobrun = 0; S.BE = 0;
+      }
+      if (restart_interval) restarts_to_go--;
+      const int16_t* blk = row + bx * 64;
+      uint64_t ones = 0;
+      uint64_t m = prepare<!gather && !refine, refine>(
+          blk, Al, mag, vals, &ones) & band;
+      if (m == 0) {  // the band is all zero: one more block of the run
+        zero_blocks++;
+        S.add_block();
+        continue;
+      }
+      int prev = Ss - 1;
+      if (!refine) {
+        S.emit();
+        do {
+          const int k = __builtin_ctzll(m);
+          m &= m - 1;
+          int r = k - prev - 1;
+          prev = k;
+          while (r > 15) { o.sym(0xF0, 0, 0); r -= 16; }
+          const int nb = jpeg_nbits(mag[k]);
+          o.sym((r << 4) + nb, vals[k], nb);
+        } while (m);
+        if (prev < Se) S.add_block();
+        continue;
+      }
+      // refinement: EOB is the last newly nonzero coefficient; those
+      // nonzero before are one correction bit each, buffered
+      ones &= band;
+      const int EOB = ones ? 63 - __builtin_clzll(ones) : Ss - 1;
+      int r = 0, BR = 0;
+      uint64_t cb = 0;
+      do {
+        const int k = __builtin_ctzll(m);
+        m &= m - 1;
+        r += k - prev - 1;
+        prev = k;
+        while (r > 15 && k <= EOB) {
+          S.emit();
+          o.sym(0xF0, 0, 0);
+          r -= 16;
+          o.bits(cb, BR);
+          cb = 0; BR = 0;
+        }
+        if (mag[k] > 1) {
+          cb = cb << 1 | (mag[k] & 1);
+          BR++;
+          continue;
+        }
+        S.emit();
+        o.sym((r << 4) + 1, blk[k] < 0 ? 0u : 1u, 1);   // the sign bit
+        o.bits(cb, BR);
+        cb = 0; BR = 0;
+        r = 0;
+      } while (m);
+      r += Se - prev;
+      if (r > 0 || BR > 0) {
+        S.add_bits(cb, BR);
+        S.add_block();
+      }
+    }
+  }
+  S.emit();
+  if (walked) {
+    walked[0] += (long)c.bw * c.bh;
+    walked[1] += zero_blocks;
+  }
+  if (!gather) bw.flush();
+  if (bw.overflow) return -1;
+  return bw.pos;
+}
+
+template <bool refine>
+long ac_scan(const CompPlane* comp, int Ss, int Se, int Al,
+             int restart_interval, const uint32_t* ac_co,
+             const uint8_t* ac_si, uint8_t* out, long cap,
+             int64_t* ac_counts, int gather, int64_t* walked) {
+  BitWriter bw; bw.init(out, cap);
+  const CompPlane& c = *comp;
+  if (gather) {
+    ACOut<true> o{&bw, nullptr, nullptr, ac_counts + c.ac_tbl * 257};
+    return ac_walk<true, refine>(c, Ss, Se, Al, restart_interval, o,
+                                 walked);
+  }
+  ACOut<false> o{&bw, ac_co + c.ac_tbl * 256, ac_si + c.ac_tbl * 256,
+               nullptr};
+  return ac_walk<false, refine>(c, Ss, Se, Al, restart_interval, o,
+                                walked);
+}
+
+}  // namespace
+
+// Progressive AC first (Ah = 0) and refinement scans of one component.
+// Returns the bytes written, -1 on buffer overflow or a missing code;
+// gather != 0: only accumulate symbol counts. walked: null, or two int64
+// counters the call adds to: the blocks walked and those whose band was
+// all zero after the point transform.
+extern "C" long mj_encode_ac_first(const CompPlane* comp,
+                                   int Ss, int Se, int Al,
+                                   int restart_interval,
+                                   const uint32_t* ac_co,
+                                   const uint8_t* ac_si,
+                                   uint8_t* out, long cap,
+                                   int64_t* ac_counts, int gather,
+                                   int64_t* walked) {
+  return ac_scan<false>(comp, Ss, Se, Al, restart_interval, ac_co, ac_si,
+                        out, cap, ac_counts, gather, walked);
+}
+
+extern "C" long mj_encode_ac_refine(const CompPlane* comp,
+                                    int Ss, int Se, int Al,
+                                    int restart_interval,
+                                    const uint32_t* ac_co,
+                                    const uint8_t* ac_si,
+                                    uint8_t* out, long cap,
+                                    int64_t* ac_counts, int gather,
+                                    int64_t* walked) {
+  return ac_scan<true>(comp, Ss, Se, Al, restart_interval, ac_co, ac_si,
+                       out, cap, ac_counts, gather, walked);
+}
 
 // ---------------------------------------------------------------------------
 // AC-refinement flush schedule for the device bit-packer (ops/bitpack.py).

@@ -46,10 +46,10 @@ long mj_encode_dc_first(const CompPlane*, int, int, int, int, int,
                         int64_t*, int);
 long mj_encode_ac_first(const CompPlane*, int, int, int, int,
                         const uint32_t*, const uint8_t*, uint8_t*, long,
-                        int64_t*, int);
+                        int64_t*, int, int64_t*);
 long mj_encode_ac_refine(const CompPlane*, int, int, int, int,
                          const uint32_t*, const uint8_t*, uint8_t*, long,
-                         int64_t*, int);
+                         int64_t*, int, int64_t*);
 long mj_gen_optimal_table(int64_t*, uint8_t*, uint8_t*);
 }
 
@@ -150,11 +150,13 @@ struct SearchComp {
 // [1] the gather passes, [2] building the optimal tables, [3] the
 // emission passes with each candidate's DHT/DRI/SOS buffer, [4] ordering
 // and stitching the winners; [5] the candidates coded ahead of the
-// selection and [6] those of them it never read. Times are summed over
-// every candidate coded, on whichever worker coded it. With a null
-// pointer no clock is read.
+// selection and [6] those of them it never read; [7] the blocks the AC
+// candidates' gather and emission passes walked and [8] those of them
+// whose band was all zero after the point transform. Times and blocks
+// are summed over every candidate coded, on whichever worker coded it.
+// With a null pointer no clock is read and no block counted.
 enum { ST_CANDIDATES, ST_GATHER, ST_TABLES, ST_EMIT, ST_STITCH, ST_AHEAD,
-       ST_AHEAD_UNUSED, SEARCH_STATS };
+       ST_AHEAD_UNUSED, ST_BLOCKS, ST_ZERO_BLOCKS, SEARCH_STATS };
 
 namespace {
 
@@ -258,15 +260,16 @@ struct Search {
   }
 
   long code(int sn, const SScan& sc, std::vector<uint8_t>& ent,
-            int64_t t[3]);
+            int64_t t[5]);
   void select();
 };
 
 // Codes candidate sn into bufs[sn] (DHT + [DRI] + SOS + entropy data, the
 // _scan_buffer layout) with the scratch `ent` -> the buffer's size, or -1;
-// t gets the ns of the gather, the tables and the emission.
+// when timed, t gets the ns of the gather, the tables and the emission,
+// then the blocks the AC passes walked and those with an empty band.
 long Search::code(int sn, const SScan& sc, std::vector<uint8_t>& ent,
-                  int64_t t[3]) {
+                  int64_t t[5]) {
   const int r = restarts[sn];
   CompPlane cp[3];
   int smx, smy;
@@ -291,16 +294,17 @@ long Search::code(int sn, const SScan& sc, std::vector<uint8_t>& ent,
   int64_t acc[2 * 257]; memset(acc, 0, sizeof(acc));
   const bool is_dc = sc.Ss == 0;
   const bool refine = sc.Ah != 0;
+  int64_t* walked = timed ? t + 3 : nullptr;
   long rc = 0;
   if (is_dc && !refine) {
     rc = mj_encode_dc_first(cp, sc.nc, smx, smy, r, sc.Al, nullptr,
                             nullptr, ent.data(), ent_cap, dcc, 1);
   } else if (!is_dc && !refine) {
     rc = mj_encode_ac_first(cp, sc.Ss, sc.Se, sc.Al, r, nullptr, nullptr,
-                            ent.data(), ent_cap, acc, 1);
+                            ent.data(), ent_cap, acc, 1, walked);
   } else if (!is_dc) {
     rc = mj_encode_ac_refine(cp, sc.Ss, sc.Se, sc.Al, r, nullptr, nullptr,
-                             ent.data(), ent_cap, acc, 1);
+                             ent.data(), ent_cap, acc, 1, walked);
   }
   if (rc < 0) return -1;
 
@@ -349,10 +353,10 @@ long Search::code(int sn, const SScan& sc, std::vector<uint8_t>& ent,
                            ent.data(), ent_cap, nullptr, 0);
   } else if (!is_dc && !refine) {
     n = mj_encode_ac_first(cp, sc.Ss, sc.Se, sc.Al, r, ac_co, ac_si,
-                           ent.data(), ent_cap, nullptr, 0);
+                           ent.data(), ent_cap, nullptr, 0, walked);
   } else if (!is_dc) {
     n = mj_encode_ac_refine(cp, sc.Ss, sc.Se, sc.Al, r, ac_co, ac_si,
-                            ent.data(), ent_cap, nullptr, 0);
+                            ent.data(), ent_cap, nullptr, 0, walked);
   }
   if (n < 0) return -1;
 
@@ -555,7 +559,7 @@ struct Workers {
       const SScan sc = s->scan(i);
       lk.unlock();
       if ((long)ent.size() < s->ent_cap) ent.resize(s->ent_cap);
-      int64_t t[3] = {0, 0, 0};
+      int64_t t[5] = {0, 0, 0, 0, 0};
       const long sz = s->code(i, sc, ent, t);
       lk.lock();
       s->coding[i] = false;
@@ -567,6 +571,8 @@ struct Workers {
         s->done[i] = true;
       }
       for (int k = 0; k < 3; k++) s->counts[ST_GATHER + k] += t[k];
+      s->counts[ST_BLOCKS] += t[3];
+      s->counts[ST_ZERO_BLOCKS] += t[4];
       advance(*s);
       if (s->over() && s->inflight == 0) s->finished.notify_all();
       work.notify_all();

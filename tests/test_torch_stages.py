@@ -11,7 +11,8 @@
   all kept once, with unique ids, in the block's list and the buffer.
 - The native search's candidate counter equals the get_size calls of the
   Python search on the same planes (gray and YCbCr), and the search
-  gives the same bytes with and without its counters.
+  gives the same bytes with and without its counters; its AC coders
+  count the blocks they walk and those with an empty band.
 - The native search's shared workers give the Python search's bytes and
   candidate counts for any number of searches in flight on any number of
   workers, with and without restarts, and under three threads calling
@@ -121,6 +122,23 @@ def test_spans_nest_and_pool_spans_join_their_call(runs, kind):
         assert s.attrs["queued_ns"] >= 0 and s.attrs["candidates"] > 0
         assert all(s.attrs[k] > 0 for k in native.SEARCH_STATS[:5])
         assert 0 <= s.attrs["ahead_unused"] <= s.attrs["ahead"]
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_traced_searches_count_the_blocks_they_walk(runs, kind):
+    """The AC candidates' gather and emission passes count every block
+    they walk, and those whose band is empty, with the bytes unchanged:
+    in gray, each coded candidate but the DC one walks the 6x8 blocks
+    twice."""
+    plain, traced, got, _ = runs[kind]
+    assert traced == plain
+    imgs = [s.attrs for s in got if s.name == "enc.entropy_image"]
+    assert len(imgs) == 2
+    for a in imgs:
+        assert 0 < a["zero_blocks"] < a["blocks"]
+        if kind == "gray":
+            coded = a["candidates"] + a["ahead_unused"]
+            assert a["blocks"] == 2 * 48 * (coded - 1)
 
 
 @pytest.mark.parametrize("kind", list(SHAPES))
